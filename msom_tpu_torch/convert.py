@@ -7,9 +7,10 @@ the port; `state_to_numpy` is its inverse. msqg has no learned weights:
 every constant is derived from the config by `build_constants`.
 
 The `key` leaf, the JAX PRNG key, is ignored: only stochastic forcing draws
-from it, which is outside this slice, and a jax.random stream cannot be
-continued in torch. Leaves of unported features (tracers, the filter mean
-qof/nbar, the multigrid's psi_old) raise NotImplementedError.
+from it, which is not ported, and a jax.random stream cannot be continued
+in torch. The `tracers` leaf (nl, nptr, N, N) is carried when present.
+Leaves of unported features (the filter mean qof/nbar, the multigrid's
+psi_old) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -20,12 +21,13 @@ import torch
 from msom_tpu_torch.models.qg import QGState, _torch_dtype
 from msom_tpu_torch.params import QGConfig
 
-_UNPORTED = ("tracers", "qof", "nbar", "psi_old")
+_UNPORTED = ("qof", "nbar", "psi_old")
 
 
 def state_from_numpy(cfg: QGConfig, leaves, device="cuda") -> QGState:
     """The port's QGState on `device` from a mapping of numpy arrays with
-    the leaves q, psi, t, dt_prev, i (as `save_state` writes them)."""
+    the leaves q, psi, t, dt_prev, i and, with tracers, tracers (as
+    `save_state` writes them)."""
     for name in _UNPORTED:
         if name in leaves:
             raise NotImplementedError(
@@ -34,7 +36,7 @@ def state_from_numpy(cfg: QGConfig, leaves, device="cuda") -> QGState:
     dtype = _torch_dtype(cfg)
     shape = (cfg.nl, cfg.N, cfg.N)
 
-    def field(name):
+    def field(name, shape=shape):
         a = np.asarray(leaves[name])
         if a.shape != shape:
             raise ValueError(f"leaf {name!r} has shape {a.shape}, the "
@@ -44,12 +46,19 @@ def state_from_numpy(cfg: QGConfig, leaves, device="cuda") -> QGState:
     def scalar(name, dt):
         return torch.as_tensor(np.asarray(leaves[name]), dtype=dt).to(device)
 
+    if ("tracers" in leaves) != (cfg.nptr > 0):
+        raise ValueError(f"the config has nptr = {cfg.nptr} but the leaves "
+                         f"{'hold' if 'tracers' in leaves else 'lack'} "
+                         "tracers")
+    tracers = field("tracers", (cfg.nl, cfg.nptr, cfg.N, cfg.N)) \
+        if cfg.nptr > 0 else None
     return QGState(q=field("q"), psi=field("psi"), t=scalar("t", dtype),
                    dt_prev=scalar("dt_prev", dtype),
-                   i=scalar("i", torch.int32))
+                   i=scalar("i", torch.int32), tracers=tracers)
 
 
 def state_to_numpy(state: QGState) -> dict:
     """The leaves of `state` as host numpy arrays, in save_state's names."""
-    return {name: getattr(state, name).cpu().numpy()
-            for name in ("q", "psi", "t", "dt_prev", "i")}
+    names = ("q", "psi", "t", "dt_prev", "i") \
+        + (("tracers",) if state.tracers is not None else ())
+    return {name: getattr(state, name).cpu().numpy() for name in names}

@@ -1,10 +1,13 @@
 """Fused msqg tendency: kernel K1 of the port.
 
-`rhs_fused(cfg, const, psi) -> (dq, umax)` computes what the JAX package's
-Pallas kernel (`msom_tpu.models.pallas_rhs.rhs_fused`, `_rhs_kernel`)
-computes for the walled, free-slip, uncoupled configuration: the whole
-update_qg tendency and the (nl,) per-layer maximum |face velocity| for the
-CFL controller.
+`rhs_fused(cfg, const, psi, q=None) -> (dq, umax)` computes what the JAX
+package's Pallas kernel (`msom_tpu.models.pallas_rhs.rhs_fused`,
+`_rhs_kernel`) computes for the walled configurations: the whole update_qg
+tendency, with the options the constants and the config switch on (the
+large-scale streamfunction pp and its cascade cross terms, _LS_RV,
+topography, the 3-D forcing, ENERGY_CONSERV advection of `q`, partial-slip
+ghosts), and the (nl,) per-layer maximum |face velocity| of psi for the CFL
+controller (the pp part of that chain is const.umax_pp, made at build).
 
 On a CUDA tensor it launches the hand-written Hopper kernel in
 `csrc/fused_rhs.cu` (built at first use by `_build`, bound with ctypes) or
@@ -31,13 +34,15 @@ SMEM_LIMIT = 232448          # shared memory one block may use on sm_90
 launches = 0
 
 
-def rhs_fused_reference(cfg, const, psi: torch.Tensor):
+def rhs_fused_reference(cfg, const, psi: torch.Tensor,
+                        q: torch.Tensor | None = None):
     """The plain PyTorch version: (dq, umax) from qg.rhs and
     max_face_speed_layers, on any device."""
     from msom_tpu_torch.models import qg
     psi_g = ghosted(psi, BC.DIRICHLET)
     zeta = laplacian_g(psi_g, cfg.delta)
-    dq = qg.rhs(cfg, const, psi_g, zeta, qg._ghost_deriv(zeta))
+    dq, _ = qg.rhs(cfg, const, q, psi_g, zeta,
+                   qg._ghost_deriv(cfg, zeta, psi_g))
     return dq, max_face_speed_layers(psi_g, cfg.delta)
 
 
@@ -48,12 +53,12 @@ def _lib():
     ptr = ctypes.c_void_p
     dbl = ctypes.POINTER(ctypes.c_double)
     for fn in (lib.fused_rhs_f32, lib.fused_rhs_f64):
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
-                       dbl, dbl, dbl, ptr]
+        fn.argtypes = [ctypes.POINTER(ptr), ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, dbl, dbl, dbl, ptr]
         fn.restype = ctypes.c_int
     lib.fused_rhs_num_blocks.argtypes = [ctypes.c_int]
     lib.fused_rhs_num_blocks.restype = ctypes.c_int
-    lib.fused_rhs_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.fused_rhs_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.fused_rhs_smem_bytes.restype = ctypes.c_longlong
     lib.fused_rhs_error_string.argtypes = [ctypes.c_int]
     lib.fused_rhs_error_string.restype = ctypes.c_char_p
@@ -64,12 +69,25 @@ def _doubles(vals):
     return (ctypes.c_double * len(vals))(*vals)
 
 
-def rhs_fused(cfg, const, psi: torch.Tensor):
+def _options(cfg, const):
+    """The kernel's coupling options from the config and the constants:
+    (pp, flsrv, topo, iro, qforc, need_q, cslip). The advection block, pp
+    terms included, does not run at nl == 1, so pp is dropped there."""
+    has_pg = const.pp is not None and cfg.nl > 1
+    cslip = cfg.sbc / ((0.5 * cfg.sbc + 1.0) * cfg.delta ** 2) \
+        if cfg.sbc > 0 else 0.0
+    return (const.pp if has_pg else None,
+            bool(has_pg and const.zetap_pad is not None),
+            const.topo, const.iro, const.qforc,
+            bool(cfg.energy_conserv and cfg.nl > 1), cslip)
+
+
+def rhs_fused(cfg, const, psi: torch.Tensor, q: torch.Tensor | None = None):
     """(dq, umax): the kernel on a CUDA tensor, the plain version on a CPU
-    tensor."""
+    tensor. `q` is needed for ENERGY_CONSERV advection only."""
     global launches
     if psi.device.type == "cpu":
-        return rhs_fused_reference(cfg, const, psi)
+        return rhs_fused_reference(cfg, const, psi, q)
     if psi.device.type != "cuda":
         raise ValueError(f"rhs_fused: unsupported device {psi.device}")
     nl, N = cfg.nl, cfg.N
@@ -78,34 +96,47 @@ def rhs_fused(cfg, const, psi: torch.Tensor):
     if tuple(psi.shape) != (nl, N, N) or not psi.is_contiguous():
         raise ValueError(f"rhs_fused: psi must be a contiguous {(nl, N, N)} "
                          f"tensor, got {tuple(psi.shape)}")
-    profiles = [("wind", const.wind, (N, 1))]
+    pp, flsrv, topo, iro, qforc, need_q, cslip = _options(cfg, const)
+    if cfg.energy_conserv and q is None:
+        raise ValueError("rhs_fused: ENERGY_CONSERV advection needs q")
+    fields = [("const.wind", const.wind, (N, 1)), ("const.pp", pp, (nl, N, N)),
+              ("const.topo", topo, (N, N)), ("const.iro", iro, (N, 1)),
+              ("const.qforc", qforc, (nl, N, N)),
+              ("q", q if need_q else None, (nl, N, N))]
     if nl > 1:
-        profiles.append(("strl", const.strl, (nl - 1, N, 1)))
-    for name, t, shape in profiles:
+        fields.append(("const.strl", const.strl, (nl - 1, N, 1)))
+    for name, t, shape in fields:
+        if t is None and name not in ("const.wind", "const.strl"):
+            continue
         if (t is None or tuple(t.shape) != shape or t.device != psi.device
                 or t.dtype != psi.dtype or not t.is_contiguous()):
-            raise ValueError(f"rhs_fused: const.{name} must be a contiguous "
-                             f"{psi.dtype} y-profile {shape} on {psi.device}")
+            raise ValueError(f"rhs_fused: {name} must be a contiguous "
+                             f"{psi.dtype} tensor {shape} on {psi.device}")
     lib = _lib()
-    smem = lib.fused_rhs_smem_bytes(nl, psi.element_size())
+    smem = lib.fused_rhs_smem_bytes(nl, psi.element_size(),
+                                    int(pp is not None), int(flsrv))
     if smem > SMEM_LIMIT:
-        raise ValueError(f"rhs_fused: nl = {nl} needs {smem} B of shared "
-                         f"memory per block, more than {SMEM_LIMIT}")
+        raise ValueError(f"rhs_fused: nl = {nl} with these options needs "
+                         f"{smem} B of shared memory per block, more than "
+                         f"{SMEM_LIMIT}")
     dq = torch.empty_like(psi)
     umax_part = torch.empty((lib.fused_rhs_num_blocks(N), nl),
                             dtype=psi.dtype, device=psi.device)
     dh = cfg.dh
     scal = _doubles([cfg.delta, cfg.beta, cfg.iRe, cfg.iRe4,
                      cfg.Eks / (cfg.Rom * 2 * dh[0]),
-                     cfg.Ekb / (cfg.Rom * 2 * dh[nl - 1])])
+                     cfg.Ekb / (cfg.Rom * 2 * dh[nl - 1]), cslip])
     fn = lib.fused_rhs_f32 if psi.dtype == torch.float32 \
         else lib.fused_rhs_f64
-    strl = const.strl.data_ptr() if nl > 1 else None
+    # the order of csrc/fused_rhs.cu's `Ptr` enumeration; absent fields null
+    tensors = [psi, const.strl if nl > 1 else None, const.wind, dq, umax_part,
+               pp, q if need_q else None, topo, iro, qforc]
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
     with torch.cuda.device(psi.device):
         stream = torch.cuda.current_stream(psi.device).cuda_stream
-        rc = fn(psi.data_ptr(), strl, const.wind.data_ptr(),
-                dq.data_ptr(), umax_part.data_ptr(), N, nl, scal,
-                _doubles(const.idh0), _doubles(const.idh1), stream)
+        rc = fn(ptrs, N, nl, int(flsrv), scal, _doubles(const.idh0),
+                _doubles(const.idh1), stream)
     if rc != 0:
         raise RuntimeError("fused_rhs launch failed: "
                            + lib.fused_rhs_error_string(rc).decode())
@@ -113,21 +144,40 @@ def rhs_fused(cfg, const, psi: torch.Tensor):
     return dq, umax_part.amax(dim=0)
 
 
-def bound_work(N: int, nl: int, itemsize: int, iRe: float, iRe4: float):
-    """(bytes, operations) that the tendency needs at least: psi read and dq
-    written once, plus the y-profiles read and the (nl,) maxima written,
-    and the arithmetic counted per cell and layer from the formula, not
-    from the kernel's redundant halo work. Used for the roofline bound."""
+def bound_work(cfg, const, itemsize: int):
+    """(bytes, operations) that the tendency needs at least: every input
+    field read once (psi and, where the options bring them, pp, q, topo,
+    qforc), dq written once, plus the y-profiles read and the (nl,) maxima
+    written, and the arithmetic counted per cell and layer from the
+    formula, not from the kernel's redundant halo work. Used for the
+    roofline bound."""
+    N, nl = cfg.N, cfg.nl
+    pp, flsrv, topo, _, qforc, need_q, cslip = _options(cfg, const)
     cells = N * N * nl
-    nbytes = 2 * cells * itemsize + (N * nl + nl) * itemsize
+    planes = 2 * nl + (nl if pp is not None else 0) + (nl if need_q else 0) \
+        + (1 if topo is not None else 0) + (nl if qforc is not None else 0)
+    nbytes = (planes * N * N + N * nl + nl
+              + (N if topo is not None else 0)) * itemsize
     gamma = 8 if nl > 1 else 0   # Gamma(.) at one cell
+    jac = 32                     # one 12-point Arakawa bracket
     ops = 6 + 27 + 4             # zeta Laplacian, face speeds, wind/Ekman
     if nl > 1:
-        ops += 32 + 3 + 32 + 6   # -J(psi, zeta), beta, interface -J, cascade
-    if iRe != 0.0 or iRe4 != 0.0:
+        ops += jac + 3 + 6       # self advection, beta, cascade weights
+        if not need_q:
+            ops += jac           # interface -J(psi_l, psi_l+1)
+        if pp is not None:
+            ops += 3 * jac + 3   # -J(pp, zeta) and the two cross terms
+        if flsrv:
+            ops += 6 + jac + 1   # zetap = lap pp, -J(psi, zetap)
+    if cfg.iRe != 0.0 or cfg.iRe4 != 0.0:
         ops += 6                 # tmp = lap zeta
-    if iRe != 0.0:
+    if cfg.iRe != 0.0:
         ops += 2 + gamma
-    if iRe4 != 0.0:
+    if cfg.iRe4 != 0.0:
         ops += 6 + 2 + gamma     # lap tmp
-    return nbytes, ops * cells
+    total = ops * cells
+    if topo is not None:
+        total += (jac + 2) * N * N      # bottom layer only
+    if qforc is not None:
+        total += cells
+    return nbytes, total

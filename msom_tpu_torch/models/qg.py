@@ -1,17 +1,22 @@
 """Multi-layer quasi-geostrophic model, msqg (the port of
-`msom_tpu.models.qg` for the walled, free-slip, uncoupled configuration
-with the direct spectral inversion).
+`msom_tpu.models.qg` for the walled configurations with the direct spectral
+inversion).
 
 One step is Basilisk's predictor-corrector with CFL-controlled adaptive dt
-(`make_step`): two `update` calls, each a PV inversion, the fused RHS (the
-Hopper kernel on a CUDA tensor, its plain PyTorch version on a CPU tensor)
-and the scalar CFL tail. The scalar tail stays on the device as 0-d
-tensors, so a step makes no host sync.
+(`make_step`): two `update` calls, each a PV inversion, the fused RHS and,
+with passive tracers, the fused tracer tendency (the Hopper kernels on a
+CUDA tensor, their plain PyTorch versions on a CPU tensor) and the scalar
+CFL tail. The scalar tail stays on the device as 0-d tensors, so a step
+makes no host sync.
 
-Outside the slice (each raises NotImplementedError naming its ROADMAP.md
-queue-1 item): PG coupling, _LS_RV, topography, qforc, tracers, partial
-slip, the doubly periodic case, ENERGY_CONSERV (item 7); stochastic forcing
-(item 8); the wavelet filter (item 9); varRo and 2-D frpg (item 10); the
+Ported: free-slip and partial-slip walls (sbc >= 0), the large-scale (PG)
+streamfunction coupling from `psipg` or `upg/vpg`, _LS_RV (flsrv = 1),
+bottom topography, the 3-D forcing `qforc`, ENERGY_CONSERV advection and
+passive tracers with an optional relaxation field.
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP.md
+queue-1 item): the doubly periodic case (item 7b); stochastic forcing (item
+8); the wavelet filter (item 9); varRo and 2-D frpg (item 10); the
 multigrid solver and mode_pv_invert (item 11).
 """
 
@@ -23,11 +28,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from msom_tpu_torch.models import fused_rhs
-from msom_tpu_torch.ops.bc import BC
+from msom_tpu_torch.models import fused_rhs, fused_tracer
+from msom_tpu_torch.ops.bc import BC, pad
 from msom_tpu_torch.ops.ghost import (Ghosted, arakawa_mjac_g, beta_effect_g,
-                                      ghosted, laplacian_g,
+                                      ghosted, ghosted_from_padded,
+                                      ghosted_slip, laplacian_g,
                                       max_face_speed_layers)
+from msom_tpu_torch.ops.stencil import laplacian
 from msom_tpu_torch.ops.stretch import layer_metrics, stretch
 from msom_tpu_torch.params import QGConfig
 from msom_tpu_torch.solvers import spectral
@@ -36,15 +43,28 @@ from msom_tpu_torch.solvers import spectral
 @dataclasses.dataclass(frozen=True)
 class QGConstants:
     """Time-independent fields derived at setup (set_const, reference
-    msqg/qg.h:931-1116), on one device. In this slice strl and wind vary
-    in y only, so they are kept as contiguous y-profiles with a unit x
-    axis: they broadcast against (nl, N, N) fields, and the fused RHS
-    kernel reads them as they are."""
+    msqg/qg.h:931-1116), on one device, under the JAX package's names.
+    strl, wind and Ro vary in y only here, so they are kept as contiguous
+    y-profiles with a unit x axis: they broadcast against (nl, N, N)
+    fields, and the fused RHS kernel reads them as they are. `pp`, `topo`
+    and `iro` are what the fused kernels read beside the padded fields: the
+    contiguous interiors (the kernels apply the ghost rules themselves) and
+    the y-profile 1/(Ro dh_bottom)."""
     strl: torch.Tensor | None     # (nl-1, N, 1) stretching (Fr/Ro)^2
     wind: torch.Tensor            # (N, 1) surface forcing term for layer 0
     idh0: tuple                   # host floats (layer metrics)
     idh1: tuple
     spec: spectral.SpectralData   # direct spectral inversion
+    Ro: torch.Tensor | None = None          # (N, 1) Rossby number
+    pp_pad: torch.Tensor | None = None      # (nl, N+2, N+2) large-scale psi
+    zetap_pad: torch.Tensor | None = None   # (nl, N+2, N+2) lap(pp), flsrv
+    topo_pad: torch.Tensor | None = None    # (N+2, N+2) bottom topography
+    qforc: torch.Tensor | None = None       # (nl, N, N) 3-D forcing
+    ptr_relax: torch.Tensor | None = None   # (nl, nptr, N, N)
+    umax_pp: torch.Tensor | None = None     # (nl,) face-speed maxima of pp
+    pp: torch.Tensor | None = None          # (nl, N, N) interior of pp_pad
+    topo: torch.Tensor | None = None        # (N, N) interior of topo_pad
+    iro: torch.Tensor | None = None         # (N, 1) 1/(Ro dh[nl-1]), topo
 
 
 @dataclasses.dataclass
@@ -54,6 +74,7 @@ class QGState:
     t: torch.Tensor               # 0-d model time
     dt_prev: torch.Tensor         # 0-d CFL controller smoothing state
     i: torch.Tensor               # 0-d int32 step counter
+    tracers: torch.Tensor | None = None   # (nl, nptr, N, N)
 
 
 class StepDiag(NamedTuple):
@@ -61,10 +82,9 @@ class StepDiag(NamedTuple):
     ke: torch.Tensor              # surface-layer kinetic energy
 
 
-# input fields that build_constants accepts in the JAX package, with the
-# ROADMAP.md queue-1 item that will bring each to the port
-_INPUTS = {"psipg": 7, "topo": 7, "qforc": 7, "dh": 7, "ptr_relax": 7,
-           "s_stoch": 8, "rdpg": 9, "frpg": 10}
+# input fields that build_constants accepts in the JAX package and the port
+# does not yet, with the ROADMAP.md queue-1 item that will bring each
+_UNPORTED_INPUTS = {"s_stoch": 8, "rdpg": 9, "frpg": 10}
 
 
 def _torch_dtype(cfg: QGConfig) -> torch.dtype:
@@ -72,25 +92,19 @@ def _torch_dtype(cfg: QGConfig) -> torch.dtype:
 
 
 def _check_slice(cfg: QGConfig, inputs: dict) -> None:
-    """Raise NotImplementedError for any configuration outside the slice."""
+    """Raise NotImplementedError for any configuration not ported yet."""
     for name, value in inputs.items():
-        if name not in _INPUTS:
+        if name not in _UNPORTED_INPUTS:
             raise TypeError(f"build_constants() got an unexpected keyword "
                             f"argument {name!r}")
         if value is not None:
             raise NotImplementedError(
                 f"input field {name!r} is not ported yet (ROADMAP.md queue "
-                f"1, item {_INPUTS[name]})")
-    nl = cfg.nl
+                f"1, item {_UNPORTED_INPUTS[name]})")
     unported = [
         (cfg.solver != "spectral", "solver='mg' (item 11)"),
         (cfg.mode_pv_invert, "mode_pv_invert (item 11)"),
-        (cfg.sbc == -1, "the doubly periodic case, sbc = -1 (item 7)"),
-        (cfg.sbc > 0, "partial-slip walls, sbc > 0 (item 7)"),
-        (any(cfg.upg[:nl]) or any(cfg.vpg[:nl]), "PG coupling (item 7)"),
-        (cfg.flsrv == 1, "_LS_RV, flsrv = 1 (item 7)"),
-        (cfg.nptr > 0, "passive tracers (item 7)"),
-        (cfg.energy_conserv, "ENERGY_CONSERV advection (item 7)"),
+        (cfg.sbc < 0, "the doubly periodic case, sbc = -1 (item 7b)"),
         (cfg.stochastic, "stochastic forcing (item 8)"),
         (cfg.dtflt > 0, "the wavelet filter, dtflt > 0 (item 9)"),
         (cfg.varRo > 0, "varRo (item 10)"),
@@ -101,21 +115,54 @@ def _check_slice(cfg: QGConfig, inputs: dict) -> None:
                 f"{what} is not ported yet (ROADMAP.md queue 1)")
 
 
-def build_constants(cfg: QGConfig, *, device="cuda",
-                    **inputs) -> QGConstants:
-    """Derive the static model fields on `device`. The JAX package's
-    optional input fields (psipg, topo, ...) are outside the slice and
-    raise NotImplementedError when given."""
-    _check_slice(cfg, inputs)
+def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
+                    psipg=None, topo=None, qforc=None, dh=None,
+                    ptr_relax=None, **unported) -> QGConstants:
+    """Derive the static model fields on `device`. The optional arrays
+    override the defaults as the reference's input files do (psipg_*.bas
+    etc., msqg/qg.h:950-985): `psipg` (nl, N, N) large-scale streamfunction
+    (else vpg*x - upg*y from the config), `topo` (N, N), `qforc` (nl, N, N),
+    `dh` (nl,) layer thicknesses, `ptr_relax` (nl, nptr, N, N). `fused_mm`
+    routes the inversion through the fused basis-matmul solve (the matmul
+    transform; 128 <= N <= 1024, N % 128 == 0). The JAX package's other
+    inputs (s_stoch, rdpg, frpg) raise NotImplementedError when given."""
+    _check_slice(cfg, unported)
     dtype = _torch_dtype(cfg)
     nl, N = cfg.nl, cfg.N
-    dh = np.asarray(cfg.dh[:nl], np.float64)
+    dh = np.asarray(dh if dh is not None else cfg.dh[:nl], np.float64)
     _, idh0, idh1 = layer_metrics(dh)
 
     def dev(a):
-        return torch.as_tensor(a, dtype=dtype).to(device)
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(device)
 
     y = (np.arange(N, dtype=np.float64) + 0.5) * cfg.delta   # cell centres
+
+    # large-scale streamfunction pp = vpg*x - upg*y (msqg/qg.h:904-909);
+    # without one every J(., pp) term is pruned (pp_pad None)
+    upg, vpg = np.zeros(nl), np.zeros(nl)
+    upg[:len(cfg.upg[:nl])] = cfg.upg[:nl]
+    vpg[:len(cfg.vpg[:nl])] = cfg.vpg[:nl]
+    pp_pad = zetap_pad = pp = umax_pp = None
+    if psipg is not None or np.any(upg) or np.any(vpg):
+        if psipg is not None:
+            pp_np = np.asarray(psipg, np.float64)
+        else:
+            pp_np = (vpg[:, None, None] * y[None, None, :]
+                     - upg[:, None, None] * y[None, :, None])
+        if pp_np.shape != (nl, N, N):
+            raise ValueError(f"psipg has shape {pp_np.shape}, the config "
+                             f"needs {(nl, N, N)}")
+        pp = dev(pp_np)
+        pp_pad = pad(pp, BC.DIRICHLET)
+        # large-scale relative vorticity (_LS_RV, msqg/qg.h:1094-1096)
+        if cfg.flsrv == 1:
+            zetap_pad = pad(laplacian(pp_pad, cfg.delta), BC.DIRICHLET)
+        # pp is constant in time: its part of the CFL chain
+        # (msqg/qg.h:387-390) is computed once here
+        umax_pp = max_face_speed_layers(ghosted_from_padded(pp_pad),
+                                        cfg.delta)
+
+    Ro = dev(np.full((N, 1), cfg.Rom))     # uniform: varRo is item 10
     strl = s_prof = None
     if nl > 1:
         # strl = (Fr/Ro)^2 at the nl-1 interfaces (msqg/qg.h:1043-1048)
@@ -129,13 +176,35 @@ def build_constants(cfg: QGConfig, *, device="cuda",
     wind = dev(cfg.tau0 / (cfg.Rom * dh[0]) * np.sin(2 * np.pi * y / cfg.L0)
                * np.sin(np.pi * y / cfg.L0))[:, None]
 
+    topo_pad = topo_in = iro = None
+    if topo is not None:
+        topo_in = dev(topo)
+        if tuple(topo_in.shape) != (N, N):
+            raise ValueError(f"topo has shape {tuple(topo_in.shape)}, the "
+                             f"config needs {(N, N)}")
+        topo_pad = pad(topo_in, BC.NEUMANN)
+        iro = dev(np.full((N, 1), 1.0 / (cfg.Rom * float(cfg.dh[nl - 1]))))
+
+    def field(a, name, shape):
+        if a is None:
+            return None
+        a = dev(a)
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(a.shape)}, the "
+                             f"config needs {shape}")
+        return a.contiguous()
+
     spec = spectral.build_spectral(
         nl=nl, N=N, L0=cfg.L0, dh=dh, s_profile=s_prof, periodic=False,
-        dtype=dtype, transform=cfg.transform, device=device)
-    return QGConstants(strl=strl, wind=wind,
-                       idh0=tuple(float(v) for v in idh0),
-                       idh1=tuple(float(v) for v in idh1),
-                       spec=spec)
+        dtype=dtype, transform="matmul" if fused_mm else cfg.transform,
+        fused_mm=fused_mm, device=device)
+    return QGConstants(
+        strl=strl, wind=wind, idh0=tuple(float(v) for v in idh0),
+        idh1=tuple(float(v) for v in idh1), spec=spec, Ro=Ro,
+        pp_pad=pp_pad, zetap_pad=zetap_pad, topo_pad=topo_pad,
+        qforc=field(qforc, "qforc", (nl, N, N)),
+        ptr_relax=field(ptr_relax, "ptr_relax", (nl, cfg.nptr, N, N)),
+        umax_pp=umax_pp, pp=pp, topo=topo_in, iro=iro)
 
 
 def comp_q(cfg: QGConfig, const: QGConstants, psi: torch.Tensor):
@@ -153,60 +222,101 @@ def invert_q(cfg: QGConfig, const: QGConstants, q: torch.Tensor):
 
 
 def init_state(cfg: QGConfig, const: QGConstants, *, psi0=None, seed=0,
+               tracers0=None,
                generator: torch.Generator | None = None) -> QGState:
     """Initial conditions: psi from `psi0` or 1e-3 uniform noise in
     [-1, 1], made zero-mean per layer, then q = comp_q(psi) (reference
-    msqg/qg.c:53-92). The noise comes from `generator` (default: a CPU
+    msqg/qg.c:53-92); with nptr > 0 the tracers from `tracers0` or the same
+    kind of noise. The noise comes from `generator` (default: a CPU
     generator seeded with `seed`); it is a different stream from the JAX
-    package's jax.random draw, so runs that must agree share `psi0`."""
+    package's jax.random draw, so runs that must agree share `psi0` and
+    `tracers0`."""
     dtype, device = const.wind.dtype, const.wind.device
+    g = generator if generator is not None \
+        else torch.Generator().manual_seed(seed)
+
+    def noise(shape):
+        return 1e-3 * (2.0 * torch.rand(shape, generator=g, device=g.device,
+                                        dtype=dtype) - 1.0)
+
     shape = (cfg.nl, cfg.N, cfg.N)
-    if psi0 is None:
-        g = generator if generator is not None \
-            else torch.Generator().manual_seed(seed)
-        psi = 1e-3 * (2.0 * torch.rand(shape, generator=g, device=g.device,
-                                       dtype=dtype) - 1.0)
-    else:
-        psi = torch.as_tensor(psi0, dtype=dtype)
+    psi = noise(shape) if psi0 is None else torch.as_tensor(psi0, dtype=dtype)
     psi = psi.to(device)
     psi = psi - psi.mean(dim=(-2, -1), keepdim=True)
+    tracers = None
+    if cfg.nptr > 0:
+        tshape = (cfg.nl, cfg.nptr, cfg.N, cfg.N)
+        tracers = noise(tshape) if tracers0 is None \
+            else torch.as_tensor(tracers0, dtype=dtype)
+        if tuple(tracers.shape) != tshape:
+            raise ValueError(f"tracers0 has shape {tuple(tracers.shape)}, "
+                             f"the config needs {tshape}")
+        tracers = tracers.to(device).contiguous()
     zero = torch.zeros((), dtype=dtype, device=device)
     return QGState(q=comp_q(cfg, const, psi), psi=psi, t=zero,
                    dt_prev=zero.clone(),
-                   i=torch.zeros((), dtype=torch.int32, device=device))
+                   i=torch.zeros((), dtype=torch.int32, device=device),
+                   tracers=tracers)
 
 
 # ---------------------------------------------------------------------------
 # RHS assembly
 # ---------------------------------------------------------------------------
 
-def _ghost_deriv(field: torch.Tensor) -> Ghosted:
-    """Ghosts of a Laplacian-derived field under free-slip walls: the
-    Dirichlet rule applied to the derived field's own interior (comp_del2,
-    msqg/qg.h:183-198), not recomputed from psi's ghosts."""
-    return ghosted(field, BC.DIRICHLET)
+def _ghost_deriv(cfg: QGConfig, field: torch.Tensor,
+                 parent_g: Ghosted) -> Ghosted:
+    """Ghosts of a Laplacian-derived field at a wall (comp_del2,
+    msqg/qg.h:183-198): the Dirichlet rule applied to the derived field's
+    own interior, not recomputed from its parent's ghosts, with the
+    partial-slip overwrite of the edge ghosts relative to the parent when
+    sbc > 0."""
+    return ghosted_slip(field, parent_g, cfg.sbc, cfg.delta)
 
 
-def rhs(cfg: QGConfig, const: QGConstants, psi_g: Ghosted,
-        zeta: torch.Tensor, zeta_g: Ghosted) -> torch.Tensor:
-    """Tendency dq (update_qg, msqg/qg.h:609-650) for the walled free-slip
-    uncoupled configuration: the Arakawa self-advection of zeta, beta, the
-    interface stretch-Jacobian cascade, harmonic and biharmonic dissipation,
-    Ekman friction and the wind."""
+def rhs(cfg: QGConfig, const: QGConstants, q: torch.Tensor | None,
+        psi_g: Ghosted, zeta: torch.Tensor, zeta_g: Ghosted,
+        tracers: torch.Tensor | None = None):
+    """Tendencies (dq, dtracers) (update_qg, msqg/qg.h:609-650) for the
+    walled configurations. The advected vorticity is zeta, with the
+    stretching-Jacobian cascade supplying the rest of J(psi, q); every
+    J(., pp) term is pruned when there is no large-scale streamfunction.
+    `q` is read by ENERGY_CONSERV advection only; dtracers is None without
+    tracers."""
     d = cfg.delta
     nl = cfg.nl
+    mj = arakawa_mjac_g
     idh0, idh1 = const.idh0, const.idh1
+    have_pg = const.pp_pad is not None
+    pp = ghosted_from_padded(const.pp_pad) if have_pg else None
     dq = torch.zeros_like(zeta)
     if nl > 1:
         # advection_pv (msqg/qg.h:287-393); nl == 1 advects nothing
         # (msqg/qg.h:376-379)
-        dq = dq + arakawa_mjac_g(psi_g, zeta_g, d) \
-            + beta_effect_g(psi_g, cfg.beta, d)
-        sJ = const.strl * arakawa_mjac_g(psi_g[:-1], psi_g[1:], d)
-        for l in range(nl - 1):
-            dq[l] += sJ[l] * idh1[l]
-        for l in range(1, nl):
-            dq[l] += -sJ[l - 1] * idh0[l]
+        if cfg.energy_conserv:
+            # ENERGY_CONSERV split (msqg/qg.h:310-340): the self-advection
+            # carries the full PV q under psi's ghost law, so J(psi_l,
+            # psi_l+1) drops out of the cascade
+            self_jac = mj(psi_g, ghosted(q, BC.DIRICHLET), d)
+        else:
+            self_jac = mj(psi_g, zeta_g, d)
+        dq = dq + self_jac + beta_effect_g(psi_g, cfg.beta, d)
+        if have_pg:
+            dq = dq + mj(pp, zeta_g, d)
+        # interface stretch-Jacobian cascade with the pp cross terms
+        J = None
+        if have_pg:
+            J = mj(pp[:-1], psi_g[1:], d) + mj(psi_g[:-1], pp[1:], d)
+        if not cfg.energy_conserv:
+            Jself = mj(psi_g[:-1], psi_g[1:], d)
+            J = Jself if J is None else J + Jself
+        if J is not None:
+            sJ = const.strl * J
+            for l in range(nl - 1):
+                dq[l] += sJ[l] * idh1[l]
+            for l in range(1, nl):
+                dq[l] += -sJ[l - 1] * idh0[l]
+        if const.zetap_pad is not None:
+            dq = dq + mj(psi_g, ghosted_from_padded(const.zetap_pad), d)
 
     # dissipation (dissip, msqg/qg.h:406-422), skipped where the
     # coefficient is zero
@@ -219,7 +329,7 @@ def rhs(cfg: QGConfig, const: QGConstants, psi_g: Ghosted,
     if cfg.iRe4 != 0.0:
         if tmp is None:
             tmp = laplacian_g(zeta_g, d)
-        bih = laplacian_g(_ghost_deriv(tmp), d)
+        bih = laplacian_g(_ghost_deriv(cfg, tmp, zeta_g), d)
         if nl > 1:
             bih = bih + stretch(tmp, const.strl, idh0, idh1)
         dq = dq + cfg.iRe4 * bih
@@ -231,32 +341,66 @@ def rhs(cfg: QGConfig, const: QGConstants, psi_g: Ghosted,
     if cfg.Ekb != 0.0:
         dq[nl - 1] += -cfg.Ekb / (cfg.Rom * 2 * dh[nl - 1]) * zeta[nl - 1]
     dq[0] += -const.wind
-    return dq
+
+    # 3-D forcing (msqg/qg.h:465-474)
+    if const.qforc is not None:
+        dq = dq + const.qforc
+
+    # bottom topography (msqg/qg.h:480-488)
+    if const.topo_pad is not None:
+        dq[nl - 1] += mj(psi_g[nl - 1], ghosted_from_padded(const.topo_pad),
+                         d) / (const.Ro * dh[nl - 1])
+
+    dtr = None if tracers is None else tracer_rhs(cfg, const, psi_g, tracers)
+    return dq, dtr
+
+
+def tracer_rhs(cfg: QGConfig, const: QGConstants, psi_g: Ghosted,
+               tracers: torch.Tensor) -> torch.Tensor:
+    """Passive-tracer tendencies (ptr_rhs, msqg/qg.h:573-588) for the
+    (nl, nptr, N, N) tracers: Arakawa advection by psi, diffusion /Pe and
+    relaxation, with Neumann walls."""
+    d = cfg.delta
+    tr_g = ghosted(tracers, BC.NEUMANN)
+    coef = dict(dtype=tracers.dtype, device=tracers.device)
+    iPe = torch.tensor(cfg.iPe[:cfg.nptr], **coef).reshape(1, -1, 1, 1)
+    ir = torch.tensor(cfg.ptr_ir[:cfg.nptr], **coef).reshape(1, -1, 1, 1)
+    dtr = arakawa_mjac_g(Ghosted(psi_g.p[:, None]), tr_g, d) \
+        + iPe * laplacian_g(tr_g, d)
+    if const.ptr_relax is not None:
+        return dtr + ir * (const.ptr_relax - tracers)
+    return dtr + ir * (-tracers)
 
 
 def cfl_dtmax(cfg: QGConfig, const: QGConstants, psi_g: Ghosted, dtmax0,
               prev):
     """CFL controller chain from psi (the per-layer face-speed maxima in one
-    pass, then the scalar smoothing recurrence)."""
+    pass, then the scalar smoothing recurrence); the pp part comes from
+    const.umax_pp."""
     return cfl_from_umax(cfg, max_face_speed_layers(psi_g, cfg.delta),
-                         dtmax0, prev)
+                         const.umax_pp, dtmax0, prev)
 
 
-def cfl_from_umax(cfg: QGConfig, umax_psi: torch.Tensor, dtmax0: float,
+def cfl_from_umax(cfg: QGConfig, umax_psi: torch.Tensor,
+                  umax_pp: torch.Tensor | None, dtmax0: float,
                   prev: torch.Tensor):
     """The scalar tail of the CFL chain (Basilisk timestep() called per
-    layer, sharing the `previous` smoothing state, msqg/qg.h:383-391),
-    given the (nl,) per-layer face-speed maxima. 0-d tensors throughout."""
+    layer for psi then pp, sharing the `previous` smoothing state,
+    msqg/qg.h:383-391), given the (nl,) per-layer face-speed maxima.
+    Without a pp its iterations are exact no-ops and are skipped. 0-d
+    tensors throughout."""
     d = cfg.delta
     dtype = umax_psi.dtype
     big = torch.finfo(dtype).max / 4
     dtm = torch.full((), dtmax0, dtype=dtype, device=umax_psi.device)
     for l in range(cfg.nl):
-        umax = umax_psi[l]
-        dt_cfl = torch.where(umax > 0, cfg.CFL * d / umax, big)
-        dtm = torch.minimum(dtm, dt_cfl)
-        dtm = torch.where(dtm > prev, (prev + 0.1 * dtm) / 1.1, dtm)
-        prev = dtm
+        umaxes = (umax_psi[l],) if umax_pp is None \
+            else (umax_psi[l], umax_pp[l])
+        for umax in umaxes:
+            dt_cfl = torch.where(umax > 0, cfg.CFL * d / umax, big)
+            dtm = torch.minimum(dtm, dt_cfl)
+            dtm = torch.where(dtm > prev, (prev + 0.1 * dtm) / 1.1, dtm)
+            prev = dtm
     return dtm, prev
 
 
@@ -278,32 +422,40 @@ def kinetic_energy(cfg: QGConfig, psi: torch.Tensor) -> torch.Tensor:
     return -torch.sum(0.5 * p0 * lap) * cfg.delta ** 2
 
 
-def update(cfg: QGConfig, const: QGConstants, q: torch.Tensor, prev,
-           dtmax0: float):
+def update(cfg: QGConfig, const: QGConstants, q: torch.Tensor,
+           tracers: torch.Tensor | None, prev, dtmax0: float):
     """One RHS evaluation: PV inversion + fused tendency and CFL maxima +
-    the CFL tail. Routes on q's device alone (fused_rhs.rhs_fused)."""
+    the fused tracer tendency + the CFL tail. Routes on q's device alone
+    (fused_rhs.rhs_fused, fused_tracer.tracer_fused)."""
     psi = invert_q(cfg, const, q)
-    dq, umax = fused_rhs.rhs_fused(cfg, const, psi)
-    dtm, prev = cfl_from_umax(cfg, umax, dtmax0, prev)
-    return dq, psi, prev, dtm
+    dq, umax = fused_rhs.rhs_fused(cfg, const, psi,
+                                   q if cfg.energy_conserv else None)
+    dtr = None
+    if tracers is not None:
+        dtr = fused_tracer.tracer_fused(cfg, const, psi, tracers)
+    dtm, prev = cfl_from_umax(cfg, umax, const.umax_pp, dtmax0, prev)
+    return dq, dtr, psi, prev, dtm
 
 
 def make_step(cfg: QGConfig):
     """step(state, const, tnext) -> (state, StepDiag): one predictor-
     corrector step (predictor-corrector.h semantics): dt from the
     CFL-limited first update clamped by dtnext, a half-step Euler predictor,
-    a corrector RHS at the midpoint, and the full step."""
+    a corrector RHS at the midpoint, and the full step; the tracers advance
+    with q."""
     DT = cfg.dt_clamped()
 
     def step(state: QGState, const: QGConstants, tnext):
-        q0 = state.q
-        dq, _, prev, dtm = update(cfg, const, q0, state.dt_prev, DT)
+        q0, tr0 = state.q, state.tracers
+        dq, dtr, _, prev, dtm = update(cfg, const, q0, tr0, state.dt_prev, DT)
         dt = dtnext(state.t, tnext, dtm)
         q1 = q0 + dq * (0.5 * dt)
-        dq, psi2, prev, _ = update(cfg, const, q1, prev, DT)
+        tr1 = None if tr0 is None else tr0 + dtr * (0.5 * dt)
+        dq, dtr, psi2, prev, _ = update(cfg, const, q1, tr1, prev, DT)
         q_new = q0 + dq * (1.0 * dt)
+        tr_new = None if tr0 is None else tr0 + dtr * (1.0 * dt)
         new = QGState(q=q_new, psi=psi2, t=state.t + dt, dt_prev=prev,
-                      i=state.i + 1)
+                      i=state.i + 1, tracers=tr_new)
         return new, StepDiag(dt=dt, ke=kinetic_energy(cfg, psi2))
 
     return step

@@ -38,3 +38,22 @@ def pad(a: torch.Tensor, bc: BC) -> torch.Tensor:
     """Pad the last two axes by one ghost cell each side under `bc`, x
     first, then y."""
     return _pad_axis(_pad_axis(a, bc, -1), bc, -2)
+
+
+def pad_zeta_slip(zeta: torch.Tensor, psi_pad: torch.Tensor, sbc: float,
+                  delta: float) -> torch.Tensor:
+    """Ghost pad for a Laplacian-derived field with the partial-slip wall
+    law (the sbc > 0 branch of comp_del2, msqg/qg.h:185-198): after the
+    Dirichlet fill, the non-corner edge ghosts become
+    c * (psi_interior - psi_ghost), c = sbc/((0.5*sbc+1)*Delta^2).
+    `psi_pad` is the padded field the Laplacian was taken of. sbc <= 0 gives
+    the plain Dirichlet pad (free slip)."""
+    zp = pad(zeta, BC.DIRICHLET)
+    if sbc <= 0:
+        return zp
+    c = sbc / ((0.5 * sbc + 1.0) * delta * delta)
+    zp[..., 1:-1, 0] = c * (psi_pad[..., 1:-1, 1] - psi_pad[..., 1:-1, 0])
+    zp[..., 1:-1, -1] = c * (psi_pad[..., 1:-1, -2] - psi_pad[..., 1:-1, -1])
+    zp[..., 0, 1:-1] = c * (psi_pad[..., 1, 1:-1] - psi_pad[..., 0, 1:-1])
+    zp[..., -1, 1:-1] = c * (psi_pad[..., -2, 1:-1] - psi_pad[..., -1, 1:-1])
+    return zp

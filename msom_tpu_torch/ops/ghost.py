@@ -13,7 +13,7 @@ import dataclasses
 
 import torch
 
-from msom_tpu_torch.ops.bc import BC, pad
+from msom_tpu_torch.ops.bc import BC, pad, pad_zeta_slip
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +39,21 @@ def ghosted(a: torch.Tensor, bc: BC) -> Ghosted:
     """Standard BCs (Dirichlet half-cell / Neumann / periodic), the values of
     ops.bc.pad."""
     return Ghosted(pad(a, bc))
+
+
+def ghosted_from_padded(pp: torch.Tensor) -> Ghosted:
+    """A Ghosted view of an explicitly padded (..., N+2, N+2) array (the
+    constant fields whose ghosts are fixed at setup: pp, zetap, topo)."""
+    return Ghosted(pp)
+
+
+def ghosted_slip(zeta: torch.Tensor, psi: Ghosted, sbc: float,
+                 delta: float) -> Ghosted:
+    """Partial-slip ghosts for a Laplacian-derived field: edge ghosts
+    c*(psi_in - psi_ghost) with c = sbc/((0.5*sbc+1)*Delta^2), corner
+    ghosts keep the Dirichlet fill (+interior corner); msqg/qg.h:185-198.
+    sbc <= 0 is the plain Dirichlet rule."""
+    return Ghosted(pad_zeta_slip(zeta, psi.p, sbc, delta))
 
 
 # ---------------------------------------------------------------------------

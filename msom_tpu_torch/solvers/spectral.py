@@ -16,8 +16,10 @@ Transform selection is the JAX package's (`spectral.py:195-208`):
   * "auto" in f64, or "fft": DST-II through a DCT-II computed with one FFT
     of the same length (Makhoul's reordering), since torch has no DCT;
   * "factored": the folded DST at any power-of-2 N >= 16.
-The periodic basis, the bf16 refinement pass and the fused Pallas solve
-(kernel K7) are not ported yet (ROADMAP.md, queue 1 item 7 and queue 2 K7).
+With `fused_mm` the basis-matmul solve runs in the hand-written kernel K7
+(solvers/fused_spectral.py) instead of torch.matmul. The periodic basis and
+the bf16 refinement pass are not ported yet (ROADMAP.md queue 1, items 7b
+and 3).
 """
 
 from __future__ import annotations
@@ -29,19 +31,21 @@ import numpy as np
 import torch
 
 from msom_tpu_torch.ops import modes
-from msom_tpu_torch.solvers import ctdst
+from msom_tpu_torch.solvers import ctdst, fused_spectral
 
 
 @dataclasses.dataclass(frozen=True)
 class SpectralData:
     """Precomputed inverse modal denominators + mode matrices. With `fac`
     set, inv_den is in the folded transform's permuted order; with S set,
-    the basis-matmul path runs; with neither, the FFT-based DST."""
+    the basis-matmul path runs (in kernel K7 when `fused_mm`); with
+    neither, the FFT-based DST."""
     inv_den: torch.Tensor         # (nl, N, N): 1/(lam_y + lam_x + iBu_m)
     l2m: torch.Tensor | None      # (nl, nl) layer->mode (None when nl == 1)
     m2l: torch.Tensor | None      # (nl, nl) mode->layer
     S: torch.Tensor | None        # (N, N) orthonormal DST-II basis
     fac: ctdst.FoldedDST | None
+    fused_mm: bool = False
 
 
 def dst_matrix(N: int, dtype=np.float64) -> np.ndarray:
@@ -117,19 +121,23 @@ def build_spectral(*, nl: int, N: int, L0: float, dh=None, s_profile=None,
     """Precompute the modal inverse denominators (JAX `build_spectral`).
 
     s_profile holds the (nl-1,) uniform stretching values (Fr/Ro)^2 that
-    the vertical modes diagonalise; nl = 1 is the plain Poisson case."""
+    the vertical modes diagonalise; nl = 1 is the plain Poisson case.
+    `fused_mm` sends the basis-matmul solve through kernel K7: it needs the
+    matmul transform and a size and type that fused_spectral.check_gate
+    takes."""
     if periodic:
         raise NotImplementedError(
             "periodic spectral inversion is not ported yet "
-            "(ROADMAP.md queue 1, item 7: doubly periodic case)")
+            "(ROADMAP.md queue 1, item 7b: doubly periodic case)")
     if refine is True:
         raise NotImplementedError(
             "the bf16 + refinement solve is not ported (ROADMAP.md queue 1, "
             "item 3: the port keeps full-f32 transforms)")
     if fused_mm:
-        raise NotImplementedError(
-            "the fused spectral solve is kernel K7 (pallas_spectral."
-            "fused_mm_solve), not ported yet (ROADMAP.md queue 2, K7)")
+        if transform != "matmul":
+            raise ValueError(f"fused_mm needs transform='matmul', got "
+                             f"{transform!r}")
+        fused_spectral.check_gate(dtype, N)
     h = L0 / N
     if nl > 1:
         vm = modes.eigmod(np.asarray(dh, np.float64)[:nl],
@@ -166,14 +174,14 @@ def build_spectral(*, nl: int, N: int, L0: float, dh=None, s_profile=None,
         # diagonal denominator once here instead of shuffling data per solve
         inv = inv[:, perm][:, :, perm]
     return SpectralData(inv_den=torch.as_tensor(inv, dtype=dtype).to(device),
-                        l2m=l2m, m2l=m2l, S=S, fac=fac)
+                        l2m=l2m, m2l=m2l, S=S, fac=fac, fused_mm=fused_mm)
 
 
-def _mm_solve(data: SpectralData, qm: torch.Tensor) -> torch.Tensor:
+def _mm_solve(S: torch.Tensor, inv_den: torch.Tensor,
+              qm: torch.Tensor) -> torch.Tensor:
     """One basis-matmul solve in modal space (S rows in natural order)."""
-    S = data.S
     Q = torch.matmul(S, torch.matmul(qm, S.T))
-    return torch.matmul(torch.matmul(S.T, Q * data.inv_den), S)
+    return torch.matmul(torch.matmul(S.T, Q * inv_den), S)
 
 
 def solve_spectral(data: SpectralData, q: torch.Tensor) -> torch.Tensor:
@@ -182,8 +190,11 @@ def solve_spectral(data: SpectralData, q: torch.Tensor) -> torch.Tensor:
     if data.fac is not None:
         Q = ctdst.fdst_x(data.fac, ctdst.fdst_y(data.fac, qm))
         pm = ctdst.ifdst_y(data.fac, ctdst.ifdst_x(data.fac, Q * data.inv_den))
+    elif data.fused_mm:
+        pm = fused_spectral.fused_mm_solve(data.S, data.inv_den,
+                                           qm.contiguous())
     elif data.S is not None:
-        pm = _mm_solve(data, qm)
+        pm = _mm_solve(data.S, data.inv_den, qm)
     else:
         Q = dst2(dst2(qm, -1), -2)
         pm = idst2(idst2(Q * data.inv_den, -2), -1)

@@ -1,6 +1,8 @@
-"""The port on a CUDA card: the fused RHS kernel (K1) against its plain
-PyTorch version, the wrapper's input checks and launch count, and the CUDA
-step against the CPU step. Every test needs a card and nvcc, is marked
+"""The port on a CUDA card: the fused RHS kernel (K1) with and without its
+coupling options, the fused tracer kernel (K2) and the fused spectral solve
+(K7) against their plain PyTorch versions, the wrappers' input checks and
+launch counts, and the CUDA step against the CPU step, uncoupled and
+coupled. Every test needs a card and nvcc, is marked
 `cuda` and skips without a card. The file imports neither jax nor
 msom_tpu, so it runs on a machine without them:
 
@@ -9,15 +11,20 @@ msom_tpu, so it runs on a machine without them:
 Tolerances: in f64 the kernel and the plain version differ only in the
 order of a few sums (1e-11 of max|dq|); in f32 the biharmonic's stacked
 Laplacians cancel, and 1e-4 of max|dq| is the bound that
-tests/test_torch_rhs.py measures for that cancellation."""
+tests/test_torch_rhs.py measures for that cancellation. K7 against the
+cuBLAS chain: 1e-5 of max|psi_m| in f32 (two f32 roundings of N-term sums),
+1e-12 in f64."""
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from msom_tpu_torch.models import fused_rhs
+from msom_tpu_torch.models import fused_rhs, fused_tracer
 from msom_tpu_torch.models import qg
 from msom_tpu_torch.params import QGConfig
+from msom_tpu_torch.solvers import fused_spectral, spectral
 
 pytestmark = pytest.mark.cuda
 
@@ -31,12 +38,22 @@ def cuda():
     return torch.device("cuda")
 
 
-def _config(N, nl, dtype, Re=0.0):
+def _config(N, nl, dtype, Re=0.0, **kw):
     return QGConfig(N=N, nl=nl, L0=80, Rom=0.025, Ekb=0.002, Eks=0.001,
                     tau0=1e-4, Re4=1563 * (N / 256) ** 3, Re=Re, beta=0.5,
                     Fr=(0.003,) * (nl - 1), dh=(1.0 / nl,) * nl, DT=5e-2,
                     tend=1e9, dtout=1e9, CFL=0.6, dtype=dtype,
-                    solver="spectral").validate()
+                    solver="spectral", **kw).validate()
+
+
+def _fields(cfg, seed, *names):
+    """Rough numpy coupling fields: every stencil point matters."""
+    rng = np.random.default_rng(seed)
+    nl, N = cfg.nl, cfg.N
+    shapes = dict(psipg=(nl, N, N), topo=(N, N), qforc=(nl, N, N),
+                  ptr_relax=(nl, cfg.nptr, N, N))
+    amp = dict(psipg=1e-3, topo=1e-2, qforc=1.0, ptr_relax=1e-3)
+    return {n: amp[n] * rng.uniform(-1, 1, shapes[n]) for n in names}
 
 
 def _psi(cfg, device, seed):
@@ -100,3 +117,193 @@ def test_cuda_step_matches_cpu_step(cuda):
         got = getattr(gpu, name).cpu()
         assert (got - want).abs().max() <= 1e-10 * want.abs().max(), name
     assert gpu.t.device.type == "cuda" and int(gpu.i) == 10
+
+
+OPTIONS = {
+    "pg": (dict(), ("psipg",)),
+    "pg_flsrv": (dict(flsrv=1), ("psipg",)),
+    "upg_vpg": (dict(upg=(0.02, 0.01, 0.0, 0.0), vpg=(0.01, 0.0, 0.0, 0.0),
+                     flsrv=1), ()),
+    "topo": (dict(), ("topo",)),
+    "qforc": (dict(), ("qforc",)),
+    "energy_conserv": (dict(energy_conserv=True), ()),
+    "slip": (dict(sbc=1.0), ()),
+    "all": (dict(flsrv=1, energy_conserv=True, sbc=0.5),
+            ("psipg", "topo", "qforc")),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("N,nl", [(64, 1), (100, 3), (128, 4)])
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+def test_coupled_kernel_matches_plain_version(cuda, dtype, N, nl, option):
+    kw, names = OPTIONS[option]
+    cfg = _config(N, nl, dtype, 1000.0, **kw)
+    const = qg.build_constants(cfg, device=cuda, **_fields(cfg, N, *names))
+    psi = _psi(cfg, cuda, N + nl)
+    q = qg.comp_q(cfg, const, psi) if cfg.energy_conserv else None
+    before = fused_rhs.launches
+    dq, umax = fused_rhs.rhs_fused(cfg, const, psi, q)
+    torch.cuda.synchronize()
+    assert fused_rhs.launches == before + 1
+    dq_r, umax_r = fused_rhs.rhs_fused_reference(cfg, const, psi, q)
+    lim = LIMITS[psi.dtype]
+    assert (dq - dq_r).abs().max() <= lim * dq_r.abs().max()
+    assert ((umax - umax_r).abs() <= lim * umax_r).all()
+    if nl > 1 or option in ("topo", "qforc", "slip", "all"):
+        bare = _config(N, nl, dtype, 1000.0)
+        dq_b, _ = fused_rhs.rhs_fused(
+            bare, qg.build_constants(bare, device=cuda), psi)
+        assert not torch.equal(dq, dq_b)      # the option did something
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("relax", [False, True])
+@pytest.mark.parametrize("N,nl,nptr", [(64, 1, 1), (100, 3, 2), (128, 4, 3)])
+def test_tracer_kernel_matches_plain_version(cuda, dtype, relax, N, nl, nptr):
+    """Distinct Pe and relaxation times per tracer: a wrong (l, j) order of
+    the flattened planes would show."""
+    cfg = _config(N, nl, dtype, nptr=nptr, Pe=(1e3, 2e3, 7e2)[:nptr],
+                  ptr_r=(100.0, 0.0, 13.0)[:nptr])
+    const = qg.build_constants(
+        cfg, device=cuda, **_fields(cfg, N, *(["ptr_relax"] if relax else [])))
+    psi = _psi(cfg, cuda, N)
+    tr = torch.as_tensor(
+        np.random.default_rng(nptr).uniform(-1, 1, (nl, nptr, N, N)),
+        dtype=psi.dtype).to(cuda)
+    before = fused_tracer.launches
+    dtr = fused_tracer.tracer_fused(cfg, const, psi, tr)
+    torch.cuda.synchronize()
+    assert fused_tracer.launches == before + 1
+    dtr_r = fused_tracer.tracer_fused_reference(cfg, const, psi, tr)
+    assert dtr.shape == tr.shape
+    assert (dtr - dtr_r).abs().max() <= LIMITS[psi.dtype] * dtr_r.abs().max()
+
+
+@pytest.mark.parametrize("dtype,limit", [("float64", 1e-12),
+                                         ("float32", 1e-5)])
+@pytest.mark.parametrize("N,nl", [(128, 1), (256, 3), (1024, 2)])
+def test_spectral_kernel_matches_cublas_chain(cuda, dtype, limit, N, nl):
+    spec = spectral.build_spectral(
+        nl=nl, N=N, L0=80.0, dh=np.full(nl, 1.0 / nl),
+        s_profile=np.full(nl - 1, 0.0144), dtype=getattr(torch, dtype),
+        transform="matmul", fused_mm=True, device=cuda)
+    qm = torch.as_tensor(np.random.default_rng(N).standard_normal((nl, N, N)),
+                         dtype=getattr(torch, dtype)).to(cuda)
+    before = fused_spectral.launches
+    pm = fused_spectral.fused_mm_solve(spec.S, spec.inv_den, qm)
+    torch.cuda.synchronize()
+    assert fused_spectral.launches == before + 4
+    pm_r = spectral._mm_solve(spec.S, spec.inv_den, qm)
+    assert (pm - pm_r).abs().max() <= limit * pm_r.abs().max()
+    # the solve goes through the kernel when the data says fused_mm
+    q = torch.einsum("lm,myx->lyx", spec.m2l, qm) if nl > 1 else qm
+    before = fused_spectral.launches
+    spectral.solve_spectral(spec, q)
+    assert fused_spectral.launches == before + 4
+
+
+def test_coupled_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    cfg = _config(64, 3, "float32", nptr=2, Pe=(1e3, 2e3), ptr_r=(100., 0.))
+    const = qg.build_constants(cfg, device=cuda,
+                               **_fields(cfg, 0, "psipg", "topo"))
+    psi = _psi(cfg, cuda, 0)
+    tr = torch.zeros((3, 2, 64, 64), device=cuda)
+    # K1: a coupling field of another type, or not contiguous
+    bad = dataclasses.replace(const, pp=const.pp.double())
+    with pytest.raises(ValueError, match="const.pp"):
+        fused_rhs.rhs_fused(cfg, bad, psi)
+    bad = dataclasses.replace(const, topo=const.topo.t())
+    with pytest.raises(ValueError, match="const.topo"):
+        fused_rhs.rhs_fused(cfg, bad, psi)
+    ec = dataclasses.replace(cfg, energy_conserv=True)
+    with pytest.raises(ValueError, match="needs q"):
+        fused_rhs.rhs_fused(ec, const, psi)
+    # K2: wrong type, wrong shape, not contiguous
+    with pytest.raises(TypeError, match="dtype"):
+        fused_tracer.tracer_fused(cfg, const, psi.half(), tr.half())
+    with pytest.raises(ValueError, match="tracers"):
+        fused_tracer.tracer_fused(cfg, const, psi, tr[:, :1])
+    with pytest.raises(ValueError, match="tracers"):
+        fused_tracer.tracer_fused(cfg, const, psi, tr.transpose(2, 3))
+    # K7: N outside the gate, wrong type, not contiguous
+    S = torch.zeros((64, 64), device=cuda)
+    with pytest.raises(ValueError, match="N = 64"):
+        fused_spectral.fused_mm_solve(S, S[None], S[None])
+    S = torch.eye(128, device=cuda)
+    D = torch.ones((2, 128, 128), device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        fused_spectral.fused_mm_solve(S.half(), D.half(), D.half())
+    with pytest.raises(ValueError, match="qm"):
+        fused_spectral.fused_mm_solve(S, D, D.transpose(1, 2))
+    with pytest.raises(ValueError, match="inv_den"):
+        fused_spectral.fused_mm_solve(S, D.double(), D)
+
+
+def test_option_set_that_exceeds_shared_memory_is_refused(cuda):
+    """All layers of a tile are staged at once: pp + _LS_RV at nl = 5 in
+    f64 needs more than the 227 KB a block may use, where the uncoupled
+    kernel still runs."""
+    cfg = _config(64, 5, "float64", flsrv=1)
+    psi = _psi(cfg, cuda, 1)
+    const = qg.build_constants(cfg, device=cuda, **_fields(cfg, 1, "psipg"))
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_rhs.rhs_fused(cfg, const, psi)
+    bare = qg.build_constants(cfg, device=cuda)
+    dq, _ = fused_rhs.rhs_fused(cfg, bare, psi)
+    assert torch.isfinite(dq).all()
+
+
+def test_coupled_cuda_step_matches_cpu_step(cuda):
+    """10 f64 steps at 64^2 x 3 with pp, topography, forcing, two tracers,
+    _LS_RV and partial slip; each step launches K1 and K2 twice."""
+    cfg = QGConfig(N=64, nl=3, L0=80, Rom=0.025, Ekb=0.002, tau0=1e-4,
+                   Re4=1563, beta=0.5, Fr=(0.0023669, 0.0076173),
+                   dh=(0.06, 0.14, 0.8), DT=5e-2, tend=500., dtout=1.,
+                   CFL=0.6, dtype="float64", solver="spectral", flsrv=1,
+                   sbc=0.5, nptr=2, Pe=(1e3, 2e3),
+                   ptr_r=(100.0, 0.0)).validate()
+    rng = np.random.default_rng(42)
+    psi0 = 1e-3 * rng.uniform(-1, 1, (3, 64, 64))
+    tr0 = 1e-3 * rng.uniform(-1, 1, (3, 2, 64, 64))
+    y = (np.arange(64) + 0.5) * cfg.delta
+    gyre = np.sin(np.pi * y / cfg.L0)
+    fields = dict(psipg=0.01 * gyre[None, :, None] * np.ones((3, 64, 64)),
+                  topo=0.05 * np.outer(gyre, np.sin(2 * np.pi * y / cfg.L0)),
+                  qforc=1e-5 * rng.standard_normal((3, 64, 64)))
+    step = qg.make_step(cfg)
+    states = {}
+    for dev in ("cpu", cuda):
+        const = qg.build_constants(cfg, device=dev, **fields)
+        state = qg.init_state(cfg, const, psi0=psi0, tracers0=tr0)
+        before = fused_rhs.launches, fused_tracer.launches
+        for _ in range(10):
+            state, diag = step(state, const, 1e9)
+        states[str(dev)] = (state, fused_rhs.launches - before[0],
+                            fused_tracer.launches - before[1])
+    (cpu, *n_cpu), (gpu, *n_gpu) = states["cpu"], states["cuda"]
+    assert (n_cpu, n_gpu) == ([0, 0], [20, 20])
+    for name in ("q", "psi", "tracers"):
+        want = getattr(cpu, name)
+        got = getattr(gpu, name).cpu()
+        assert (got - want).abs().max() <= 1e-10 * want.abs().max(), name
+
+
+def test_fused_mm_step_matches_matmul_step(cuda):
+    """10 f32 steps at 128^2 x 3: the step whose inversion runs in K7
+    against the same step on the cuBLAS chain."""
+    psi0 = 1e-3 * np.random.default_rng(7).uniform(-1, 1, (3, 128, 128))
+    finals = []
+    for fused in (True, False):
+        cfg = _config(128, 3, "float32", transform="matmul")
+        const = qg.build_constants(cfg, device=cuda, fused_mm=fused)
+        state = qg.init_state(cfg, const, psi0=psi0)
+        step = qg.make_step(cfg)
+        before = fused_spectral.launches
+        for _ in range(10):
+            state, _ = step(state, const, 1e9)
+        assert fused_spectral.launches - before == (80 if fused else 0)
+        finals.append(state.psi)
+    assert torch.isfinite(finals[0]).all()
+    assert (finals[0] - finals[1]).abs().max() \
+        <= 1e-4 * finals[1].abs().max()

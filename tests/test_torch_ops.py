@@ -22,11 +22,13 @@ from msom_tpu import params as jparams
 from msom_tpu.ops import bc as jbc
 from msom_tpu.ops import ghost as jghost
 from msom_tpu.ops import modes as jmodes
+from msom_tpu.ops import stencil as jstencil
 from msom_tpu.ops import stretch as jstretch
 from msom_tpu_torch import params as tparams
 from msom_tpu_torch.ops import bc as tbc
 from msom_tpu_torch.ops import ghost as tghost
 from msom_tpu_torch.ops import modes as tmodes
+from msom_tpu_torch.ops import stencil as tstencil
 from msom_tpu_torch.ops import stretch as tstretch
 from tests import reference_numpy as ref
 
@@ -101,6 +103,63 @@ def test_stencils_match_jax(bc, shape):
     want = np.asarray(jghost.max_face_speed_layers(jp, d))
     assert got.shape == (shape[0],)
     np.testing.assert_allclose(got, want, rtol=1e-13, atol=0)
+
+
+@pytest.mark.parametrize("sbc", [0.0, 0.3, 2.0])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_slip_ghosts_match_jax(sbc, shape):
+    """pad_zeta_slip and ghosted_slip: the edge ghosts c (psi_in -
+    psi_ghost), the corner ghosts left at the Dirichlet fill; sbc <= 0 is
+    the plain Dirichlet pad."""
+    psi, zeta = _fields(shape, 7)
+    d = 0.37
+    jpsi, tpsi = _both(psi, "dirichlet")
+    want = np.asarray(jbc.pad_zeta_slip(jnp.asarray(zeta), jpsi.padded(),
+                                        sbc, d))
+    got = tbc.pad_zeta_slip(torch.as_tensor(zeta), tpsi.p, sbc, d).numpy()
+    _close(got, want)
+    jg = jghost.ghosted_slip(jnp.asarray(zeta), jpsi, sbc, d)
+    tg = tghost.ghosted_slip(torch.as_tensor(zeta), tpsi, sbc, d)
+    _close(tg.p, jg.padded())
+    np.testing.assert_array_equal(tg.p.numpy(), got)
+    dirichlet = tbc.pad(torch.as_tensor(zeta), tbc.BC.DIRICHLET).numpy()
+    for cy, cx in ((0, 0), (0, -1), (-1, 0), (-1, -1)):
+        np.testing.assert_array_equal(got[..., cy, cx],
+                                      dirichlet[..., cy, cx])
+    if sbc <= 0:
+        np.testing.assert_array_equal(got, dirichlet)
+    else:
+        c = sbc / ((0.5 * sbc + 1.0) * d * d)
+        _close(got[..., 1:-1, 0], 2 * c * psi[..., :, 0])
+
+
+@pytest.mark.parametrize("bc", BCS)
+def test_ghosted_from_padded_and_stencil_module_match_jax(bc):
+    """ops/stencil.py on padded arrays against the JAX module, and a
+    Ghosted built from a padded array against the JAX one."""
+    p, q = _fields((3, 24, 32), 8)
+    d = 0.37
+    jpp, jqp = (jbc.pad(jnp.asarray(a), jbc.BC(bc)) for a in (p, q))
+    tpp, tqp = (tbc.pad(torch.as_tensor(a), tbc.BC(bc)) for a in (p, q))
+    jg, tg = jghost.ghosted_from_padded(jpp), tghost.ghosted_from_padded(tpp)
+    np.testing.assert_array_equal(tg.p.numpy(), np.asarray(jg.padded()))
+    for dj, di in ((-1, 1), (0, 0), (1, -1)):
+        np.testing.assert_array_equal(tstencil.shift(tpp, dj, di).numpy(),
+                                      np.asarray(jstencil.shift(jpp, dj, di)))
+    _close(tstencil.laplacian(tpp, d), jstencil.laplacian(jpp, d))
+    _close(tstencil.arakawa_mjac(tpp, tqp, d),
+           jstencil.arakawa_mjac(jpp, jqp, d))
+    _close(tstencil.beta_effect(tpp, 0.5, d),
+           jstencil.beta_effect(jpp, 0.5, d))
+    for got, want in zip(tstencil.face_velocities(tpp, d),
+                         jstencil.face_velocities(jpp, d)):
+        _close(got, want)
+    # the face velocities carry the CFL maxima of max_face_speed_layers
+    ufx, ufy = tstencil.face_velocities(tpp, d)
+    np.testing.assert_allclose(
+        torch.maximum(ufx.abs().amax(dim=(-2, -1)),
+                      ufy.abs().amax(dim=(-2, -1))).numpy(),
+        tghost.max_face_speed_layers(tg, d).numpy(), rtol=1e-13)
 
 
 def test_stencils_match_loop_reference():
@@ -209,7 +268,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     out = subprocess.run([sys.executable, "-c", _ISOLATION],
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 14
+    assert int(out.stdout.strip()) >= 17
 
 
 def _imported_modules(path):

@@ -9,6 +9,7 @@ CUDA kernel itself is held against this plain version on the card by
 chip_smoke.py."""
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -155,6 +156,9 @@ def test_rhs_fused_never_falls_back_off_the_cpu():
 def test_bound_work_at_the_main_path():
     """The compulsory traffic at 2048^2 x 4 f32: psi in and dq out, about
     134 MB (the y-profiles add a few kB)."""
-    nbytes, nops = fused_rhs.bound_work(2048, 4, 4, 0.0, -1.0)
+    _, cfg = _configs(2048, 4, 0.0)
+    const = types.SimpleNamespace(pp=None, zetap_pad=None, topo=None,
+                                  iro=None, qforc=None)
+    nbytes, nops = fused_rhs.bound_work(cfg, const, 4)
     assert 2 * 4 * 2048 ** 2 * 4 <= nbytes < 2 * 4 * 2048 ** 2 * 4 + 2 ** 16
     assert 100 * 4 * 2048 ** 2 < nops < 300 * 4 * 2048 ** 2

@@ -2,7 +2,10 @@
 JAX package's on identical float64 inputs: the derived constants at 1e-13,
 the transforms and the solve at 1e-12 (each output sums up to N products,
 in another order than XLA's), and the solve's residual in the model's own
-operator (comp_q)."""
+operator (comp_q); and the plain version of the fused basis-matmul solve
+(kernel K7) against the JAX package's Pallas kernel in interpret mode, in
+float32 at the 1e-4 of tests/test_spectral.py (the Pallas kernel's 3-pass
+bf16 products against full-f32 ones)."""
 
 import numpy as np
 import pytest
@@ -11,10 +14,12 @@ import torch
 import jax.numpy as jnp
 
 from msom_tpu.solvers import ctdst as jctdst
+from msom_tpu.solvers import pallas_spectral
 from msom_tpu.solvers import spectral as jspec
 from msom_tpu_torch.models import qg as tqg
 from msom_tpu_torch.params import QGConfig
 from msom_tpu_torch.solvers import ctdst as tctdst
+from msom_tpu_torch.solvers import fused_spectral
 from msom_tpu_torch.solvers import spectral as tspec
 
 torch.set_num_threads(1)
@@ -150,9 +155,105 @@ def test_solve_spectral_residual_in_comp_q(transform):
 
 def test_unported_spectral_options_raise():
     kw = dict(nl=1, N=32, L0=1.0, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 7b"):
         tspec.build_spectral(periodic=True, **kw)
     with pytest.raises(NotImplementedError, match="refine"):
         tspec.build_spectral(refine=True, **kw)
-    with pytest.raises(NotImplementedError, match="K7"):
-        tspec.build_spectral(fused_mm=True, **kw)
+
+
+def _modal_problem(nl, N, dtype, seed=0):
+    """(S, inv_den, qm) of the Dirichlet matmul solve as numpy arrays."""
+    _, t = _build(nl, N, "matmul", dtype)
+    rng = np.random.default_rng(seed)
+    qm = rng.standard_normal((nl, N, N)).astype(dtype)
+    return t.S.numpy(), t.inv_den.numpy(), qm
+
+
+def test_mm_solve_matches_pallas_fused_solve():
+    """spectral._mm_solve (the plain version of K7) in float32 against
+    pallas_spectral.fused_mm_solve(interpret=True) at N = 128, nl = 3."""
+    S, D, qm = _modal_problem(3, 128, "float32")
+    want = np.asarray(pallas_spectral.fused_mm_solve(
+        jnp.asarray(S), jnp.asarray(D), jnp.asarray(qm), interpret=True))
+    args = [torch.as_tensor(a) for a in (S, D, qm)]
+    got = fused_spectral.fused_mm_solve_reference(*args)
+    assert got.dtype == torch.float32
+    _close(got, want, 1e-4)
+    before = fused_spectral.launches
+    assert torch.equal(fused_spectral.fused_mm_solve(*args), got)
+    assert fused_spectral.launches == before     # the CPU route counts none
+
+
+@pytest.mark.parametrize("nl", [1, 3])
+def test_fused_mm_build_solves_like_the_matmul_transform(nl):
+    """build_spectral(fused_mm=True) on the CPU is the matmul solve: the
+    same constants, and solve_spectral agrees with the JAX f64 solve."""
+    kw = dict(nl=nl, N=128, L0=L0, dh=np.asarray(DH[:nl] if nl > 1 else
+                                                 (1.0,)),
+              s_profile=_sprof(nl), dtype=torch.float64, device="cpu",
+              transform="matmul")
+    fused = tspec.build_spectral(fused_mm=True, **kw)
+    plain = tspec.build_spectral(**kw)
+    assert fused.fused_mm and not plain.fused_mm
+    assert torch.equal(fused.S, plain.S)
+    assert torch.equal(fused.inv_den, plain.inv_den)
+    j, _ = _build(nl, 128, "matmul")
+    q = np.random.default_rng(nl).standard_normal((nl, 128, 128))
+    got = tspec.solve_spectral(fused, torch.as_tensor(q))
+    assert torch.equal(got, tspec.solve_spectral(plain, torch.as_tensor(q)))
+    _close(got, jspec.solve_spectral(j, jnp.asarray(q)), 1e-12)
+
+
+def test_build_constants_hands_fused_mm_on():
+    cfg = QGConfig(N=128, nl=3, L0=L0, Rom=ROM, Fr=FR, dh=DH, beta=0.5,
+                   dtype="float64", solver="spectral").validate()
+    const = tqg.build_constants(cfg, device="cpu", fused_mm=True)
+    assert const.spec.fused_mm and const.spec.S is not None
+    assert const.spec.fac is None
+    assert not tqg.build_constants(cfg, device="cpu").spec.fused_mm
+    q = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (3, 128, 128)))
+    psi = tqg.invert_q(cfg, const, q)
+    res = (tqg.comp_q(cfg, const, psi) - q).abs().max() / q.abs().max()
+    assert res < 1e-12, float(res)
+
+
+@pytest.mark.parametrize("N,dtype", [(64, torch.float32), (96, torch.float32),
+                                     (192, torch.float32),
+                                     (1152, torch.float32),
+                                     (128, torch.float16)])
+def test_fused_mm_size_gate_raises(N, dtype):
+    """The TPU kernel's gate: f32 (the port also takes f64),
+    128 <= N <= 1024, N % 128 == 0."""
+    with pytest.raises(ValueError, match="fused_mm_solve"):
+        fused_spectral.check_gate(dtype, N)
+    with pytest.raises(ValueError, match="fused_mm_solve"):
+        fused_spectral.fused_mm_solve(
+            torch.zeros(N, N, dtype=dtype), torch.zeros(1, N, N, dtype=dtype),
+            torch.zeros(1, N, N, dtype=dtype))
+    if dtype == torch.float32:
+        with pytest.raises(ValueError, match="fused_mm_solve"):
+            tspec.build_spectral(nl=1, N=N, L0=1.0, dtype=dtype,
+                                 transform="matmul", fused_mm=True,
+                                 device="cpu")
+
+
+def test_fused_mm_refuses_other_transforms_and_devices():
+    with pytest.raises(ValueError, match="matmul"):
+        tspec.build_spectral(nl=1, N=128, L0=1.0, dtype=torch.float32,
+                             transform="auto", fused_mm=True, device="cpu")
+    for N in (128, 1024):
+        fused_spectral.check_gate(torch.float32, N)
+        fused_spectral.check_gate(torch.float64, N)
+    meta = [torch.empty(s, dtype=torch.float32, device="meta")
+            for s in ((128, 128), (2, 128, 128), (2, 128, 128))]
+    with pytest.raises(ValueError, match="device"):
+        fused_spectral.fused_mm_solve(*meta)
+
+
+def test_fused_spectral_bound_work_at_the_k7_path():
+    """1024^2 x 4 f32: four products of 2 N^3 a layer, 34.4 GFLOP, against
+    13 planes of 4 MB."""
+    nbytes, nops = fused_spectral.bound_work(1024, 4, 4)
+    assert nbytes == 13 * 1024 ** 2 * 4
+    assert 4 * 4 * 2 * 1024 ** 3 <= nops < 4 * 4 * 2 * 1024 ** 3 * 1.001

@@ -2,7 +2,7 @@
 with the JAX package's jitted step on the Verron double gyre at 64^2 x 3 in
 float64, from one numpy IC; the GOLDEN.md KE trajectory; a JAX state
 carried into the port through its checkpoint leaves; and the configurations
-outside the ported slice, which must refuse to run.
+not ported yet, which must refuse to run.
 
 Tolerances are those of tests/test_lockstep.py: relq, relpsi < 1e-11,
 dt to 1e-12 and KE to 1e-10 relative, GOLDEN.md KE to 1e-9."""
@@ -133,8 +133,8 @@ def test_cfl_chain_and_dtnext_match_jax(amp, prev):
     jdt, jprev = jqg.cfl_dtmax(jcfg, jqg.build_constants(jcfg),
                                jghosted(jnp.asarray(psi), JBC.DIRICHLET),
                                dtmax0, jnp.asarray(prev))
-    tdt, tprev = tqg.cfl_dtmax(tcfg, None, tghosted(torch.as_tensor(psi),
-                                                    TBC.DIRICHLET),
+    tdt, tprev = tqg.cfl_dtmax(tcfg, tqg.build_constants(tcfg, device="cpu"),
+                               tghosted(torch.as_tensor(psi), TBC.DIRICHLET),
                                dtmax0, torch.tensor(prev, dtype=torch.float64))
     np.testing.assert_allclose(tdt.numpy(), np.asarray(jdt), rtol=1e-14)
     np.testing.assert_allclose(tprev.numpy(), np.asarray(jprev), rtol=1e-14)
@@ -179,9 +179,8 @@ def test_state_from_numpy_refuses_what_it_cannot_carry():
     leaves = {"q": np.zeros((3, 16, 16)), "psi": np.zeros((3, 16, 16)),
               "t": np.float64(0), "dt_prev": np.float64(0),
               "i": np.int32(0)}
-    with pytest.raises(NotImplementedError, match="tracers"):
-        convert.state_from_numpy(tcfg, {**leaves, "tracers": 0},
-                                 device="cpu")
+    with pytest.raises(NotImplementedError, match="qof"):
+        convert.state_from_numpy(tcfg, {**leaves, "qof": 0}, device="cpu")
     with pytest.raises(ValueError, match="shape"):
         convert.state_from_numpy(tcfg, {**leaves, "q": np.zeros((3, 8, 8))},
                                  device="cpu")
@@ -217,12 +216,7 @@ def test_step_on_cpu_launches_no_kernel():
 @pytest.mark.parametrize("override,match", [
     (dict(solver="mg"), "item 11"),
     (dict(mode_pv_invert=True), "item 11"),
-    (dict(sbc=-1.0), "item 7"),
-    (dict(sbc=1.0), "item 7"),
-    (dict(upg=(0.1, 0.0, 0.0)), "PG coupling"),
-    (dict(flsrv=1), "_LS_RV"),
-    (dict(nptr=1, Pe=(100.0,), ptr_r=(0.0,)), "tracers"),
-    (dict(energy_conserv=True), "ENERGY_CONSERV"),
+    (dict(sbc=-1.0), "item 7b"),
     (dict(stochastic=True, tr_stoch=10.0), "item 8"),
     (dict(dtflt=1.0), "item 9"),
     (dict(varRo=1), "item 10"),
@@ -233,8 +227,7 @@ def test_configs_outside_the_slice_raise(override, match):
         tqg.build_constants(tcfg, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["psipg", "topo", "qforc", "s_stoch",
-                                  "frpg"])
+@pytest.mark.parametrize("name", ["s_stoch", "frpg", "rdpg"])
 def test_input_fields_outside_the_slice_raise(name):
     _, tcfg = verron(16)
     with pytest.raises(NotImplementedError, match=name):
