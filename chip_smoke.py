@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (msom_tpu_torch).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [phase ...]
 
 Needs one CUDA card, nvcc and the repository checkout; imports nothing of
-JAX or msom_tpu. Phases, in order; any failure exits non-zero:
+JAX or msom_tpu. With no argument every phase runs; with phase names
+(kernels, steps, paths, fused_mm, mg) the build and those phases only (for
+work on one part: the kernels' record then lists what ran). Phases, in
+order; any failure exits non-zero:
 
 1. build every kernel from msom_tpu_torch/csrc (one nvcc per source, all
    started together);
@@ -31,7 +34,22 @@ JAX or msom_tpu. Phases, in order; any failure exits non-zero:
    cuBLAS chain) and with the default folded DST: 10 warm-up steps each,
    then 20 timed steps of each in turns, three times, the least reported;
    time K7 alone against its plain version (that cuBLAS chain, which is
-   also its library yardstick) and its bound.
+   also its library yardstick) and its bound;
+7. the multigrid (phase name mg): hold the red-black line sweep (K3, four
+   sweeps in a row, so that a fault on a tile's rim can spread) and the
+   fused residual (K4) against their plain versions in f32 and f64, with
+   Dirichlet and Neumann signs (and mixed signs at n = 100), with stretching
+   profiles and in the modal shape (no stretching, a Helmholtz profile), at
+   n = 256 (nl = 1, 3, 4), n = 100, n = 2, 4, 8 and 2048^2 x 4; a whole
+   solve_layered on the card against the CPU in f64 (128^2 x 3, tol 1e-8:
+   same cycles, same nrelax), layered and modal; the mg step and the
+   mode_pv_invert step on the card against the CPU step (128^2 x 3, f64,
+   20 steps, the same V-cycles every step); then the mg path at full width:
+   bench.py's mg row, 2048^2 x 4 f32, solver="mg", tol = 1e-3, mg_extrap,
+   from the numpy-seeded noise IC, bench.py's 200 spin-up steps, then 40
+   steps timed with CUDA events, counting K1's, K3's and K4's launches and
+   the V-cycles of every solve; K3 and K4 alone on the final state against
+   their plain versions and bounds; a four-step profile.
 
 TF32 is switched off for matmuls and convolutions before anything runs:
 1-pass reduced-precision transforms give O(1) solution error at N = 2048.
@@ -53,6 +71,14 @@ PEAK_OPS_PER_S = {4: 67e12, 8: 34e12}    # FP32 / FP64 outside tensor cores
 LIMITS = {4: 1e-4, 8: 1e-11}             # K1, K2 vs plain, of max|out|
 K7_LIMITS = {4: 1e-5, 8: 1e-12}          # K7 vs plain, of max|psi_m|
 STEP_LIMIT = 1e-10                        # CUDA step vs CPU step, f64
+# K3 (after MG_SWEEPS sweeps) and K4 vs plain, of max|out|: the kernels
+# contract a*b+c into one rounding and multiply by 1/delta^2 where the plain
+# version divides, a few ulp a cell
+MG_LIMITS = {4: 1e-5, 8: 1e-12}
+MG_SWEEPS = 4
+MG_SOLVE_LIMIT = 1e-10                    # CUDA solve vs CPU solve, f64
+MG_MAX_CYCLES = 20      # a solve that needs more at tol 1e-3 is spinning
+PHASES = ("kernels", "steps", "paths", "fused_mm", "mg")
 K1_OPTIONS = ("pg", "pg_flsrv", "topo", "qforc", "energy_conserv", "slip",
               "all")
 TRACERS = dict(nptr=2, Pe=(1e3, 2e3), ptr_r=(100.0, 0.0))
@@ -68,13 +94,13 @@ def verron(QGConfig, N, **kw):
     return QGConfig(**base).validate()
 
 
-def bench_config(QGConfig, N, nl, dtype, **kw):
+def bench_config(QGConfig, N, nl, dtype, solver="spectral", **kw):
     """bench.py's 4-layer Verron variant scaled to N (bench.py:63-68)."""
     return QGConfig(N=N, nl=nl, L0=80, Rom=0.025, Ekb=0.002, tau0=1e-4,
                     Re4=1563 * (N / 256) ** 3, beta=0.5,
                     Fr=tuple([0.003] * (nl - 1)), dh=tuple([1.0 / nl] * nl),
                     DT=5e-2, tend=1e9, dtout=1e9, CFL=0.6, dtype=dtype,
-                    solver="spectral", **kw).validate()
+                    solver=solver, **kw).validate()
 
 
 def coupled_fields(cfg, noise=0.0, seed=0):
@@ -205,6 +231,361 @@ def state_ok(state, diag, shape):
             and tuple(state.q.shape) == shape)
 
 
+def mg_level(nl, n, dtype, modal, rng):
+    """(level, idh0, idh1): one multigrid level on the card with random
+    y-profile coefficients, layered (stretching profiles and metrics) or in
+    the modal shape (no stretching, a Helmholtz profile per mode), as
+    tests/test_pallas_mg.py makes them."""
+    import torch
+    from msom_tpu_torch.solvers import mg
+    tdt = getattr(torch, dtype)
+    s = lam = None
+    idh0 = idh1 = np.zeros(nl)
+    if modal:
+        lam = torch.as_tensor(-rng.uniform(0.0, 5.0, (nl, n, 1)),
+                              dtype=tdt).cuda()
+    elif nl > 1:
+        s = torch.as_tensor(rng.uniform(0.5, 2.0, (nl - 1, n, 1)),
+                            dtype=tdt).cuda()
+        idh0 = np.r_[0.0, rng.uniform(1, 3, nl - 1)]
+        idh1 = np.r_[rng.uniform(1, 3, nl - 1), 0.0]
+    lvl = mg._build_level(nl, n, 80.0 / n, s, lam, idh0, idh1, tdt,
+                          torch.device("cuda"))
+    return lvl, idh0, idh1
+
+
+def mg_kernel_checks():
+    """K3 and K4 against their plain versions on the card; returns (ok,
+    {kernel: max abs error at 2048^2 x 4 f32, layered, Dirichlet})."""
+    import torch
+    from msom_tpu_torch.solvers import fused_mg
+    sizes = [(256, 1), (256, 3), (256, 4), (100, 3), (2, 3), (4, 4), (8, 1),
+             (2048, 4)]
+    ok, main_err = True, {}
+    for dtype in ("float64", "float32"):
+        isz = 8 if dtype == "float64" else 4
+        lim = MG_LIMITS[isz]
+        for n, nl in sizes:
+            for modal in (False, True):
+                rng = np.random.default_rng(n + nl)
+                lvl, idh0, idh1 = mg_level(nl, n, dtype, modal, rng)
+                tdt = getattr(torch, dtype)
+                da = torch.as_tensor(rng.standard_normal((nl, n, n)),
+                                     dtype=tdt).cuda()
+                res = torch.as_tensor(rng.standard_normal((nl, n, n)),
+                                      dtype=tdt).cuda()
+                d2 = lvl.delta * lvl.delta
+                signs = [(-1.0, -1.0), (1.0, 1.0)]
+                if n == 100:
+                    signs.append((1.0, -1.0))
+                for sx, sy in signs:
+                    kw = dict(d2=d2, sign_x=sx, sign_y=sy)
+                    before = (fused_mg.sweep_launches,
+                              fused_mg.residual_launches)
+                    k = p = da
+                    for _ in range(MG_SWEEPS):
+                        k = fused_mg.rb_line_sweep(k, res, lvl.sw, **kw)
+                        p = fused_mg.rb_line_sweep_reference(p, res, lvl.sw,
+                                                             **kw)
+                    kw = dict(delta=lvl.delta, idh0=idh0, idh1=idh1,
+                              sign_x=sx, sign_y=sy)
+                    r_k, m_k = fused_mg.residual_norm(da, res, lvl.rp, **kw)
+                    r_p, m_p = fused_mg.residual_norm_reference(
+                        da, res, lvl.rp, **kw)
+                    torch.cuda.synchronize()
+                    counted = (fused_mg.sweep_launches - before[0],
+                               fused_mg.residual_launches - before[1])
+                    err_s = (k - p).abs().max().item()
+                    rel_s = err_s / p.abs().max().item()
+                    err_r = (r_k - r_p).abs().max().item()
+                    rel_r = err_r / r_p.abs().max().item()
+                    rel_m = abs(m_k.item() - m_p.item()) / m_p.item()
+                    good = (rel_s <= lim and rel_r <= lim and rel_m <= lim
+                            and counted == (MG_SWEEPS, 1)
+                            and k.shape == da.shape and m_k.ndim == 0)
+                    ok &= good
+                    print(f"K3/K4 check {dtype} n={n} nl={nl} "
+                          f"{'modal' if modal else 'layered'} signs "
+                          f"({sx:+g}, {sy:+g}): after {MG_SWEEPS} sweeps "
+                          f"max|d da|/max|da| = {rel_s:.3e}, max|d res|/"
+                          f"max|res| = {rel_r:.3e}, d max/max = {rel_m:.3e} "
+                          f"(limit {lim:g}) {'ok' if good else 'FAIL'}")
+                    if (dtype == "float32" and (n, nl) == (2048, 4)
+                            and not modal and sx < 0):
+                        main_err["mg_sweep"] = err_s
+                        main_err["mg_residual"] = err_r
+                    del k, p, r_k, r_p
+                del lvl, da, res
+                torch.cuda.empty_cache()
+    # a NaN in the field must reach the norm, as it does in the plain max
+    lvl, idh0, idh1 = mg_level(3, 100, "float32", False,
+                               np.random.default_rng(1))
+    a = torch.zeros((3, 100, 100), device="cuda")
+    a[1, 50, 99] = float("nan")
+    _, m = fused_mg.residual_norm(a, a, lvl.rp, delta=lvl.delta, idh0=idh0,
+                                  idh1=idh1, sign_x=-1.0, sign_y=-1.0)
+    good = bool(torch.isnan(m))
+    print(f"K4 check: a NaN cell gives a NaN norm: {'ok' if good else 'FAIL'}")
+    return ok and good, main_err
+
+
+def mg_solve_check():
+    """A whole solve_layered on the card against the CPU in f64, layered
+    and modal: the same cycles, the same nrelax, the same solution."""
+    import torch
+    from msom_tpu_torch.solvers import fused_mg, mg
+    nl, n = 3, 128
+    ok = True
+    for modal in (False, True):
+        rng = np.random.default_rng(5)
+        kw = dict(L0=80.0, tolerance=1e-8)
+        coef = {}
+        if modal:
+            coef["lam"] = torch.tensor(-rng.uniform(0.0, 5.0, (nl, n, 1)))
+        else:
+            coef["s"] = torch.tensor(rng.uniform(0.5, 2.0, (nl - 1, n, 1)))
+            kw["idh0"] = np.r_[0.0, rng.uniform(1, 3, nl - 1)]
+            kw["idh1"] = np.r_[rng.uniform(1, 3, nl - 1), 0.0]
+        b = torch.tensor(rng.standard_normal((nl, n, n)))
+        out = {}
+        for where in ("cpu", "cuda"):
+            before = fused_mg.sweep_launches, fused_mg.residual_launches
+            a, st = mg.solve_layered(
+                torch.zeros_like(b).to(where), b.to(where),
+                **{k: v.to(where) for k, v in coef.items()}, **kw)
+            out[where] = (a.cpu(), st, fused_mg.sweep_launches - before[0],
+                          fused_mg.residual_launches - before[1])
+        (a_c, st_c, *n_c), (a_g, st_g, *n_g) = out["cpu"], out["cuda"]
+        rel = ((a_g - a_c).abs().max() / a_c.abs().max()).item()
+        good = (st_g.iters == st_c.iters and st_g.nrelax == st_c.nrelax
+                and rel <= MG_SOLVE_LIMIT and st_g.resa <= 1e-8
+                and n_c == [0, 0] and n_g[1] == st_g.iters + 1
+                and n_g[0] > 0)
+        ok &= good
+        print(f"solve check {'modal' if modal else 'layered'} {n}^2 x {nl} "
+              f"f64 tol 1e-8, cuda vs cpu: cycles {st_g.iters} vs "
+              f"{st_c.iters}, nrelax {st_g.nrelax} vs {st_c.nrelax}, resa "
+              f"{st_g.resa:.3e} vs {st_c.resa:.3e}, rel a = {rel:.3e} "
+              f"(limit {MG_SOLVE_LIMIT:g}), K3 launches {n_g[0]}, K4 "
+              f"launches {n_g[1]} {'ok' if good else 'FAIL'}")
+    return ok
+
+
+def mg_path(QGConfig, rows, main_err):
+    """The multigrid path at full width; appends K3's and K4's records to
+    `rows`. Returns False if the path failed."""
+    import torch
+    from msom_tpu_torch.models import fused_rhs, fused_tracer, qg
+    from msom_tpu_torch.solvers import fused_mg, fused_spectral
+    N, nl, warm, steps = 2048, 4, 200, 40
+    shape = (nl, N, N)
+    cfg = bench_config(QGConfig, N, nl, "float32", solver="mg", tol=1e-3)
+    t0 = time.perf_counter()
+    const = qg.build_constants(cfg, device="cuda")
+    psi0 = 1e-3 * np.random.default_rng(0).uniform(-1, 1, shape)
+    state = qg.init_state(cfg, const, psi0=psi0)
+    step = qg.make_step(cfg)
+    torch.cuda.synchronize()
+    print(f"mg path set-up: {time.perf_counter() - t0:.1f} s, "
+          f"{len(const.levels)} levels, profiles on every level: "
+          f"{all(lv.sw is not None for lv in const.levels)}")
+    t0 = time.perf_counter()
+    spin = []
+    for _ in range(warm):
+        state, diag = step(state, const, 1e18)
+        spin.append(diag.mg_iters)
+    torch.cuda.synchronize()
+    print(f"mg path spin-up: {warm} steps in {time.perf_counter() - t0:.1f} "
+          f"s, V-cycles of the first solve: first ten steps {spin[:10]}, "
+          f"last ten {spin[-10:]}")
+    torch.cuda.reset_peak_memory_stats()
+    fused_rhs.launches = fused_tracer.launches = 0
+    fused_spectral.launches = 0
+    fused_mg.sweep_launches = fused_mg.residual_launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = []       # V-cycles of every solve of the timed steps
+    start.record()
+    for _ in range(steps):
+        n0 = fused_mg.residual_launches
+        state, diag = step(state, const, 1e18)
+        # a solve launches K4 once for its first residual and once a cycle
+        both = fused_mg.residual_launches - n0 - 2
+        cycles += [diag.mg_iters, both - diag.mg_iters]
+    end.record()
+    torch.cuda.synchronize()
+    ms_step = start.elapsed_time(end) / steps
+    n_rhs, n_sweep, n_res = (fused_rhs.launches, fused_mg.sweep_launches,
+                             fused_mg.residual_launches)
+    finite = state_ok(state, diag, shape)
+    mean_c, max_c = float(np.mean(cycles)), max(cycles)
+    print(f"mg path {N}^2 x {nl} f32 solver=mg tol=1e-3 mg_extrap after "
+          f"{warm} spin-up steps: {ms_step:.4f} ms/step, "
+          f"{N * N * nl / (ms_step * 1e-3):.4e} grid-points/s, V-cycles a "
+          f"solve mean {mean_c:.4f} max {max_c} min {min(cycles)}, "
+          f"mg_sweep launches {n_sweep} ({n_sweep / steps:.1f} a step), "
+          f"mg_residual launches {n_res} ({n_res / steps:.1f} a step), "
+          f"fused_rhs launches {n_rhs} (expected {2 * steps}), host reads "
+          f"of the residual norm {n_res / steps:.1f} a step, last mg_res "
+          f"{diag.mg_res:.3e}, ke {diag.ke.item():.6e}, dt "
+          f"{diag.dt.item():.6e}, t {state.t.item():.6e}, finite {finite}, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if (n_rhs != 2 * steps or not finite or n_sweep == 0
+            or min(cycles) < 1
+            or max_c > MG_MAX_CYCLES or fused_tracer.launches != 0
+            or fused_spectral.launches != 0):
+        return False
+
+    # one more inversion from the older psi, for its statistics
+    _, st = qg.invert_q(cfg, const, state.psi_old, state.q)
+    print(f"mg inversion of the final q from psi one step back: {st.iters} "
+          f"cycles, residual {st.resb:.3e} -> {st.resa:.3e}, final nrelax "
+          f"{st.nrelax}")
+    if st.iters > MG_MAX_CYCLES or not st.resa <= cfg.tol:
+        return False
+
+    # K3 and K4 alone on the final state
+    lvl = const.levels[0]
+    sign = dict(sign_x=-1.0, sign_y=-1.0)
+    rkw = dict(delta=lvl.delta, idh0=const.idh0, idh1=const.idh1, **sign)
+    skw = dict(d2=lvl.delta * lvl.delta, **sign)
+    psi, q = state.psi.contiguous(), state.q.contiguous()
+    res, _ = fused_mg.residual_norm(psi, q, lvl.rp, **rkw)
+    da = fused_mg.rb_line_sweep(torch.zeros_like(res), res, lvl.sw, **skw)
+    for name, kernel, plain, work, n_launch, source, line in (
+            ("mg_sweep",
+             lambda: fused_mg.rb_line_sweep(da, res, lvl.sw, **skw),
+             lambda: fused_mg.rb_line_sweep_reference(da, res, lvl.sw, **skw),
+             fused_mg.sweep_bound_work(nl, N, 4), n_sweep,
+             fused_mg.SWEEP_SOURCE, 179),
+            ("mg_residual",
+             lambda: fused_mg.residual_norm(psi, q, lvl.rp, **rkw),
+             lambda: fused_mg.residual_norm_reference(psi, q, lvl.rp, **rkw),
+             fused_mg.residual_bound_work(nl, N, 4, True, False), n_res,
+             fused_mg.RESIDUAL_SOURCE, 247)):
+        k_ms, p_ms = kernel_times(kernel, plain)
+        bound, by, t_b, t_o = roofline(*work, 4)
+        print(f"{name} at {N}^2 x {nl} f32: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, bound {bound:.4f} ms by {by} (bytes {work[0]} "
+              f"-> {t_b:.4f} ms, operations {work[1]} -> {t_o:.4f} ms), "
+              f"library_ms null")
+        rows.append({
+            "name": name, "path": f"mg {N}^2 x {nl} f32", "route": "cuda",
+            "source": source,
+            "replaces": f"msom_tpu/solvers/pallas_mg.py:{line}",
+            "launches": n_launch, "max_abs_err": main_err[name], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None})
+    # the sweeps of one V-cycle over all levels, at their bounds and timed
+    nrelax = 4
+    total_bound, per_level = 0.0, []
+    for lv in const.levels:
+        n = lv.sw.t0.shape[-1]
+        z = torch.zeros((nl, n, n), device="cuda")
+        kw = dict(d2=lv.delta * lv.delta, **sign)
+        ms = cuda_ms(lambda: fused_mg.rb_line_sweep(z, z, lv.sw, **kw), 50)
+        total_bound += nrelax * roofline(
+            *fused_mg.sweep_bound_work(nl, n, 4), 4)[0]
+        per_level.append((n, ms))
+    print(f"mg_sweep by level, ms a launch: "
+          + ", ".join(f"n={n}: {ms:.4f}" for n, ms in per_level)
+          + f"; one V-cycle at nrelax {nrelax}: "
+          f"{nrelax * sum(ms for _, ms in per_level):.4f} ms in "
+          f"{nrelax * len(per_level)} launches against a summed bound of "
+          f"{total_bound:.4f} ms")
+
+    box = [state]
+
+    def one_step():
+        box[0], _ = step(box[0], const, 1e18)
+
+    kernel_profile("mg", one_step, 4, ms_step)
+    return True
+
+
+def fused_mm_path(QGConfig, rows, main_err):
+    """The fused-solve path at 1024^2 x 4; appends K7's record to `rows`.
+    Returns False if the path failed."""
+    import torch
+    from msom_tpu_torch.models import fused_rhs, fused_tracer, qg
+    from msom_tpu_torch.solvers import fused_spectral, spectral
+    N, nl, warm, steps = 1024, 4, 10, 20
+    shape = (nl, N, N)
+    psi0 = 1e-3 * np.random.default_rng(0).uniform(-1, 1, shape)
+    # the device work of a step is short at this size, so the host shows in
+    # ms/step: the three variants are timed in turns, `rounds` times each
+    rounds = 3
+    runs = {}
+    for label, kw, build_kw in (
+            ("fused_mm (K7)", {}, dict(fused_mm=True)),
+            ("transform=matmul (cuBLAS chain)", dict(transform="matmul"), {}),
+            ("default (folded DST)", {}, {})):
+        cfg = bench_config(QGConfig, N, nl, "float32", **kw)
+        const = qg.build_constants(cfg, device="cuda", **build_kw)
+        state = qg.init_state(cfg, const, psi0=psi0)
+        step = qg.make_step(cfg)
+        for _ in range(warm):
+            state, diag = step(state, const, 1e18)
+        runs[label] = dict(const=const, state=state, step=step, ms=[],
+                           want=8 * steps if build_kw else 0)
+    torch.cuda.synchronize()
+    for _ in range(rounds):
+        for label, run in runs.items():
+            fused_rhs.launches = fused_tracer.launches = 0
+            fused_spectral.launches = 0
+            run["state"], run["diag"], ms_step = timed_steps(
+                run["step"], run["state"], run["const"], steps)
+            run["ms"].append(ms_step)
+            run["n_k7"] = fused_spectral.launches
+            if run["n_k7"] != run["want"] \
+                    or fused_rhs.launches != 2 * steps:
+                print(f"{label}: fused_spectral launches {run['n_k7']} "
+                      f"(expected {run['want']}), fused_rhs launches "
+                      f"{fused_rhs.launches} (expected {2 * steps})")
+                return False
+    for label, run in runs.items():
+        diag, ms_step = run["diag"], min(run["ms"])
+        finite = state_ok(run["state"], diag, shape)
+        print(f"{N}^2 x {nl} f32 step, {label}: {ms_step:.4f} ms/step (the "
+              f"least of {', '.join(f'{m:.4f}' for m in run['ms'])}), "
+              f"{N * N * nl / (ms_step * 1e-3):.4e} grid-points/s, "
+              f"fused_spectral launches {run['n_k7']} a round (expected "
+              f"{run['want']}), fused_rhs launches {2 * steps}, "
+              f"ke {diag.ke.item():.6e}, dt {diag.dt.item():.6e}, "
+              f"finite {finite}")
+        if not finite:
+            return False
+    k7_run, mm_run = list(runs.values())[:2]
+    k7_launches, k7_state, k7_const = (k7_run["n_k7"], k7_run["state"],
+                                       k7_run["const"])
+    a, b = k7_run["state"].psi, mm_run["state"].psi
+    rel = ((a - b).abs().max() / b.abs().max()).item()
+    print(f"K7 path against the cuBLAS path after {warm + rounds * steps} "
+          f"steps: "
+          f"max|d psi|/max|psi| = {rel:.3e} (limit 1e-3)")
+    if not rel <= 1e-3:
+        return False
+    spec = k7_const.spec
+    qm = torch.einsum("ml,lyx->myx", spec.l2m, k7_state.q).contiguous()
+    k_ms, p_ms = kernel_times(
+        lambda: fused_spectral.fused_mm_solve(spec.S, spec.inv_den, qm),
+        lambda: spectral._mm_solve(spec.S, spec.inv_den, qm), 20, 20)
+    nbytes, nops = fused_spectral.bound_work(N, nl, 4)
+    bound, by, t_b, t_o = roofline(nbytes, nops, 4)
+    print(f"K7 at {N}^2 x {nl} f32: kernel {k_ms:.4f} ms a solve (4 "
+          f"launches), plain = library (cuBLAS chain, TF32 off) {p_ms:.4f} "
+          f"ms, bound {bound:.4f} ms by {by} on the FP32 pipe (bytes "
+          f"{nbytes} -> {t_b:.4f} ms, operations {nops} -> {t_o:.4f} ms)")
+    rows.append({
+        "name": "fused_spectral", "path": f"fused_mm {N}^2 x {nl} f32",
+        "route": "cuda", "source": fused_spectral.SOURCE,
+        "replaces": "msom_tpu/solvers/pallas_spectral.py:82",
+        "launches": k7_launches, "max_abs_err": main_err["fused_spectral"],
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": p_ms})
+    return True
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -213,7 +594,18 @@ def main() -> int:
     from msom_tpu_torch import _build
     from msom_tpu_torch.models import fused_rhs, fused_tracer, qg
     from msom_tpu_torch.params import QGConfig
-    from msom_tpu_torch.solvers import fused_spectral, spectral
+    from msom_tpu_torch.solvers import fused_mg, fused_spectral, spectral
+
+    only = set(sys.argv[1:])
+    if only - set(PHASES):
+        print(f"chip_smoke: phases are {', '.join(PHASES)}", file=sys.stderr)
+        return 1
+
+    if only & {"paths", "fused_mm"}:
+        only.add("kernels")      # their records carry the checks' errors
+
+    def wanted(phase):
+        return not only or phase in only
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -240,7 +632,7 @@ def main() -> int:
     sizes = [(256, 1), (256, 3), (256, 4), (100, 3), (2048, 4)]
     main_err = {}
     ok = True
-    for dtype in ("float64", "float32"):
+    for dtype in ("float64", "float32") if wanted("kernels") else ():
         isz = 8 if dtype == "float64" else 4
         lim = LIMITS[isz]
         for N, nl in sizes:
@@ -343,9 +735,26 @@ def main() -> int:
         return 2
     print(f"kernel checks done at {time.perf_counter() - t_start:.0f} s")
 
-    # 3. whole step, CUDA against CPU, f64: uncoupled and coupled
-    for label, cfg in (("uncoupled", verron(QGConfig, 128)),
-                       ("coupled", verron(QGConfig, 128, **TRACERS))):
+    # 7a. the multigrid's kernels and a whole solve
+    if wanted("mg"):
+        good, mg_err = mg_kernel_checks()
+        main_err.update(mg_err)
+        if not (good and mg_solve_check()):
+            return 7
+        print(f"multigrid checks done at {time.perf_counter() - t_start:.0f} "
+              "s")
+
+    # 3. whole step, CUDA against CPU, f64: uncoupled and coupled; 7b. the
+    # multigrid step, layered and modal
+    checks = []
+    if wanted("steps"):
+        checks += [("uncoupled", verron(QGConfig, 128)),
+                   ("coupled", verron(QGConfig, 128, **TRACERS))]
+    if wanted("mg"):
+        checks += [("mg", verron(QGConfig, 128, solver="mg")),
+                   ("mg mode_pv_invert", verron(QGConfig, 128, solver="mg",
+                                                mode_pv_invert=True))]
+    for label, cfg in checks:
         rng = np.random.default_rng(42)
         psi0 = 1e-3 * rng.uniform(-1, 1, (cfg.nl, cfg.N, cfg.N))
         fields, tr0 = {}, None
@@ -354,13 +763,18 @@ def main() -> int:
             fields["qforc"] = 1e-5 * rng.standard_normal(psi0.shape)
             tr0 = 1e-3 * rng.uniform(-1, 1, (cfg.nl, cfg.nptr, cfg.N, cfg.N))
         step = qg.make_step(cfg)
-        states = {}
+        states, cycles, launched = {}, {}, {}
         for where in ("cpu", "cuda"):
             const = qg.build_constants(cfg, device=where, **fields)
             state = qg.init_state(cfg, const, psi0=psi0, tracers0=tr0)
+            before = fused_mg.sweep_launches, fused_mg.residual_launches
+            cycles[where] = []
             for _ in range(20):
                 state, diag = step(state, const, 1e9)
+                cycles[where].append(diag.mg_iters)
             states[where] = state
+            launched[where] = (fused_mg.sweep_launches - before[0],
+                               fused_mg.residual_launches - before[1])
         names = ["q", "psi"] + (["tracers"] if tr0 is not None else [])
         rels = {}
         for name in names:
@@ -368,9 +782,22 @@ def main() -> int:
             rels[name] = ((getattr(states["cuda"], name).cpu() - want)
                           .abs().max() / want.abs().max()).item()
         good = all(r <= STEP_LIMIT for r in rels.values())
+        extra = ""
+        if cfg.solver == "mg":
+            # the same V-cycles every step, through the kernels on the card
+            # only (each of the 40 solves: one K4 for the first residual and
+            # one a cycle, at least one cycle)
+            good &= (cycles["cuda"] == cycles["cpu"]
+                     and min(cycles["cuda"]) >= 1
+                     and launched["cpu"] == (0, 0)
+                     and launched["cuda"][0] > 0
+                     and launched["cuda"][1] >= 60 + sum(cycles["cuda"]))
+            extra = (f", V-cycles of the first solve cuda {cycles['cuda']} "
+                     f"cpu {cycles['cpu']}, K3/K4 launches "
+                     f"{launched['cuda']}")
         print(f"step check {label} 128^2 x 3 f64, 20 steps cuda vs cpu: "
               + ", ".join(f"rel {k} = {v:.3e}" for k, v in rels.items())
-              + f" (limit {STEP_LIMIT:g}) {'ok' if good else 'FAIL'}")
+              + f" (limit {STEP_LIMIT:g}){extra} {'ok' if good else 'FAIL'}")
         if not good:
             return 3
 
@@ -378,7 +805,7 @@ def main() -> int:
     N, nl, warm, steps = 2048, 4, 20, 40
     shape = (nl, N, N)
     rows = []
-    for label in ("uncoupled", "coupled"):
+    for label in ("uncoupled", "coupled") if wanted("paths") else ():
         coupled = label == "coupled"
         cfg = bench_config(QGConfig, N, nl, "float32",
                            **(TRACERS if coupled else {}))
@@ -399,6 +826,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         fused_rhs.launches = fused_tracer.launches = 0
         fused_spectral.launches = 0
+        fused_mg.sweep_launches = fused_mg.residual_launches = 0
         state, diag, ms_step = timed_steps(step, state, const, steps)
         n_rhs, n_tr = fused_rhs.launches, fused_tracer.launches
         want_tr = 2 * steps if coupled else 0
@@ -411,7 +839,8 @@ def main() -> int:
               f"t {state.t.item():.6e}, finite {finite}, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         if n_rhs != 2 * steps or n_tr != want_tr or not finite \
-                or fused_spectral.launches != 0:
+                or fused_spectral.launches != 0 \
+                or fused_mg.sweep_launches or fused_mg.residual_launches:
             return 4
 
         psi = state.psi.contiguous()
@@ -469,83 +898,17 @@ def main() -> int:
     print(f"full-size paths done at {time.perf_counter() - t_start:.0f} s")
 
     # 6. the fused-solve path: 1024^2 x 4, K7 beside cuBLAS and the fold
-    N, nl, warm, steps = 1024, 4, 10, 20
-    shape = (nl, N, N)
-    psi0 = 1e-3 * np.random.default_rng(0).uniform(-1, 1, shape)
-    # the device work of a step is short at this size, so the host shows in
-    # ms/step: the three variants are timed in turns, `rounds` times each
-    rounds = 3
-    runs = {}
-    for label, kw, build_kw in (
-            ("fused_mm (K7)", {}, dict(fused_mm=True)),
-            ("transform=matmul (cuBLAS chain)", dict(transform="matmul"), {}),
-            ("default (folded DST)", {}, {})):
-        cfg = bench_config(QGConfig, N, nl, "float32", **kw)
-        const = qg.build_constants(cfg, device="cuda", **build_kw)
-        state = qg.init_state(cfg, const, psi0=psi0)
-        step = qg.make_step(cfg)
-        for _ in range(warm):
-            state, diag = step(state, const, 1e18)
-        runs[label] = dict(const=const, state=state, step=step, ms=[],
-                           want=8 * steps if build_kw else 0)
-    torch.cuda.synchronize()
-    for _ in range(rounds):
-        for label, run in runs.items():
-            fused_rhs.launches = fused_tracer.launches = 0
-            fused_spectral.launches = 0
-            run["state"], run["diag"], ms_step = timed_steps(
-                run["step"], run["state"], run["const"], steps)
-            run["ms"].append(ms_step)
-            run["n_k7"] = fused_spectral.launches
-            if run["n_k7"] != run["want"] \
-                    or fused_rhs.launches != 2 * steps:
-                print(f"{label}: fused_spectral launches {run['n_k7']} "
-                      f"(expected {run['want']}), fused_rhs launches "
-                      f"{fused_rhs.launches} (expected {2 * steps})")
-                return 5
-    for label, run in runs.items():
-        diag, ms_step = run["diag"], min(run["ms"])
-        finite = state_ok(run["state"], diag, shape)
-        print(f"{N}^2 x {nl} f32 step, {label}: {ms_step:.4f} ms/step (the "
-              f"least of {', '.join(f'{m:.4f}' for m in run['ms'])}), "
-              f"{N * N * nl / (ms_step * 1e-3):.4e} grid-points/s, "
-              f"fused_spectral launches {run['n_k7']} a round (expected "
-              f"{run['want']}), fused_rhs launches {2 * steps}, "
-              f"ke {diag.ke.item():.6e}, dt {diag.dt.item():.6e}, "
-              f"finite {finite}")
-        if not finite:
-            return 5
-    k7_run, mm_run = list(runs.values())[:2]
-    k7_launches, k7_state, k7_const = (k7_run["n_k7"], k7_run["state"],
-                                       k7_run["const"])
-    a, b = k7_run["state"].psi, mm_run["state"].psi
-    rel = ((a - b).abs().max() / b.abs().max()).item()
-    print(f"K7 path against the cuBLAS path after {warm + rounds * steps} "
-          f"steps: "
-          f"max|d psi|/max|psi| = {rel:.3e} (limit 1e-3)")
-    if not rel <= 1e-3:
+    if wanted("fused_mm") and not fused_mm_path(QGConfig, rows, main_err):
         return 5
-    spec = k7_const.spec
-    qm = torch.einsum("ml,lyx->myx", spec.l2m, k7_state.q).contiguous()
-    k_ms, p_ms = kernel_times(
-        lambda: fused_spectral.fused_mm_solve(spec.S, spec.inv_den, qm),
-        lambda: spectral._mm_solve(spec.S, spec.inv_den, qm), 20, 20)
-    nbytes, nops = fused_spectral.bound_work(N, nl, 4)
-    bound, by, t_b, t_o = roofline(nbytes, nops, 4)
-    print(f"K7 at {N}^2 x {nl} f32: kernel {k_ms:.4f} ms a solve (4 "
-          f"launches), plain = library (cuBLAS chain, TF32 off) {p_ms:.4f} "
-          f"ms, bound {bound:.4f} ms by {by} on the FP32 pipe (bytes "
-          f"{nbytes} -> {t_b:.4f} ms, operations {nops} -> {t_o:.4f} ms)")
-    rows.append({
-        "name": "fused_spectral", "path": f"fused_mm {N}^2 x {nl} f32",
-        "route": "cuda", "source": fused_spectral.SOURCE,
-        "replaces": "msom_tpu/solvers/pallas_spectral.py:82",
-        "launches": k7_launches, "max_abs_err": main_err["fused_spectral"],
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
-        "library_ms": p_ms})
+
+    # 7c. the multigrid path at full width
+    if wanted("mg"):
+        if not mg_path(QGConfig, rows, main_err):
+            return 7
+        print(f"multigrid path done at {time.perf_counter() - t_start:.0f} s")
 
     print(f"total {time.perf_counter() - t_start:.0f} s")
-    print('kernels: ["fused_rhs", "fused_tracer", "fused_spectral"]')
+    print("kernels: " + json.dumps(sorted({r["name"] for r in rows})))
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -5,12 +5,15 @@ against. It imports torch and numpy, never jax or msom_tpu. Entry points
 take a `device` and run on "cuda" unless the caller passes "cpu".
 
 Ported so far: the msqg step for the walled configurations (free slip and
-partial slip) with the direct spectral inversion, uncoupled or coupled to a
+partial slip) with the direct spectral inversion or the multigrid
+(solver="mg", layered or mode_pv_invert), uncoupled or coupled to a
 large-scale streamfunction, bottom topography, a 3-D forcing and passive
-tracers, with three hand-written Hopper kernels: the fused tendency
+tracers, with five hand-written Hopper kernels: the fused tendency
 (models/fused_rhs.py, csrc/fused_rhs.cu), the fused tracer tendency
-(models/fused_tracer.py, csrc/fused_tracer.cu) and the fused basis-matmul
-spectral solve (solvers/fused_spectral.py, csrc/fused_spectral.cu).
+(models/fused_tracer.py, csrc/fused_tracer.cu), the fused basis-matmul
+spectral solve (solvers/fused_spectral.py, csrc/fused_spectral.cu) and the
+multigrid's red-black line sweep and fused residual (solvers/fused_mg.py,
+csrc/mg_sweep.cu, csrc/mg_residual.cu).
 
     from msom_tpu_torch.params import QGConfig
     from msom_tpu_torch.models import qg

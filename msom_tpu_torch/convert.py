@@ -8,9 +8,9 @@ every constant is derived from the config by `build_constants`.
 
 The `key` leaf, the JAX PRNG key, is ignored: only stochastic forcing draws
 from it, which is not ported, and a jax.random stream cannot be continued
-in torch. The `tracers` leaf (nl, nptr, N, N) is carried when present.
-Leaves of unported features (the filter mean qof/nbar, the multigrid's
-psi_old) raise NotImplementedError.
+in torch. The `tracers` leaf (nl, nptr, N, N) and the multigrid warm
+start's `psi_old` leaf (nl, N, N) are carried when present. Leaves of
+unported features (the filter mean qof/nbar) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,13 +21,13 @@ import torch
 from msom_tpu_torch.models.qg import QGState, _torch_dtype
 from msom_tpu_torch.params import QGConfig
 
-_UNPORTED = ("qof", "nbar", "psi_old")
+_UNPORTED = ("qof", "nbar")
 
 
 def state_from_numpy(cfg: QGConfig, leaves, device="cuda") -> QGState:
     """The port's QGState on `device` from a mapping of numpy arrays with
-    the leaves q, psi, t, dt_prev, i and, with tracers, tracers (as
-    `save_state` writes them)."""
+    the leaves q, psi, t, dt_prev, i and, where the run has them, tracers
+    and psi_old (as `save_state` writes them)."""
     for name in _UNPORTED:
         if name in leaves:
             raise NotImplementedError(
@@ -52,13 +52,21 @@ def state_from_numpy(cfg: QGConfig, leaves, device="cuda") -> QGState:
                          "tracers")
     tracers = field("tracers", (cfg.nl, cfg.nptr, cfg.N, cfg.N)) \
         if cfg.nptr > 0 else None
+    extrap = cfg.solver == "mg" and cfg.mg_extrap
+    if ("psi_old" in leaves) != extrap:
+        raise ValueError(f"the config {'has' if extrap else 'has no'} mg "
+                         f"warm-start extrapolation but the leaves "
+                         f"{'hold' if 'psi_old' in leaves else 'lack'} "
+                         "psi_old")
     return QGState(q=field("q"), psi=field("psi"), t=scalar("t", dtype),
                    dt_prev=scalar("dt_prev", dtype),
-                   i=scalar("i", torch.int32), tracers=tracers)
+                   i=scalar("i", torch.int32), tracers=tracers,
+                   psi_old=field("psi_old") if extrap else None)
 
 
 def state_to_numpy(state: QGState) -> dict:
     """The leaves of `state` as host numpy arrays, in save_state's names."""
-    names = ("q", "psi", "t", "dt_prev", "i") \
-        + (("tracers",) if state.tracers is not None else ())
+    names = ("q", "psi", "t", "dt_prev", "i") + tuple(
+        name for name in ("tracers", "psi_old")
+        if getattr(state, name) is not None)
     return {name: getattr(state, name).cpu().numpy() for name in names}

@@ -1,13 +1,19 @@
 """Multi-layer quasi-geostrophic model, msqg (the port of
-`msom_tpu.models.qg` for the walled configurations with the direct spectral
-inversion).
+`msom_tpu.models.qg` for the walled configurations, with the direct spectral
+inversion or the multigrid).
 
 One step is Basilisk's predictor-corrector with CFL-controlled adaptive dt
 (`make_step`): two `update` calls, each a PV inversion, the fused RHS and,
 with passive tracers, the fused tracer tendency (the Hopper kernels on a
 CUDA tensor, their plain PyTorch versions on a CPU tensor) and the scalar
-CFL tail. The scalar tail stays on the device as 0-d tensors, so a step
-makes no host sync.
+CFL tail. The scalar tail stays on the device as 0-d tensors; with the
+spectral solver a step makes no host sync, with solver="mg" each V-cycle
+brings its residual norm to the host (`solvers/mg.py`).
+
+The multigrid inversion (solver="mg") is warm-started: from the last psi,
+or with mg_extrap from 2 psi - psi_old (`QGState.psi_old`). With
+mode_pv_invert it solves nl independent Helmholtz problems in the vertical
+modes instead of the layer-coupled system.
 
 Ported: free-slip and partial-slip walls (sbc >= 0), the large-scale (PG)
 streamfunction coupling from `psipg` or `upg/vpg`, _LS_RV (flsrv = 1),
@@ -16,8 +22,7 @@ passive tracers with an optional relaxation field.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
 queue-1 item): the doubly periodic case (item 7b); stochastic forcing (item
-8); the wavelet filter (item 9); varRo and 2-D frpg (item 10); the
-multigrid solver and mode_pv_invert (item 11).
+8); the wavelet filter (item 9); varRo and 2-D frpg (item 10).
 """
 
 from __future__ import annotations
@@ -34,10 +39,11 @@ from msom_tpu_torch.ops.ghost import (Ghosted, arakawa_mjac_g, beta_effect_g,
                                       ghosted, ghosted_from_padded,
                                       ghosted_slip, laplacian_g,
                                       max_face_speed_layers)
+from msom_tpu_torch.ops.modes import eigmod
 from msom_tpu_torch.ops.stencil import laplacian
 from msom_tpu_torch.ops.stretch import layer_metrics, stretch
 from msom_tpu_torch.params import QGConfig
-from msom_tpu_torch.solvers import spectral
+from msom_tpu_torch.solvers import mg, spectral
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +60,7 @@ class QGConstants:
     wind: torch.Tensor            # (N, 1) surface forcing term for layer 0
     idh0: tuple                   # host floats (layer metrics)
     idh1: tuple
-    spec: spectral.SpectralData   # direct spectral inversion
+    spec: spectral.SpectralData | None   # direct spectral inversion
     Ro: torch.Tensor | None = None          # (N, 1) Rossby number
     pp_pad: torch.Tensor | None = None      # (nl, N+2, N+2) large-scale psi
     zetap_pad: torch.Tensor | None = None   # (nl, N+2, N+2) lap(pp), flsrv
@@ -65,6 +71,11 @@ class QGConstants:
     pp: torch.Tensor | None = None          # (nl, N, N) interior of pp_pad
     topo: torch.Tensor | None = None        # (N, N) interior of topo_pad
     iro: torch.Tensor | None = None         # (N, 1) 1/(Ro dh[nl-1]), topo
+    levels: tuple | None = None             # multigrid levels, solver="mg"
+    iBu: torch.Tensor | None = None         # (nl, N, 1) -1/Rd^2 per mode
+    l2m: torch.Tensor | None = None         # (nl, nl) layers -> modes
+    m2l: torch.Tensor | None = None         # (nl, nl) modes -> layers
+    mlevels: tuple | None = None            # levels of the modal solves
 
 
 @dataclasses.dataclass
@@ -75,11 +86,14 @@ class QGState:
     dt_prev: torch.Tensor         # 0-d CFL controller smoothing state
     i: torch.Tensor               # 0-d int32 step counter
     tracers: torch.Tensor | None = None   # (nl, nptr, N, N)
+    psi_old: torch.Tensor | None = None   # psi one step back (mg_extrap)
 
 
 class StepDiag(NamedTuple):
     dt: torch.Tensor
     ke: torch.Tensor              # surface-layer kinetic energy
+    mg_iters: int                 # V-cycles of the step's first inversion
+    mg_res: float                 # its final residual max-norm
 
 
 # input fields that build_constants accepts in the JAX package and the port
@@ -102,8 +116,6 @@ def _check_slice(cfg: QGConfig, inputs: dict) -> None:
                 f"input field {name!r} is not ported yet (ROADMAP.md queue "
                 f"1, item {_UNPORTED_INPUTS[name]})")
     unported = [
-        (cfg.solver != "spectral", "solver='mg' (item 11)"),
-        (cfg.mode_pv_invert, "mode_pv_invert (item 11)"),
         (cfg.sbc < 0, "the doubly periodic case, sbc = -1 (item 7b)"),
         (cfg.stochastic, "stochastic forcing (item 8)"),
         (cfg.dtflt > 0, "the wavelet filter, dtflt > 0 (item 9)"),
@@ -124,9 +136,14 @@ def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
     (else vpg*x - upg*y from the config), `topo` (N, N), `qforc` (nl, N, N),
     `dh` (nl,) layer thicknesses, `ptr_relax` (nl, nptr, N, N). `fused_mm`
     routes the inversion through the fused basis-matmul solve (the matmul
-    transform; 128 <= N <= 1024, N % 128 == 0). The JAX package's other
-    inputs (s_stoch, rdpg, frpg) raise NotImplementedError when given."""
+    transform; 128 <= N <= 1024, N % 128 == 0; the spectral solver only).
+    With solver="mg" the multigrid levels are built here instead of the
+    spectral data, and with mode_pv_invert the vertical modes and the
+    levels of the modal Helmholtz solves. The JAX package's other inputs
+    (s_stoch, rdpg, frpg) raise NotImplementedError when given."""
     _check_slice(cfg, unported)
+    if fused_mm and cfg.solver != "spectral":
+        raise ValueError("fused_mm is an option of solver='spectral'")
     dtype = _torch_dtype(cfg)
     nl, N = cfg.nl, cfg.N
     dh = np.asarray(dh if dh is not None else cfg.dh[:nl], np.float64)
@@ -194,17 +211,32 @@ def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
                              f"config needs {shape}")
         return a.contiguous()
 
-    spec = spectral.build_spectral(
-        nl=nl, N=N, L0=cfg.L0, dh=dh, s_profile=s_prof, periodic=False,
-        dtype=dtype, transform="matmul" if fused_mm else cfg.transform,
-        fused_mm=fused_mm, device=device)
+    spec = levels = iBu = l2m = m2l = mlevels = None
+    if cfg.solver == "spectral":
+        spec = spectral.build_spectral(
+            nl=nl, N=N, L0=cfg.L0, dh=dh, s_profile=s_prof, periodic=False,
+            dtype=dtype, transform="matmul" if fused_mm else cfg.transform,
+            fused_mm=fused_mm, device=device)
+    elif cfg.mode_pv_invert and nl > 1:
+        # vertical modes (MODE_PV_INVERT, msqg/qg.h:109-157): strl is
+        # uniform here, so one eigensolve serves every column
+        vm = eigmod(dh, s_prof)
+        iBu = dev(vm.iBu)[:, None, None].expand(nl, N, 1).contiguous()
+        l2m, m2l = dev(vm.l2m), dev(vm.m2l)
+        mlevels = tuple(mg.build_layered_coeffs(
+            nl=nl, N=N, L0=cfg.L0, s=None, lam=iBu, dtype=dtype))
+    else:
+        levels = tuple(mg.build_layered_coeffs(
+            nl=nl, N=N, L0=cfg.L0, s=strl, idh0=idh0, idh1=idh1,
+            dtype=dtype, device=device))
     return QGConstants(
         strl=strl, wind=wind, idh0=tuple(float(v) for v in idh0),
         idh1=tuple(float(v) for v in idh1), spec=spec, Ro=Ro,
         pp_pad=pp_pad, zetap_pad=zetap_pad, topo_pad=topo_pad,
         qforc=field(qforc, "qforc", (nl, N, N)),
         ptr_relax=field(ptr_relax, "ptr_relax", (nl, cfg.nptr, N, N)),
-        umax_pp=umax_pp, pp=pp, topo=topo_in, iro=iro)
+        umax_pp=umax_pp, pp=pp, topo=topo_in, iro=iro, levels=levels,
+        iBu=iBu, l2m=l2m, m2l=m2l, mlevels=mlevels)
 
 
 def comp_q(cfg: QGConfig, const: QGConstants, psi: torch.Tensor):
@@ -215,10 +247,31 @@ def comp_q(cfg: QGConfig, const: QGConstants, psi: torch.Tensor):
     return q
 
 
-def invert_q(cfg: QGConfig, const: QGConstants, q: torch.Tensor):
-    """PV inversion psi = L^-1 q, exact in one shot (the spectral path; the
-    JAX package's warm-start guess has no use in a direct solve)."""
-    return spectral.solve_spectral(const.spec, q)
+def invert_q(cfg: QGConfig, const: QGConstants,
+             psi_guess: torch.Tensor | None, q: torch.Tensor):
+    """PV inversion psi = L^-1 q, warm-started from `psi_guess` (invertq,
+    msqg/qg.h:113-163); returns (psi, MGStats).
+
+    The spectral path solves the discrete system exactly in one shot, reads
+    no guess and reports zero cycles and a zero residual. The modal path
+    (mode_pv_invert) projects q and the guess onto the vertical modes,
+    solves the nl independent 2-D Helmholtz problems in one batched
+    multigrid (no vertical coupling: the line solve is a diagonal) and
+    projects back."""
+    if const.spec is not None:
+        return (spectral.solve_spectral(const.spec, q),
+                mg.MGStats(iters=0, resb=0.0, resa=0.0, nrelax=0))
+    if const.mlevels is not None:
+        qm = torch.einsum("ml,lyx->myx", const.l2m, q)
+        pm_guess = torch.einsum("ml,lyx->myx", const.l2m, psi_guess)
+        pm, st = mg.solve_layered(pm_guess, qm, L0=cfg.L0, s=None,
+                                  lam=const.iBu, bc=BC.DIRICHLET,
+                                  tolerance=cfg.tol, levels=const.mlevels)
+        return torch.einsum("lm,myx->lyx", const.m2l, pm), st
+    return mg.solve_layered(psi_guess, q, L0=cfg.L0, s=const.strl,
+                            idh0=const.idh0, idh1=const.idh1,
+                            bc=BC.DIRICHLET, tolerance=cfg.tol,
+                            levels=const.levels)
 
 
 def init_state(cfg: QGConfig, const: QGConstants, *, psi0=None, seed=0,
@@ -253,10 +306,13 @@ def init_state(cfg: QGConfig, const: QGConstants, *, psi0=None, seed=0,
                              f"the config needs {tshape}")
         tracers = tracers.to(device).contiguous()
     zero = torch.zeros((), dtype=dtype, device=device)
+    # the mg warm start extrapolates from two steps (guess = 2 psi -
+    # psi_old); psi_old starts as psi, so the first guess is psi itself
+    psi_old = psi if cfg.solver == "mg" and cfg.mg_extrap else None
     return QGState(q=comp_q(cfg, const, psi), psi=psi, t=zero,
                    dt_prev=zero.clone(),
                    i=torch.zeros((), dtype=torch.int32, device=device),
-                   tracers=tracers)
+                   tracers=tracers, psi_old=psi_old)
 
 
 # ---------------------------------------------------------------------------
@@ -423,18 +479,20 @@ def kinetic_energy(cfg: QGConfig, psi: torch.Tensor) -> torch.Tensor:
 
 
 def update(cfg: QGConfig, const: QGConstants, q: torch.Tensor,
-           tracers: torch.Tensor | None, prev, dtmax0: float):
+           psi_guess: torch.Tensor | None, tracers: torch.Tensor | None,
+           prev, dtmax0: float):
     """One RHS evaluation: PV inversion + fused tendency and CFL maxima +
-    the fused tracer tendency + the CFL tail. Routes on q's device alone
-    (fused_rhs.rhs_fused, fused_tracer.tracer_fused)."""
-    psi = invert_q(cfg, const, q)
+    the fused tracer tendency + the CFL tail; returns (dq, dtr, psi, prev,
+    dtm, MGStats). Routes on q's device alone (fused_rhs.rhs_fused,
+    fused_tracer.tracer_fused, the multigrid's fused_mg kernels)."""
+    psi, st = invert_q(cfg, const, psi_guess, q)
     dq, umax = fused_rhs.rhs_fused(cfg, const, psi,
                                    q if cfg.energy_conserv else None)
     dtr = None
     if tracers is not None:
         dtr = fused_tracer.tracer_fused(cfg, const, psi, tracers)
     dtm, prev = cfl_from_umax(cfg, umax, const.umax_pp, dtmax0, prev)
-    return dq, dtr, psi, prev, dtm
+    return dq, dtr, psi, prev, dtm, st
 
 
 def make_step(cfg: QGConfig):
@@ -442,20 +500,30 @@ def make_step(cfg: QGConfig):
     corrector step (predictor-corrector.h semantics): dt from the
     CFL-limited first update clamped by dtnext, a half-step Euler predictor,
     a corrector RHS at the midpoint, and the full step; the tracers advance
-    with q."""
+    with q. The first inversion starts from the last psi, or from
+    2 psi - psi_old where the state carries psi_old; the second from the
+    first's psi. StepDiag reports the first inversion's cycles and
+    residual."""
     DT = cfg.dt_clamped()
 
     def step(state: QGState, const: QGConstants, tnext):
         q0, tr0 = state.q, state.tracers
-        dq, dtr, _, prev, dtm = update(cfg, const, q0, tr0, state.dt_prev, DT)
+        guess = state.psi
+        if state.psi_old is not None:
+            guess = 2.0 * state.psi - state.psi_old
+        dq, dtr, psi1, prev, dtm, st1 = update(cfg, const, q0, guess, tr0,
+                                               state.dt_prev, DT)
         dt = dtnext(state.t, tnext, dtm)
         q1 = q0 + dq * (0.5 * dt)
         tr1 = None if tr0 is None else tr0 + dtr * (0.5 * dt)
-        dq, dtr, psi2, prev, _ = update(cfg, const, q1, tr1, prev, DT)
+        dq, dtr, psi2, prev, _, _ = update(cfg, const, q1, psi1, tr1, prev,
+                                           DT)
         q_new = q0 + dq * (1.0 * dt)
         tr_new = None if tr0 is None else tr0 + dtr * (1.0 * dt)
         new = QGState(q=q_new, psi=psi2, t=state.t + dt, dt_prev=prev,
-                      i=state.i + 1, tracers=tr_new)
-        return new, StepDiag(dt=dt, ke=kinetic_energy(cfg, psi2))
+                      i=state.i + 1, tracers=tr_new,
+                      psi_old=None if state.psi_old is None else state.psi)
+        return new, StepDiag(dt=dt, ke=kinetic_energy(cfg, psi2),
+                             mg_iters=st1.iters, mg_res=st1.resa)
 
     return step

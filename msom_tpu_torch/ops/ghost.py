@@ -65,6 +65,10 @@ def laplacian_g(g: Ghosted, delta: float) -> torch.Tensor:
             - 4.0 * g.a) / (delta * delta)
 
 
+def neighbor_sum(g: Ghosted) -> torch.Tensor:
+    return g.shift(0, 1) + g.shift(0, -1) + g.shift(1, 0) + g.shift(-1, 0)
+
+
 def arakawa_mjac_g(p: Ghosted, q: Ghosted, delta: float) -> torch.Tensor:
     """-J(p, q), 12-point Arakawa (msqg macro, msqg/qg.h:252)."""
     pE, pW = p.shift(0, 1), p.shift(0, -1)

@@ -1,0 +1,297 @@
+"""Geometric multigrid for the elliptic inversions (the port of the layered
+half of `msom_tpu.solvers.mg`).
+
+* layered Helmholtz  L(a) = lap(a) + Gamma(a) + lam*a = b  per column with
+  Neumann vertical BCs: the msqg PV inversion (msqg/poisson_layer.h; a
+  tridiagonal coupling in the vertical);
+* scalar Poisson/Helmholtz (nl = 1; the modal-inversion path, Basilisk
+  poisson.h semantics).
+
+The cycle is Basilisk's `mg_cycle`/`mg_solve` (mspg/elliptic.h:43-220): the
+fine residual is restricted to every level (4-cell average), the correction
+is swept from the coarsest level to the finest (zero, relax, bilinear
+prolongation, relax, ...), added, and cycles repeat with an adaptive
+relaxation count (aiming at a 1.2-10x residual reduction a cycle) until the
+max-norm residual is under the tolerance or NITERMAX = 100. The smoother is
+red-black vertical-line relaxation: each colour solves its columns' vertical
+tridiagonals exactly with the horizontal neighbours frozen.
+
+Routing is data, decided when the levels are built: a level whose
+coefficients vary in y only carries y-profiles, and with Dirichlet or
+Neumann walls its sweeps and residuals go to `fused_mg.rb_line_sweep` and
+`fused_mg.residual_norm` (the Hopper kernels on a CUDA tensor, their plain
+versions on a CPU tensor). A level without profiles (coefficients that vary
+in x) and every periodic solve run the same arithmetic as torch ops on
+either device. The restriction, the prolongation and `a + da` are torch
+ops.
+
+The cycle loop depends on the data, so it is a Python loop: the residual
+norm comes to the host once a cycle (and once for the initial residual),
+and `MGStats` holds host numbers.
+
+Not ported yet: the mspg barotropic solver `solve_bt` with its face
+coefficients and pseudo-SOR relaxation (ROADMAP.md queue 1, item 13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from msom_tpu_torch.ops import tridiag
+from msom_tpu_torch.ops.bc import BC, pad
+from msom_tpu_torch.ops.ghost import ghosted
+from msom_tpu_torch.solvers import fused_mg
+
+NITERMAX = 100
+
+
+class MGStats(NamedTuple):
+    iters: int        # cycles performed
+    resb: float       # residual max-norm before
+    resa: float       # residual max-norm after
+    nrelax: int       # final relaxation count
+
+
+def restrict_cell(a: torch.Tensor) -> torch.Tensor:
+    """4-child average (Basilisk `restriction`), last two axes halved."""
+    ny, nx = a.shape[-2:]
+    out = F.avg_pool2d(a.reshape(1, -1, ny, nx), 2)
+    return out.reshape(*a.shape[:-2], ny // 2, nx // 2)
+
+
+def prolong_bilinear(c: torch.Tensor, bc: BC) -> torch.Tensor:
+    """Basilisk `bilinear` prolongation: child = (9*parent + 3*nx + 3*ny +
+    nxy)/16 with the neighbours toward the child's quadrant; coarse ghosts
+    filled with the level BC (x before y, so corner ghosts compose
+    sign_y o sign_x). Each quadrant is computed at the coarse size from the
+    padded coarse array and written into its stride-2 slots."""
+    m = c.shape[-1]
+    P = pad(c, bc)
+    C9 = 9 * c
+    # 3 * the west/east and south/north neighbours, and the four diagonals
+    X3 = (3 * P[..., 1:-1, :-2], 3 * P[..., 1:-1, 2:])
+    Y3 = (3 * P[..., :-2, 1:-1], 3 * P[..., 2:, 1:-1])
+    rows = (slice(0, m), slice(2, m + 2))
+    out = c.new_empty(*c.shape[:-2], 2 * m, 2 * m)
+    for jy in (0, 1):
+        for jx in (0, 1):
+            out[..., jy::2, jx::2] = (C9 + X3[jx] + Y3[jy]
+                                      + P[..., rows[jy], rows[jx]]) / 16.0
+    return out
+
+
+def _y_profile(a: torch.Tensor | None) -> torch.Tensor | None:
+    """(k, n, n) or (k, n, 1) field -> contiguous (k, n) y-profile if it is
+    constant along x, else None."""
+    if a is None or a.ndim != 3:
+        return None
+    if a.shape[-1] != 1 and not torch.equal(
+            a, a[..., :1].expand_as(a)):
+        return None
+    return a[..., 0].contiguous()
+
+
+def _collapse(a: torch.Tensor | None) -> torch.Tensor | None:
+    """A field that is constant along x as (k, n, 1), any other as it is."""
+    p = _y_profile(a)
+    return a if p is None else p[..., None]
+
+
+_BC_SIGN = {BC.DIRICHLET: -1.0, BC.NEUMANN: 1.0}
+
+
+@dataclasses.dataclass(frozen=True)
+class _Level:
+    """One level's precomputed data. The coefficient fields are (k, n, n),
+    or (k, n, 1) where they are constant along x; then `sw` and `rp` hold
+    their (k, n) y-profiles for the fused kernels."""
+    delta: float
+    s: torch.Tensor | None      # (nl-1, n, .) stretching at this level
+    lam: torch.Tensor | None    # (nl, n, .) Helmholtz term, or None
+    t0: torch.Tensor            # (nl, n, .) lower diagonal (0 for nl == 1)
+    cp: torch.Tensor            # Thomas factors
+    im: torch.Tensor
+    red: torch.Tensor           # bool (n, n) checkerboard
+    sw: fused_mg.SweepProfiles | None = None
+    rp: fused_mg.ResidualProfiles | None = None
+
+
+def build_layered_coeffs(*, nl: int, N: int, L0: float,
+                         s: torch.Tensor | None = None,
+                         idh0=None, idh1=None,
+                         lam: torch.Tensor | None = None,
+                         dtype=torch.float32, minlevel: int = 1,
+                         device=None):
+    """Per-level coefficients and Thomas factors for solve_layered, made
+    once at model set-up (the coefficients do not change in time;
+    msqg/poisson_layer.h:281-284 restricts them every solve). `s` is
+    (nl-1, N, N) or (nl-1, N, 1), `lam` (nl, N, N) or (nl, N, 1); the
+    levels live on their device, or on `device` without either."""
+    depth = int(round(np.log2(N)))
+    idh0 = np.zeros(nl) if idh0 is None else idh0
+    idh1 = np.zeros(nl) if idh1 is None else idh1
+    return _make_levels(nl, depth, L0, s, idh0, idh1, lam, dtype, minlevel,
+                        device=device)
+
+
+def _restrict_coeff(a: torch.Tensor) -> torch.Tensor:
+    """restrict_cell of a coefficient field in either form."""
+    if a.shape[-1] == 1:
+        return restrict_cell(a.expand(-1, -1, 2))
+    return restrict_cell(a)
+
+
+def _build_level(nl: int, n: int, delta: float, s_l, lam_l, idh0, idh1,
+                 dtype, device) -> _Level:
+    """One level from its coefficient fields ((k, n, n), or (k, n, 1) where
+    constant along x): the line system's diagonals, their Thomas factors,
+    and the y-profiles where every coefficient is one."""
+    d2 = delta * delta
+    if nl > 1 and s_l is not None:
+        zero = torch.zeros((1,) + tuple(s_l.shape[1:]), dtype=dtype,
+                           device=device)
+        i0 = torch.as_tensor(idh0[1:], dtype=dtype,
+                             device=device).reshape(-1, 1, 1)
+        i1 = torch.as_tensor(idh1[:-1], dtype=dtype,
+                             device=device).reshape(-1, 1, 1)
+        t0 = torch.cat([zero, -d2 * s_l * i0])
+        t2 = torch.cat([-d2 * s_l * i1, zero])
+    else:
+        # no vertical coupling: layers (or modes) are independent and the
+        # line solve degenerates to a diagonal
+        t0 = torch.zeros((nl, n, 1), dtype=dtype, device=device)
+        t2 = torch.zeros((nl, n, 1), dtype=dtype, device=device)
+    t1 = 4.0 - t0 - t2
+    if lam_l is not None:
+        t1 = t1 - d2 * lam_l
+    cp, im = tridiag.factor(t0, t1, t2)
+    sw = rp = None
+    if all(c is None or c.shape[-1] == 1 for c in (s_l, lam_l, t0, cp, im)):
+        sw = fused_mg.SweepProfiles(t0=_y_profile(t0), cp=_y_profile(cp),
+                                    im=_y_profile(im))
+        rp = fused_mg.ResidualProfiles(s=_y_profile(s_l),
+                                       lam=_y_profile(lam_l))
+    return _Level(delta=delta, s=s_l, lam=lam_l, t0=t0, cp=cp, im=im,
+                  red=fused_mg.checkerboard(n, n, device), sw=sw, rp=rp)
+
+
+def _make_levels(nl, depth, L0, s, idh0, idh1, lam, dtype, minlevel=1,
+                 device=None):
+    """List of _Level, finest first."""
+    idh0 = np.asarray(idh0, np.float64)
+    idh1 = np.asarray(idh1, np.float64)
+    for field in (s, lam):
+        if field is not None:
+            device = field.device
+    device = torch.device(device or "cpu")
+    levels = []
+    s_l, lam_l = _collapse(s), _collapse(lam)
+    for lev in range(depth, minlevel - 1, -1):
+        n = 2 ** lev
+        levels.append(_build_level(nl, n, L0 / n, s_l, lam_l, idh0, idh1,
+                                   dtype, device))
+        if s_l is not None:
+            s_l = _restrict_coeff(s_l)
+        if lam_l is not None:
+            lam_l = _restrict_coeff(lam_l)
+    return levels
+
+
+def _residual_layered(a, b, lvl: _Level, bc: BC, idh0, idh1):
+    """(res, max|res|), res = b - L(a). msqg/poisson_layer.h:157-258."""
+    if lvl.rp is not None and bc in _BC_SIGN:
+        sign = _BC_SIGN[bc]
+        return fused_mg.residual_norm(a, b, lvl.rp, delta=lvl.delta,
+                                      idh0=idh0, idh1=idh1, sign_x=sign,
+                                      sign_y=sign)
+    return fused_mg.residual_plain(ghosted(a, bc), b, lvl.s, lvl.lam,
+                                   lvl.delta, idh0, idh1)
+
+
+def _relax_layered(da, res, lvl: _Level, nrelax: int, bc: BC):
+    """nrelax sweeps of red-black vertical-line relaxation."""
+    d2 = lvl.delta * lvl.delta
+    if lvl.sw is not None and bc in _BC_SIGN:
+        sign = _BC_SIGN[bc]
+        for _ in range(nrelax):
+            da = fused_mg.rb_line_sweep(da, res, lvl.sw, d2=d2, sign_x=sign,
+                                        sign_y=sign)
+        return da
+    for _ in range(nrelax):
+        for mask in (lvl.red, ~lvl.red):
+            da = fused_mg.relax_color(ghosted(da, bc), res, lvl.t0, lvl.cp,
+                                      lvl.im, mask, d2)
+    return da
+
+
+def solve_layered(a0: torch.Tensor, b: torch.Tensor, *, L0: float,
+                  s: torch.Tensor | None = None,
+                  idh0=None, idh1=None,
+                  lam: torch.Tensor | None = None,
+                  bc: BC = BC.DIRICHLET,
+                  tolerance: float = 1e-3,
+                  nrelax0: int = 4,
+                  minlevel: int = 1,
+                  nitermax: int = NITERMAX,
+                  levels: Sequence[_Level] | None = None):
+    """Solve lap(a) + Gamma(a) + lam*a = b, warm-started from a0.
+
+    a0, b: (nl, N, N). Returns (a, MGStats). The semantics of poisson_layer
+    (msqg/poisson_layer.h:263-306) around mg_solve (mspg/elliptic.h:125-
+    220): max-norm tolerance, at least one cycle, adaptive nrelax in
+    [2, 100]."""
+    nl, N, _ = a0.shape
+    depth = int(round(np.log2(N)))
+    if levels is None:
+        levels = _make_levels(nl, depth, L0, s, idh0, idh1, lam, a0.dtype,
+                              minlevel, device=a0.device)
+    nlev = len(levels)  # levels[0] finest ... levels[-1] coarsest
+
+    idh0 = np.zeros(nl) if idh0 is None else idh0
+    idh1 = np.zeros(nl) if idh1 is None else idh1
+
+    def cycle(a, res, nrelax):
+        # restrict the residual down the hierarchy
+        res_pyramid = [res]
+        for _ in range(nlev - 1):
+            res_pyramid.append(restrict_cell(res_pyramid[-1]))
+        # coarsest-to-finest correction sweep
+        da = torch.zeros_like(res_pyramid[-1])
+        for k in range(nlev - 1, -1, -1):
+            if k < nlev - 1:
+                da = prolong_bilinear(da, bc)
+            da = _relax_layered(da, res_pyramid[k], levels[k], nrelax, bc)
+        return a + da
+
+    a = a0
+    res, maxres = _residual_layered(a, b, levels[0], bc, idh0, idh1)
+    resb = resa = maxres.item()          # the residual norm, on the host
+    nrelax, iters = nrelax0, 0
+    while iters < nitermax and (iters < 1 or resa > tolerance):
+        a = cycle(a, res, nrelax)
+        res, maxres = _residual_layered(a, b, levels[0], bc, idh0, idh1)
+        resa_new = maxres.item()         # one device-to-host read a cycle
+        ratio = resa / max(resa_new, 1e-300)
+        if resa_new > tolerance and ratio < 1.2 and nrelax < 100:
+            nrelax += 1
+        if resa_new > tolerance and ratio > 10.0 and nrelax > 2:
+            nrelax -= 1
+        resa = resa_new
+        iters += 1
+    return a, MGStats(iters=iters, resb=resb, resa=resa, nrelax=nrelax)
+
+
+def solve_poisson(a0: torch.Tensor, b: torch.Tensor, *, L0: float,
+                  lam: torch.Tensor | None = None, bc: BC = BC.DIRICHLET,
+                  tolerance: float = 1e-3, **kw):
+    """Scalar Helmholtz lap(a) + lam*a = b on (N, N) arrays (Basilisk
+    poisson() semantics; the modal inversion msqg/qg.h:136-141)."""
+    a, st = solve_layered(a0[None], b[None], L0=L0,
+                          lam=None if lam is None else lam[None],
+                          bc=bc, tolerance=tolerance, **kw)
+    return a[0], st

@@ -1,8 +1,10 @@
 """The port on a CUDA card: the fused RHS kernel (K1) with and without its
-coupling options, the fused tracer kernel (K2) and the fused spectral solve
-(K7) against their plain PyTorch versions, the wrappers' input checks and
-launch counts, and the CUDA step against the CPU step, uncoupled and
-coupled. Every test needs a card and nvcc, is marked
+coupling options, the fused tracer kernel (K2), the fused spectral solve
+(K7) and the multigrid's line sweep (K3) and residual (K4) against their
+plain PyTorch versions, the wrappers' input checks and launch counts, a
+multigrid solve on the card against the CPU, and the CUDA step against the
+CPU step, uncoupled, coupled and with the multigrid. Every test needs a card
+and nvcc, is marked
 `cuda` and skips without a card. The file imports neither jax nor
 msom_tpu, so it runs on a machine without them:
 
@@ -13,7 +15,9 @@ order of a few sums (1e-11 of max|dq|); in f32 the biharmonic's stacked
 Laplacians cancel, and 1e-4 of max|dq| is the bound that
 tests/test_torch_rhs.py measures for that cancellation. K7 against the
 cuBLAS chain: 1e-5 of max|psi_m| in f32 (two f32 roundings of N-term sums),
-1e-12 in f64."""
+1e-12 in f64. K3 (after four sweeps) and K4: 1e-12 (f64) and 1e-5 (f32) of
+max|out|; the kernels fuse a*b+c into one rounding and multiply by
+1/delta^2 where the plain version divides."""
 
 import dataclasses
 
@@ -24,11 +28,12 @@ import torch
 from msom_tpu_torch.models import fused_rhs, fused_tracer
 from msom_tpu_torch.models import qg
 from msom_tpu_torch.params import QGConfig
-from msom_tpu_torch.solvers import fused_spectral, spectral
+from msom_tpu_torch.solvers import fused_mg, fused_spectral, mg, spectral
 
 pytestmark = pytest.mark.cuda
 
 LIMITS = {torch.float32: 1e-4, torch.float64: 1e-11}
+MG_LIMITS = {torch.float32: 1e-5, torch.float64: 1e-12}
 
 
 @pytest.fixture
@@ -307,3 +312,170 @@ def test_fused_mm_step_matches_matmul_step(cuda):
     assert torch.isfinite(finals[0]).all()
     assert (finals[0] - finals[1]).abs().max() \
         <= 1e-4 * finals[1].abs().max()
+
+
+def _mg_level(nl, n, dtype, modal, device, seed=0):
+    """One multigrid level with random y-profile coefficients, layered or
+    in the modal shape, and two random fields."""
+    rng = np.random.default_rng(seed)
+    tdt = getattr(torch, dtype)
+    s = lam = None
+    idh0 = idh1 = np.zeros(nl)
+    if modal:
+        lam = torch.as_tensor(-rng.uniform(0.0, 5.0, (nl, n, 1)),
+                              dtype=tdt).to(device)
+    elif nl > 1:
+        s = torch.as_tensor(rng.uniform(0.5, 2.0, (nl - 1, n, 1)),
+                            dtype=tdt).to(device)
+        idh0 = np.r_[0.0, rng.uniform(1, 3, nl - 1)]
+        idh1 = np.r_[rng.uniform(1, 3, nl - 1), 0.0]
+    lvl = mg._build_level(nl, n, 80.0 / n, s, lam, idh0, idh1, tdt,
+                          torch.device(device))
+    a = torch.as_tensor(rng.standard_normal((nl, n, n)), dtype=tdt).to(device)
+    b = torch.as_tensor(rng.standard_normal((nl, n, n)), dtype=tdt).to(device)
+    return lvl, a, b, idh0, idh1
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("modal", [False, True])
+@pytest.mark.parametrize("signs", [(-1.0, -1.0), (1.0, 1.0), (1.0, -1.0)])
+@pytest.mark.parametrize("n,nl", [(2, 3), (4, 1), (8, 4), (64, 2), (100, 3),
+                                  (128, 4), (256, 8)])
+def test_mg_kernels_match_plain_versions(cuda, dtype, modal, signs, n, nl):
+    """Four sweeps in a row (a fault on a tile's rim would spread) and one
+    residual; n = 100 leaves partial tiles, n <= 8 one partial tile."""
+    lvl, da, res, idh0, idh1 = _mg_level(nl, n, dtype, modal, cuda, n + nl)
+    sx, sy = signs
+    lim = MG_LIMITS[da.dtype]
+    kw = dict(d2=lvl.delta ** 2, sign_x=sx, sign_y=sy)
+    before = fused_mg.sweep_launches, fused_mg.residual_launches
+    k = p = da
+    for _ in range(4):
+        k = fused_mg.rb_line_sweep(k, res, lvl.sw, **kw)
+        p = fused_mg.rb_line_sweep_reference(p, res, lvl.sw, **kw)
+    kw = dict(delta=lvl.delta, idh0=idh0, idh1=idh1, sign_x=sx, sign_y=sy)
+    r_k, m_k = fused_mg.residual_norm(da, res, lvl.rp, **kw)
+    torch.cuda.synchronize()
+    assert (fused_mg.sweep_launches - before[0],
+            fused_mg.residual_launches - before[1]) == (4, 1)
+    r_p, m_p = fused_mg.residual_norm_reference(da, res, lvl.rp, **kw)
+    assert k.shape == da.shape and k.data_ptr() != da.data_ptr()
+    assert (k - p).abs().max() <= lim * p.abs().max()
+    assert (r_k - r_p).abs().max() <= lim * r_p.abs().max()
+    assert m_k.ndim == 0 and abs(m_k - m_p) <= lim * m_p
+    assert torch.equal(m_k, r_k.abs().max())
+
+
+def test_mg_residual_norm_carries_a_nan(cuda):
+    lvl, a, b, idh0, idh1 = _mg_level(3, 100, "float32", False, cuda)
+    a[2, 99, 0] = float("nan")
+    _, m = fused_mg.residual_norm(a, b, lvl.rp, delta=lvl.delta, idh0=idh0,
+                                  idh1=idh1, sign_x=-1.0, sign_y=-1.0)
+    assert torch.isnan(m)
+
+
+def test_mg_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    lvl, a, b, idh0, idh1 = _mg_level(3, 64, "float32", False, cuda)
+    skw = dict(d2=1.0, sign_x=-1.0, sign_y=-1.0)
+    rkw = dict(delta=1.0, idh0=idh0, idh1=idh1, sign_x=-1.0, sign_y=-1.0)
+    with pytest.raises(TypeError, match="dtype"):
+        fused_mg.rb_line_sweep(a.half(), b.half(), lvl.sw, **skw)
+    with pytest.raises(ValueError, match="res"):
+        fused_mg.rb_line_sweep(a, b.transpose(1, 2), lvl.sw, **skw)
+    with pytest.raises(ValueError, match="prof.t0"):
+        fused_mg.rb_line_sweep(a.double(), b.double(), lvl.sw, **skw)
+    with pytest.raises(ValueError, match=r"\(nl, n, n\)"):
+        fused_mg.rb_line_sweep(a[:, :32], b[:, :32], lvl.sw, **skw)
+    with pytest.raises(ValueError, match="b must"):
+        fused_mg.residual_norm(a, b.double(), lvl.rp, **rkw)
+    with pytest.raises(ValueError, match="prof.s"):
+        fused_mg.residual_norm(a[:2].contiguous(), b[:2].contiguous(),
+                               lvl.rp, **{**rkw, "idh0": idh0[:2],
+                                          "idh1": idh1[:2]})
+    with pytest.raises(ValueError, match="idh0"):
+        fused_mg.residual_norm(a, b, lvl.rp, **{**rkw, "idh0": idh0[:2]})
+    big, a9, b9, i0, i1 = _mg_level(9, 16, "float32", True, cuda)
+    with pytest.raises(ValueError, match="nl = 9"):
+        fused_mg.rb_line_sweep(a9, b9, big.sw, **skw)
+    with pytest.raises(ValueError, match="nl = 9"):
+        fused_mg.residual_norm(a9, b9, big.rp, **{**rkw, "idh0": i0,
+                                                  "idh1": i1})
+
+
+@pytest.mark.parametrize("case", ["layered", "modal", "xvary", "periodic"])
+def test_mg_solve_on_the_card_matches_the_cpu(cuda, case):
+    """f64, 64^2 x 3, tol 1e-8: the same cycles and nrelax, the solution to
+    1e-10. Levels with profiles and wall BCs run the kernels on the card;
+    x-varying coefficients and a periodic solve run torch ops on both."""
+    rng = np.random.default_rng(5)
+    nl, n = 3, 64
+    kw = dict(L0=80.0, tolerance=1e-8,
+              bc=qg.BC.PERIODIC if case == "periodic" else qg.BC.DIRICHLET)
+    coef = {}
+    if case in ("modal", "periodic"):
+        coef["lam"] = torch.tensor(-rng.uniform(0.5, 5.0, (nl, n, 1)))
+    else:
+        coef["s"] = torch.tensor(rng.uniform(0.5, 2.0, (nl - 1, n, 1)))
+        if case == "xvary":
+            coef["s"] = coef["s"] * torch.tensor(
+                rng.uniform(0.9, 1.1, (nl - 1, n, n)))
+        kw["idh0"] = np.r_[0.0, rng.uniform(1, 3, nl - 1)]
+        kw["idh1"] = np.r_[rng.uniform(1, 3, nl - 1), 0.0]
+    b = torch.tensor(rng.standard_normal((nl, n, n)))
+    out = {}
+    for dev in ("cpu", cuda):
+        before = fused_mg.sweep_launches, fused_mg.residual_launches
+        a, st = mg.solve_layered(
+            torch.zeros_like(b).to(dev), b.to(dev),
+            **{k: v.to(dev) for k, v in coef.items()}, **kw)
+        out[str(dev)] = (a.cpu(), st, fused_mg.sweep_launches - before[0],
+                         fused_mg.residual_launches - before[1])
+    (a_c, st_c, *n_c), (a_g, st_g, *n_g) = out["cpu"], out["cuda"]
+    assert (st_g.iters, st_g.nrelax) == (st_c.iters, st_c.nrelax)
+    assert st_g.resa <= 1e-8 and st_g.iters > 1
+    assert (a_g - a_c).abs().max() <= 1e-10 * a_c.abs().max()
+    assert n_c == [0, 0]
+    if case in ("layered", "modal"):
+        assert n_g[1] == st_g.iters + 1 and n_g[0] >= 6 * 2 * st_g.iters
+    else:
+        assert n_g == [0, 0]
+
+
+@pytest.mark.parametrize("modal", [False, True])
+@pytest.mark.parametrize("extrap", [True, False])
+def test_mg_cuda_step_matches_cpu_step(cuda, modal, extrap):
+    """10 f64 steps of the Verron 64^2 x 3 deck with solver="mg": the same
+    V-cycles every step, and on the card every sweep and residual is a
+    kernel launch."""
+    cfg = QGConfig(N=64, nl=3, L0=80, Rom=0.025, Ekb=0.002, tau0=1e-4,
+                   Re4=1563, beta=0.5, Fr=(0.0023669, 0.0076173),
+                   dh=(0.06, 0.14, 0.8), DT=5e-2, tend=500., dtout=1.,
+                   CFL=0.6, dtype="float64", solver="mg", mg_extrap=extrap,
+                   mode_pv_invert=modal).validate()
+    psi0 = 1e-3 * np.random.default_rng(42).uniform(-1, 1, (3, 64, 64))
+    step = qg.make_step(cfg)
+    runs = {}
+    for dev in ("cpu", cuda):
+        const = qg.build_constants(cfg, device=dev)
+        state = qg.init_state(cfg, const, psi0=psi0)
+        before = (fused_rhs.launches, fused_mg.sweep_launches,
+                  fused_mg.residual_launches)
+        cycles = []
+        for _ in range(10):
+            state, diag = step(state, const, 1e9)
+            cycles.append(diag.mg_iters)
+        runs[str(dev)] = (state, cycles, fused_rhs.launches - before[0],
+                          fused_mg.sweep_launches - before[1],
+                          fused_mg.residual_launches - before[2])
+    (cpu, c_cpu, *n_cpu), (gpu, c_gpu, *n_gpu) = runs["cpu"], runs["cuda"]
+    assert c_gpu == c_cpu and min(c_gpu) >= 1
+    assert n_cpu == [0, 0, 0]
+    assert n_gpu[0] == 20 and n_gpu[1] > 0
+    # a solve: one K4 for its first residual and one a cycle; the second
+    # solve of a step takes at least one cycle
+    assert n_gpu[2] >= 20 + sum(c_gpu) + 10
+    for name in ("q", "psi") + (("psi_old",) if extrap else ()):
+        want = getattr(cpu, name)
+        got = getattr(gpu, name).cpu()
+        assert (got - want).abs().max() <= 1e-10 * want.abs().max(), name
+    assert (gpu.psi_old is None) == (not extrap)

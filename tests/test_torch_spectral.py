@@ -148,7 +148,7 @@ def test_solve_spectral_residual_in_comp_q(transform):
     const = tqg.build_constants(cfg, device="cpu")
     rng = np.random.default_rng(11)
     q = torch.as_tensor(rng.standard_normal((3, 64, 64)))
-    psi = tqg.invert_q(cfg, const, q)
+    psi, _ = tqg.invert_q(cfg, const, None, q)
     res = (tqg.comp_q(cfg, const, psi) - q).abs().max() / q.abs().max()
     assert res < 1e-12, float(res)
 
@@ -213,7 +213,7 @@ def test_build_constants_hands_fused_mm_on():
     assert not tqg.build_constants(cfg, device="cpu").spec.fused_mm
     q = torch.as_tensor(np.random.default_rng(2).standard_normal(
         (3, 128, 128)))
-    psi = tqg.invert_q(cfg, const, q)
+    psi, _ = tqg.invert_q(cfg, const, None, q)
     res = (tqg.comp_q(cfg, const, psi) - q).abs().max() / q.abs().max()
     assert res < 1e-12, float(res)
 

@@ -214,8 +214,6 @@ def test_step_on_cpu_launches_no_kernel():
 
 
 @pytest.mark.parametrize("override,match", [
-    (dict(solver="mg"), "item 11"),
-    (dict(mode_pv_invert=True), "item 11"),
     (dict(sbc=-1.0), "item 7b"),
     (dict(stochastic=True, tr_stoch=10.0), "item 8"),
     (dict(dtflt=1.0), "item 9"),
