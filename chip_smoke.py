@@ -5,8 +5,8 @@
 
 Needs one CUDA card, nvcc and the repository checkout; imports nothing of
 JAX or msom_tpu. With no argument every phase runs; with phase names
-(kernels, steps, paths, fused_mm, mg) the build and those phases only (for
-work on one part: the kernels' record then lists what ran). Phases, in
+(kernels, steps, paths, fused_mm, mg, node) the build and those phases only
+(for work on one part: the kernels' record then lists what ran). Phases, in
 order; any failure exits non-zero:
 
 1. build every kernel from msom_tpu_torch/csrc (one nvcc per source, all
@@ -50,6 +50,24 @@ order; any failure exits non-zero:
    steps timed with CUDA events, counting K1's, K3's and K4's launches and
    the V-cycles of every solve; K3 and K4 alone on the final state against
    their plain versions and bounds; a four-step profile.
+8. the qg-node family (phase name node): hold the nodal tendency (K5)
+   against its plain version in f32 and f64 with every option set (bench's
+   own no-slip configuration, free slip, no slip with nu4, pg, topo, qf3,
+   flag_ms, an island mask, bench's coastline mask, all together) at
+   N = 256 with nl = 3, 4, N = 100 (partial tiles), 2048^2 x 4, and the
+   barotropic form (nl = 1 with gp_low) at N = 256, 100 and 2048; the masked
+   vertex sweep (K6, four sweeps in a row) on a coastline grid with an
+   x-varying S2 at nl = 1-4, n = 3, 5, 9, 17, 65, 257, 2049; a whole masked
+   vpoisson on the card against the CPU (128^2 x 3 f64, tol 1e-8: same
+   cycles); the node step on the card against the CPU step (128^2 x 3 f64,
+   20 steps, spectral and solver="vmg" with the coastline: the same
+   V-cycles every step); then bench.py's two node rows (measure_node,
+   bench.py:166-240) at 2048^2 x 4 f32 from a numpy-seeded noise IC: node
+   (spectral + K5, 40 spin-up steps) and node_masked (solver="vmg", the
+   coastline, K6 + K5, 100 spin-up steps), 40 steps each timed with CUDA
+   events, counting K5's and K6's launches and the V-cycles of every solve;
+   K5 and K6 alone on the final state against their plain versions and
+   bounds, K6 by level; a four-step profile of each.
 
 TF32 is switched off for matmuls and convolutions before anything runs:
 1-pass reduced-precision transforms give O(1) solution error at N = 2048.
@@ -78,7 +96,7 @@ MG_LIMITS = {4: 1e-5, 8: 1e-12}
 MG_SWEEPS = 4
 MG_SOLVE_LIMIT = 1e-10                    # CUDA solve vs CPU solve, f64
 MG_MAX_CYCLES = 20      # a solve that needs more at tol 1e-3 is spinning
-PHASES = ("kernels", "steps", "paths", "fused_mm", "mg")
+PHASES = ("kernels", "steps", "paths", "fused_mm", "mg", "node")
 K1_OPTIONS = ("pg", "pg_flsrv", "topo", "qforc", "energy_conserv", "slip",
               "all")
 TRACERS = dict(nptr=2, Pe=(1e3, 2e3), ptr_r=(100.0, 0.0))
@@ -586,6 +604,399 @@ def fused_mm_path(QGConfig, rows, main_err):
     return True
 
 
+# ---------------------------------------------------------------------------
+# the qg-node family (phase name node): K5, K6, a masked solve, the steps and
+# bench.py's two node rows at full width
+# ---------------------------------------------------------------------------
+
+NODE_SIZES = [(256, 1), (256, 3), (256, 4), (100, 3), (100, 1), (2048, 4),
+              (2048, 1)]
+VMG_SIZES = [3, 5, 9, 17, 65, 257, 2049]
+
+
+def node_config(NodeQGConfig, N, nl, dtype, **kw):
+    """bench.py's measure_node configuration (bench.py:178-185) at N."""
+    base = dict(N=N, nl=nl, L0=100.0, f0=46.5, beta=0.5, hEkb=1e-3,
+                tau0=1e-3, nu=5.0 / (N / 64), dh=tuple([1.0 / nl] * nl),
+                N2=tuple([1.0] * (nl - 1)), noise_init=1e-3, bc_fac=1.0,
+                DT=5e-2, tend=1e18, dtout=1e18, CFL=0.2, TOLERANCE=1e-5,
+                dtflt=1.0, Lfmax=30.0, Lfmin=10.0, dtype=dtype)
+    base.update(kw)
+    return NodeQGConfig(**base)
+
+
+def node_noise_ic(cfg, seed=0):
+    """A numpy-seeded noise IC of bench's kind: noise_init * (uniform noise
+    + sin(2 pi y / L0)) (the JAX init_state's formula, numpy's draw)."""
+    M = cfg.N + 1
+    y = np.arange(M)[:, None] * cfg.delta
+    rng = np.random.default_rng(seed)
+    return cfg.noise_init * (rng.uniform(-1, 1, (cfg.nl, M, M))
+                             + np.sin(2 * np.pi * y / cfg.L0))
+
+
+def node_variants(NodeQGConfig, N, nl, dtype, rng):
+    """{option: (cfg, const)} of K5's option sets on the card, cut out of
+    constants built once with every coupling field; flag_ms takes S2 of its
+    form, f_var^2 / N2 with f_var = f0 + beta (y - L0/2), as the y-profile
+    (qg_baroclinic_ms.h:48)."""
+    import torch
+    from msom_tpu_torch.models import qg_node
+    M = N + 1
+    if nl == 1:
+        cfg = node_config(NodeQGConfig, N, 1, dtype, gp_low=4.0)
+        return {"barotropic": (cfg, qg_node.build_constants(cfg))}
+    cfg0 = node_config(NodeQGConfig, N, nl, dtype)
+    full = qg_node.build_constants(
+        cfg0, psi_pg=1e-3 * rng.uniform(-1, 1, (nl, M, M)),
+        topo=1e-2 * rng.uniform(-1, 1, (M, M)),
+        q_forcing_3d=rng.uniform(-1, 1, (nl, M, M)))
+    tdt = getattr(torch, dtype)
+    f_var = cfg0.f0 + cfg0.beta * (np.arange(M) * cfg0.delta - 0.5 * cfg0.L0)
+    prof = torch.as_tensor(f_var[None] ** 2 / np.asarray(cfg0.N2)[:, None],
+                           dtype=tdt).cuda()
+    flag_ms = dict(S2_prof=prof,
+                   S2=prof[..., None].expand(nl - 1, M, M).contiguous())
+    island = full.mask.clone()
+    island[M // 3:M // 3 + 6, M // 2:M // 2 + 7] = 0.0
+    coast = torch.as_tensor(qg_node.coastline_mask(N), dtype=tdt).cuda()
+    nu4 = 50.0 * (64 / N) ** 4
+    bare = dict(has_pg=False, has_topo=False, q_forcing_3d=None)
+    cuts = {"bench": ({}, bare), "freeslip": (dict(bc_fac=0.0), bare),
+            "noslip_nu4": (dict(nu4=nu4), bare),
+            "pg": ({}, {**bare, "has_pg": True}),
+            "topo": ({}, {**bare, "has_topo": True}),
+            "qf3": ({}, {**bare, "q_forcing_3d": full.q_forcing_3d}),
+            "flag_ms": (dict(flag_ms=1), {**bare, **flag_ms}),
+            "island": ({}, {**bare, "mask": island}),
+            "coast": ({}, {**bare, "mask": coast}),
+            "all": (dict(flag_ms=1, nu4=nu4), dict(mask=island, **flag_ms))}
+    return {name: (node_config(NodeQGConfig, N, nl, dtype, **kw),
+                   dataclasses.replace(full, **cut))
+            for name, (kw, cut) in cuts.items()}
+
+
+def node_kernel_checks(NodeQGConfig):
+    """K5 against its plain version on the card with every option set;
+    returns (ok, {(path option): max abs error at 2048^2 x 4 f32})."""
+    import torch
+    from msom_tpu_torch.models import fused_node_rhs, qg_node
+    from msom_tpu_torch.ops import vertex
+    ok, main_err = True, {}
+    for dtype in ("float64", "float32"):
+        lim = LIMITS[8 if dtype == "float64" else 4]
+        for N, nl in NODE_SIZES:
+            rng = np.random.default_rng(N + nl)
+            psi = vertex.bc_psi(torch.as_tensor(
+                1e-3 * rng.uniform(-1, 1, (nl, N + 1, N + 1)),
+                dtype=getattr(torch, dtype)).cuda())
+            t = torch.tensor(0.37, dtype=psi.dtype, device="cuda")
+            for name, (cfg, const) in node_variants(
+                    NodeQGConfig, N, nl, dtype, rng).items():
+                q = qg_node.comp_q(cfg, const, psi)
+                qf = qg_node.q_forcing_profile(cfg, const.yv[:, 0], t)
+                before = fused_node_rhs.launches
+                dq_k = fused_node_rhs.rhs_fused_node(cfg, const, q, psi, qf)
+                dq_r = fused_node_rhs.rhs_node_reference(cfg, const, q, psi,
+                                                         qf)
+                torch.cuda.synchronize()
+                abs_err = (dq_k - dq_r).abs().max().item()
+                rel = abs_err / dq_r.abs().max().item()
+                good = (rel <= lim and fused_node_rhs.launches == before + 1
+                        and dq_k.shape == psi.shape)
+                ok &= good
+                print(f"K5 check {dtype} N={N} nl={nl} {name}: max|d dq|/"
+                      f"max|dq| = {rel:.3e} (limit {lim:g}) "
+                      f"{'ok' if good else 'FAIL'}")
+                if dtype == "float32" and (N, nl) == (2048, 4):
+                    main_err[name] = abs_err
+                del q, dq_k, dq_r
+            del psi
+            torch.cuda.empty_cache()
+    return ok, main_err
+
+
+def vmg_level_on_card(nl, n, dtype, rng):
+    """The finest vertex level of the coastline grid with an x-varying S2
+    on the card, and two random masked fields."""
+    import torch
+    from msom_tpu_torch.models.qg_node import coastline_mask
+    from msom_tpu_torch.solvers import vmg
+    tdt = getattr(torch, dtype)
+    N = n - 1
+    mask = torch.as_tensor(coastline_mask(N), dtype=tdt).cuda()
+    S2 = None
+    if nl > 1:
+        S2 = torch.as_tensor(1.0 + 0.3 * rng.standard_normal(
+            (nl - 1, n, n)) ** 2, dtype=tdt).cuda()
+    idh0 = np.r_[0.0, rng.uniform(1, 3, nl - 1)]
+    idh1 = np.r_[rng.uniform(1, 3, nl - 1), 0.0]
+    lvl = vmg.build_vlevels(nl=nl, N=N, L0=100.0, S2=S2, idh0=idh0,
+                            idh1=idh1, mask=mask, dtype=tdt,
+                            iRd2_low=0.0 if nl > 1 else 5.0)[0]
+    da, res = (torch.as_tensor(rng.standard_normal((nl, n, n)), dtype=tdt)
+               .cuda() * mask for _ in range(2))
+    return lvl, da, res
+
+
+def vmg_kernel_checks():
+    """K6 against its plain version, MG_SWEEPS sweeps in a row; returns (ok,
+    max abs error at 2049^2 x 4 f32)."""
+    import torch
+    from msom_tpu_torch.solvers import fused_vmg
+    ok, main_err = True, None
+    for dtype in ("float64", "float32"):
+        lim = MG_LIMITS[8 if dtype == "float64" else 4]
+        for n in VMG_SIZES:
+            for nl in (1, 2, 3, 4):
+                rng = np.random.default_rng(n + nl)
+                lvl, da, res = vmg_level_on_card(nl, n, dtype, rng)
+                before = fused_vmg.launches
+                k = p = da
+                for _ in range(MG_SWEEPS):
+                    k = fused_vmg.vrb_sweep(k, res, lvl)
+                    p = fused_vmg.vrb_sweep_reference(p, res, lvl)
+                torch.cuda.synchronize()
+                err = (k - p).abs().max().item()
+                rel = err / p.abs().max().item()
+                good = (rel <= lim and k.shape == da.shape
+                        and fused_vmg.launches == before + MG_SWEEPS)
+                ok &= good
+                print(f"K6 check {dtype} n={n} nl={nl} coastline, x-varying "
+                      f"S2: after {MG_SWEEPS} sweeps max|d da|/max|da| = "
+                      f"{rel:.3e} (limit {lim:g}) {'ok' if good else 'FAIL'}")
+                if dtype == "float32" and (n, nl) == (2049, 4):
+                    main_err = err
+                del lvl, da, res, k, p
+            torch.cuda.empty_cache()
+    return ok, main_err
+
+
+def vpoisson_check():
+    """A whole masked vpoisson on the card against the CPU in f64 (128^2 x 3,
+    coastline, x-varying S2, tol 1e-8): the same cycles, the solution
+    within 1e-10, every sweep a K6 launch on the card."""
+    import torch
+    from msom_tpu_torch.models.qg_node import coastline_mask
+    from msom_tpu_torch.solvers import fused_vmg, vmg
+    nl, N = 3, 128
+    rng = np.random.default_rng(5)
+    S2 = torch.tensor(1.0 + 0.3 * rng.standard_normal(
+        (nl - 1, N + 1, N + 1)) ** 2)
+    mask = torch.tensor(coastline_mask(N))
+    idh0 = np.r_[0.0, rng.uniform(1, 3, nl - 1)]
+    idh1 = np.r_[rng.uniform(1, 3, nl - 1), 0.0]
+    b = torch.tensor(rng.standard_normal((nl, N + 1, N + 1))) * mask
+    out = {}
+    for where in ("cpu", "cuda"):
+        levels = vmg.build_vlevels(nl=nl, N=N, L0=100.0, S2=S2.to(where),
+                                   idh0=idh0, idh1=idh1, mask=mask.to(where),
+                                   dtype=torch.float64)
+        before = fused_vmg.launches
+        a, st = vmg.vpoisson(torch.zeros_like(b).to(where), b.to(where),
+                             levels=levels, idh0=idh0, idh1=idh1,
+                             tolerance=1e-8)
+        out[where] = (a.cpu(), st, fused_vmg.launches - before, len(levels))
+    (a_c, st_c, n_c, _), (a_g, st_g, n_g, nlev) = out["cpu"], out["cuda"]
+    rel = ((a_g - a_c).abs().max() / a_c.abs().max()).item()
+    good = (st_g.iters == st_c.iters and rel <= MG_SOLVE_LIMIT
+            and st_g.resa <= 1e-8 and n_c == 0
+            and n_g == st_g.iters * nlev * st_g.nrelax)
+    print(f"vpoisson check coastline {N}^2 x {nl} f64 tol 1e-8, cuda vs cpu: "
+          f"cycles {st_g.iters} vs {st_c.iters}, resa {st_g.resa:.3e} vs "
+          f"{st_c.resa:.3e}, rel a = {rel:.3e} (limit {MG_SOLVE_LIMIT:g}), K6 "
+          f"launches {n_g} {'ok' if good else 'FAIL'}")
+    return good
+
+
+def node_step_checks(NodeQGConfig):
+    """The node step on the card against the CPU step, f64, 128^2 x 3, 20
+    steps from one numpy IC: the spectral inversion, and solver="vmg" with
+    the coastline mask (the same V-cycles every step)."""
+    import torch
+    from msom_tpu_torch.models import fused_node_rhs, qg_node
+    from msom_tpu_torch.solvers import fused_vmg
+    ok = True
+    for solver in ("auto", "vmg"):
+        cfg = node_config(NodeQGConfig, 128, 3, "float64", solver=solver,
+                          TOLERANCE=1e-8)
+        inputs = (dict(mask=qg_node.coastline_mask(128)) if solver == "vmg"
+                  else {})
+        psi0 = node_noise_ic(cfg, 42)
+        step = qg_node.make_step(cfg)
+        runs = {}
+        for where in ("cpu", "cuda"):
+            const = qg_node.build_constants(cfg, device=where, **inputs)
+            state = qg_node.init_state(cfg, const, psi0=psi0)
+            before = fused_node_rhs.launches, fused_vmg.launches
+            cycles = []
+            for _ in range(20):
+                state, diag = step(state, const, 1e9)
+                cycles.append(diag.mg_iters)
+            runs[where] = (state, cycles,
+                           fused_node_rhs.launches - before[0],
+                           fused_vmg.launches - before[1])
+        (cpu, c_cpu, *n_cpu), (gpu, c_gpu, *n_gpu) = runs["cpu"], runs["cuda"]
+        rels = {name: ((getattr(gpu, name).cpu() - getattr(cpu, name)).abs()
+                       .max() / getattr(cpu, name).abs().max()).item()
+                for name in ("q", "psi")}
+        good = (all(r <= STEP_LIMIT for r in rels.values())
+                and c_gpu == c_cpu and n_cpu == [0, 0] and n_gpu[0] == 40
+                and (n_gpu[1] > 0) == (solver == "vmg")
+                and (solver != "vmg" or min(c_gpu) >= 1))
+        ok &= good
+        print(f"step check node solver={solver} 128^2 x 3 f64, 20 steps cuda "
+              f"vs cpu: " + ", ".join(f"rel {k} = {v:.3e}"
+                                      for k, v in rels.items())
+              + f" (limit {STEP_LIMIT:g}), V-cycles of the first solve cuda "
+              f"{c_gpu} cpu {c_cpu}, K5/K6 launches {n_gpu} "
+              f"{'ok' if good else 'FAIL'}")
+    return ok
+
+
+def node_paths(NodeQGConfig, rows, k5_err, k6_err):
+    """bench.py's two node rows at 2048^2 x 4 f32: the spectral step (K5)
+    and the coastline-masked vmg step (K6 and K5); appends the kernels'
+    records to `rows`. Returns False if a path failed."""
+    import torch
+    from msom_tpu_torch.models import fused_node_rhs, fused_rhs, qg_node
+    from msom_tpu_torch.solvers import fused_mg, fused_vmg, vmg
+    N, nl, steps = 2048, 4, 40
+    shape = (nl, N + 1, N + 1)
+    for label, warm in (("node", 40), ("node_masked", 100)):
+        masked = label == "node_masked"
+        cfg = node_config(NodeQGConfig, N, nl, "float32",
+                          **(dict(solver="vmg") if masked else {}))
+        t0 = time.perf_counter()
+        const = qg_node.build_constants(
+            cfg, **(dict(mask=qg_node.coastline_mask(N)) if masked else {}))
+        state = qg_node.init_state(cfg, const, psi0=node_noise_ic(cfg))
+        step = qg_node.make_step(cfg)
+        torch.cuda.synchronize()
+        nlev = len(const.vlevels) if masked else 0
+        print(f"{label} path set-up: {time.perf_counter() - t0:.1f} s, "
+              f"inversion {'vmg, %d levels' % nlev if masked else 'spectral'}"
+              f" ({type(const.nspec.fac).__name__ if const.nspec else ''})")
+        t0 = time.perf_counter()
+        spin = []
+        for _ in range(warm):
+            state, diag = step(state, const, 1e18)
+            spin.append(diag.mg_iters)
+        torch.cuda.synchronize()
+        print(f"{label} path spin-up: {warm} steps in "
+              f"{time.perf_counter() - t0:.1f} s"
+              + (f", V-cycles of the first solve: first ten {spin[:10]}, "
+                 f"last ten {spin[-10:]}" if masked else ""))
+        torch.cuda.reset_peak_memory_stats()
+        fused_node_rhs.launches = fused_vmg.launches = 0
+        fused_rhs.launches = fused_mg.sweep_launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        cycles = []       # V-cycles of every solve of the timed steps
+        start.record()
+        for _ in range(steps):
+            n0 = fused_vmg.launches
+            state, diag = step(state, const, 1e18)
+            if masked:
+                both = (fused_vmg.launches - n0) // (nlev * 5)
+                cycles += [diag.mg_iters, both - diag.mg_iters]
+        end.record()
+        torch.cuda.synchronize()
+        ms_step = start.elapsed_time(end) / steps
+        n_k5, n_k6 = fused_node_rhs.launches, fused_vmg.launches
+        finite = (bool(torch.isfinite(state.q).all())
+                  and bool(torch.isfinite(state.psi).all())
+                  and np.isfinite(diag.ke.item()) and diag.dt.item() > 0
+                  and tuple(state.q.shape) == shape)
+        extra = ""
+        if masked:
+            extra = (f", V-cycles a solve mean {np.mean(cycles):.4f} max "
+                     f"{max(cycles)} min {min(cycles)}, host reads of the "
+                     f"residual norm {(sum(cycles) + 2 * steps) / steps:.1f} "
+                     "a step")
+        print(f"{label} path {N}^2 x {nl} f32 after {warm} spin-up steps: "
+              f"{ms_step:.4f} ms/step, {N * N * nl / (ms_step * 1e-3):.4e} "
+              f"grid-points/s, node_rhs launches {n_k5} "
+              f"({n_k5 / steps:.1f} a step), vmg_sweep launches {n_k6} "
+              f"({n_k6 / steps:.1f} a step){extra}, ke {diag.ke.item():.6e}, "
+              f"dt {diag.dt.item():.6e}, t {state.t.item():.6e}, finite "
+              f"{finite}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if (n_k5 != 2 * steps or not finite or fused_rhs.launches
+                or fused_mg.sweep_launches or (n_k6 > 0) != masked
+                or (masked and (min(cycles) < 1 or max(cycles) > 99))):
+            return False
+
+        psi, q = state.psi.contiguous(), state.q.contiguous()
+        qf = qg_node.q_forcing_profile(cfg, const.yv[:, 0], state.t)
+        k_ms, p_ms = kernel_times(
+            lambda: fused_node_rhs.rhs_fused_node(cfg, const, q, psi, qf),
+            lambda: fused_node_rhs.rhs_node_reference(cfg, const, q, psi,
+                                                      qf))
+        work = fused_node_rhs.bound_work(cfg, const, 4)
+        bound, by, t_b, t_o = roofline(*work, 4)
+        print(f"K5 {label} at {N}^2 x {nl} f32: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, bound {bound:.4f} ms by {by} (bytes {work[0]} "
+              f"-> {t_b:.4f} ms, operations {work[1]} -> {t_o:.4f} ms), "
+              f"library_ms null")
+        rows.append({
+            "name": "node_rhs", "path": f"{label} {N}^2 x {nl} f32",
+            "route": "cuda", "source": fused_node_rhs.SOURCE,
+            "replaces": "msom_tpu/models/pallas_node_rhs.py:126",
+            "launches": n_k5,
+            "max_abs_err": k5_err["coast" if masked else "bench"],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None})
+        if masked:
+            lvl = const.vlevels[0]
+            res, _ = vmg.residual_v(psi, q, lvl, const.idh0, const.idh1)
+            da = fused_vmg.vrb_sweep(torch.zeros_like(res), res, lvl)
+            k_ms, p_ms = kernel_times(
+                lambda: fused_vmg.vrb_sweep(da, res, lvl),
+                lambda: fused_vmg.vrb_sweep_reference(da, res, lvl))
+            work = fused_vmg.bound_work(nl, N + 1, 4)
+            bound, by, t_b, t_o = roofline(*work, 4)
+            print(f"K6 at {N + 1}^2 x {nl} f32: kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, bound {bound:.4f} ms by {by} (bytes "
+                  f"{work[0]} -> {t_b:.4f} ms, operations {work[1]} -> "
+                  f"{t_o:.4f} ms), library_ms null")
+            rows.append({
+                "name": "vmg_sweep", "path": f"{label} {N}^2 x {nl} f32",
+                "route": "cuda", "source": fused_vmg.SOURCE,
+                "replaces": "msom_tpu/solvers/pallas_vmg.py:105",
+                "launches": n_k6, "max_abs_err": k6_err, "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": None})
+            total_bound, per_level = 0.0, []
+            for lv in const.vlevels:
+                n = lv.mask.shape[-1]
+                z = torch.zeros((nl, n, n), device="cuda")
+                ms = cuda_ms(lambda: fused_vmg.vrb_sweep(z, z, lv), 50)
+                total_bound += 5 * roofline(
+                    *fused_vmg.bound_work(nl, n, 4), 4)[0]
+                per_level.append((n, ms))
+            print("vmg_sweep by level, ms a launch: "
+                  + ", ".join(f"n={n}: {ms:.4f}" for n, ms in per_level)
+                  + f"; one V-cycle at nrelax 5: "
+                  f"{5 * sum(ms for _, ms in per_level):.4f} ms in "
+                  f"{5 * len(per_level)} launches against a summed bound of "
+                  f"{total_bound:.4f} ms")
+            _, st = qg_node.invert_q(cfg, const, psi, q)
+            print(f"vmg inversion of the final q from the final psi: "
+                  f"{st.iters} cycles, residual {st.resb:.3e} -> "
+                  f"{st.resa:.3e}")
+
+        box = [state]
+
+        def one_step():
+            box[0], _ = step(box[0], const, 1e18)
+
+        kernel_profile(label, one_step, 4, ms_step)
+        del const, state, psi, q, box
+        torch.cuda.empty_cache()
+    return True
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -593,6 +1004,7 @@ def main() -> int:
         return 1
     from msom_tpu_torch import _build
     from msom_tpu_torch.models import fused_rhs, fused_tracer, qg
+    from msom_tpu_torch.models.qg_node import NodeQGConfig
     from msom_tpu_torch.params import QGConfig
     from msom_tpu_torch.solvers import fused_mg, fused_spectral, spectral
 
@@ -906,6 +1318,18 @@ def main() -> int:
         if not mg_path(QGConfig, rows, main_err):
             return 7
         print(f"multigrid path done at {time.perf_counter() - t_start:.0f} s")
+
+    # 8. the qg-node family
+    if wanted("node"):
+        good5, k5_err = node_kernel_checks(NodeQGConfig)
+        good6, k6_err = vmg_kernel_checks()
+        if not (good5 and good6 and vpoisson_check()
+                and node_step_checks(NodeQGConfig)):
+            return 8
+        print(f"node checks done at {time.perf_counter() - t_start:.0f} s")
+        if not node_paths(NodeQGConfig, rows, k5_err, k6_err):
+            return 8
+        print(f"node paths done at {time.perf_counter() - t_start:.0f} s")
 
     print(f"total {time.perf_counter() - t_start:.0f} s")
     print("kernels: " + json.dumps(sorted({r["name"] for r in rows})))

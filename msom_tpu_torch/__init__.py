@@ -2,18 +2,24 @@
 
 Stands beside the JAX package, which stays the reference it is tested
 against. It imports torch and numpy, never jax or msom_tpu. Entry points
-take a `device` and run on "cuda" unless the caller passes "cpu".
+take a `device` and run on "cuda" unless the caller passes "cpu"; the
+multigrid level builders (mg.build_layered_coeffs, vmg.build_vlevels) take
+the device of the coefficient fields they are given, else `device`.
 
 Ported so far: the msqg step for the walled configurations (free slip and
 partial slip) with the direct spectral inversion or the multigrid
 (solver="mg", layered or mode_pv_invert), uncoupled or coupled to a
 large-scale streamfunction, bottom topography, a 3-D forcing and passive
-tracers, with five hand-written Hopper kernels: the fused tendency
-(models/fused_rhs.py, csrc/fused_rhs.cu), the fused tracer tendency
-(models/fused_tracer.py, csrc/fused_tracer.cu), the fused basis-matmul
-spectral solve (solvers/fused_spectral.py, csrc/fused_spectral.cu) and the
-multigrid's red-black line sweep and fused residual (solvers/fused_mg.py,
-csrc/mg_sweep.cu, csrc/mg_residual.cu).
+tracers; and the qg-node family's walled step (models/qg_node.py: any
+interior mask, partial-slip rings, the nodal spectral inversion or the
+masked vertex multigrid solvers/vmg.py). Seven hand-written Hopper kernels:
+the fused tendency (models/fused_rhs.py, csrc/fused_rhs.cu), the fused
+tracer tendency (models/fused_tracer.py, csrc/fused_tracer.cu), the fused
+basis-matmul spectral solve (solvers/fused_spectral.py,
+csrc/fused_spectral.cu), the multigrid's red-black line sweep and fused
+residual (solvers/fused_mg.py, csrc/mg_sweep.cu, csrc/mg_residual.cu), and
+the qg-node tendency and masked vertex sweep (models/fused_node_rhs.py,
+csrc/node_rhs.cu; solvers/fused_vmg.py, csrc/vmg_sweep.cu).
 
     from msom_tpu_torch.params import QGConfig
     from msom_tpu_torch.models import qg
@@ -26,4 +32,13 @@ csrc/mg_sweep.cu, csrc/mg_residual.cu).
     state = qg.init_state(cfg, const, seed=0)
     step = qg.make_step(cfg)
     state, diag = step(state, const, 1.0)
+
+    from msom_tpu_torch.models import qg_node
+    ncfg = qg_node.NodeQGConfig(N=256, nl=4, L0=100.0, f0=46.5, beta=0.5,
+                                hEkb=1e-3, tau0=1e-3, nu=1.25,
+                                dh=(0.25,) * 4, N2=(1.0,) * 3,
+                                noise_init=1e-3, bc_fac=1.0, CFL=0.2)
+    nconst = qg_node.build_constants(ncfg)       # mask=, psi_pg=, topo=, ...
+    nstate = qg_node.init_state(ncfg, nconst, seed=0)
+    nstate, ndiag = qg_node.make_step(ncfg)(nstate, nconst, 1.0)
 """

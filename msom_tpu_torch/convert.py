@@ -11,6 +11,13 @@ from it, which is not ported, and a jax.random stream cannot be continued
 in torch. The `tracers` leaf (nl, nptr, N, N) and the multigrid warm
 start's `psi_old` leaf (nl, N, N) are carried when present. Leaves of
 unported features (the filter mean qof/nbar) raise NotImplementedError.
+
+`node_state_from_numpy` and `node_state_to_numpy` do the same for the
+qg-node family's `NodeQGState` (leaves q, psi, t, dt_prev, i, nbar and,
+with dtflt > 0, the filter mean psi_f, on the (nl, N+1, N+1) vertex grid).
+The node model has no learned weights either: its constants come from the
+config and the numpy mask, psi_pg, topo, q_forcing_3d and N2 arrays given
+to `qg_node.build_constants`.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from msom_tpu_torch.models import qg_node
 from msom_tpu_torch.models.qg import QGState, _torch_dtype
 from msom_tpu_torch.params import QGConfig
 
@@ -69,4 +77,42 @@ def state_to_numpy(state: QGState) -> dict:
     names = ("q", "psi", "t", "dt_prev", "i") + tuple(
         name for name in ("tracers", "psi_old")
         if getattr(state, name) is not None)
+    return {name: getattr(state, name).cpu().numpy() for name in names}
+
+
+def node_state_from_numpy(cfg: qg_node.NodeQGConfig, leaves,
+                          device="cuda") -> qg_node.NodeQGState:
+    """The port's NodeQGState on `device` from a mapping of numpy arrays
+    with the leaves q, psi, t, dt_prev, i, nbar and, where the run has a
+    filter (dtflt > 0), psi_f; the `key` leaf is ignored."""
+    dtype = qg_node._torch_dtype(cfg)
+    shape = (cfg.nl, cfg.N + 1, cfg.N + 1)
+
+    def field(name):
+        a = np.asarray(leaves[name])
+        if a.shape != shape:
+            raise ValueError(f"leaf {name!r} has shape {a.shape}, the "
+                             f"config needs {shape}")
+        return torch.as_tensor(a, dtype=dtype).to(device)
+
+    def scalar(name, dt):
+        return torch.as_tensor(np.asarray(leaves[name]), dtype=dt).to(device)
+
+    filt = cfg.dtflt > 0
+    if ("psi_f" in leaves) != filt:
+        raise ValueError(f"the config {'has' if filt else 'has no'} filter "
+                         f"(dtflt = {cfg.dtflt}) but the leaves "
+                         f"{'hold' if 'psi_f' in leaves else 'lack'} psi_f")
+    return qg_node.NodeQGState(
+        q=field("q"), psi=field("psi"),
+        psi_f=field("psi_f") if filt else None, t=scalar("t", dtype),
+        dt_prev=scalar("dt_prev", dtype), i=scalar("i", torch.int32),
+        nbar=scalar("nbar", torch.int32))
+
+
+def node_state_to_numpy(state: qg_node.NodeQGState) -> dict:
+    """The leaves of a NodeQGState as host numpy arrays, in save_state's
+    names."""
+    names = ("q", "psi", "t", "dt_prev", "i", "nbar") \
+        + (("psi_f",) if state.psi_f is not None else ())
     return {name: getattr(state, name).cpu().numpy() for name in names}

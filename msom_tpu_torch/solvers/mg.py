@@ -126,7 +126,7 @@ def build_layered_coeffs(*, nl: int, N: int, L0: float,
                          idh0=None, idh1=None,
                          lam: torch.Tensor | None = None,
                          dtype=torch.float32, minlevel: int = 1,
-                         device=None):
+                         device="cuda"):
     """Per-level coefficients and Thomas factors for solve_layered, made
     once at model set-up (the coefficients do not change in time;
     msqg/poisson_layer.h:281-284 restricts them every solve). `s` is

@@ -17,7 +17,13 @@ Transform selection is the JAX package's (`spectral.py:195-208`):
     of the same length (Makhoul's reordering), since torch has no DCT;
   * "factored": the folded DST at any power-of-2 N >= 16.
 With `fused_mm` the basis-matmul solve runs in the hand-written kernel K7
-(solvers/fused_spectral.py) instead of torch.matmul. The periodic basis and
+(solvers/fused_spectral.py) instead of torch.matmul.
+
+`build_spectral_node` is the qg-node family's direct inversion: the
+(N-1)^2 interior vertices with a zero ring are diagonalised by the DST-I
+basis (`dst1_matrix`) times the vertical modes; in f32 at 512 <= N, N a
+power of 2, through the folded DST-I (ctdst.FoldedDST1), otherwise (f64
+among them) through the (N-1)^2 basis matmul. The periodic basis and
 the bf16 refinement pass are not ported yet (ROADMAP.md queue 1, items 7b
 and 3).
 """
@@ -44,7 +50,7 @@ class SpectralData:
     l2m: torch.Tensor | None      # (nl, nl) layer->mode (None when nl == 1)
     m2l: torch.Tensor | None      # (nl, nl) mode->layer
     S: torch.Tensor | None        # (N, N) orthonormal DST-II basis
-    fac: ctdst.FoldedDST | None
+    fac: ctdst.FoldedDST | ctdst.FoldedDST1 | None
     fused_mm: bool = False
 
 
@@ -187,7 +193,11 @@ def _mm_solve(S: torch.Tensor, inv_den: torch.Tensor,
 def solve_spectral(data: SpectralData, q: torch.Tensor) -> torch.Tensor:
     """psi = L^-1 q for q of shape (nl, N, N)."""
     qm = q if data.l2m is None else torch.einsum("ml,lyx->myx", data.l2m, q)
-    if data.fac is not None:
+    if isinstance(data.fac, ctdst.FoldedDST1):
+        Q = ctdst.fdst1_x(data.fac, ctdst.fdst1_y(data.fac, qm))
+        pm = ctdst.ifdst1_y(data.fac,
+                            ctdst.ifdst1_x(data.fac, Q * data.inv_den))
+    elif data.fac is not None:
         Q = ctdst.fdst_x(data.fac, ctdst.fdst_y(data.fac, qm))
         pm = ctdst.ifdst_y(data.fac, ctdst.ifdst_x(data.fac, Q * data.inv_den))
     elif data.fused_mm:
@@ -201,3 +211,49 @@ def solve_spectral(data: SpectralData, q: torch.Tensor) -> torch.Tensor:
     return pm if data.m2l is None else torch.einsum("lm,myx->lyx", data.m2l,
                                                     pm)
 
+
+def dst1_matrix(N: int, dtype=np.float64) -> np.ndarray:
+    """Orthonormal DST-I matrix for the N-1 interior vertices of an
+    N-interval wall-to-wall grid: S1[k, i] = sqrt(2/N) sin(pi (k+1)(i+1) / N),
+    k, i = 0..N-2. Symmetric and orthogonal; it diagonalises the 5-point
+    vertex Laplacian with a zero boundary ring (the qg-node inversion,
+    qg-node/nodal-poisson.h), eigenvalues -(4/h^2) sin^2(pi (k+1) / (2N))."""
+    k = np.arange(N - 1)[:, None]
+    i = np.arange(N - 1)[None, :]
+    return (np.sqrt(2.0 / N)
+            * np.sin(np.pi * (k + 1) * (i + 1) / N)).astype(dtype)
+
+
+def build_spectral_node(*, nl: int, N: int, L0: float, dh=None,
+                        s_profile=None, iRd2_low: float = 0.0,
+                        dtype=torch.float32, device="cuda") -> SpectralData:
+    """Direct spectral inversion of the nodal PV system (JAX
+    `build_spectral_node`), applicable when the mask is the default wall
+    rectangle and the stratification is horizontally uniform: one exact
+    solve of the interior vertices with a zero ring. `solve_spectral` takes
+    the (nl, N-1, N-1) interior. s_profile: the (nl-1,) uniform S2 = f^2/N^2
+    values; iRd2_low: the barotropic Helmholtz shift (qg_barotropic.h:
+    114-118, nl == 1)."""
+    h = L0 / N
+    if nl > 1:
+        vm = modes.eigmod(np.asarray(dh, np.float64)[:nl],
+                          np.asarray(s_profile, np.float64))
+        iBu = np.asarray(vm.iBu, np.float64)
+        l2m = torch.as_tensor(vm.l2m, dtype=dtype).to(device)
+        m2l = torch.as_tensor(vm.m2l, dtype=dtype).to(device)
+    else:
+        iBu = np.array([-float(iRd2_low)])
+        l2m = m2l = None
+    k = np.arange(1, N, dtype=np.float64)
+    lam = -(4.0 / h ** 2) * np.sin(np.pi * k / (2 * N)) ** 2
+    den = lam[None, :, None] + lam[None, None, :] + iBu[:, None, None]
+    with np.errstate(divide="ignore"):
+        inv = np.where(den != 0.0, 1.0 / np.where(den != 0.0, den, 1.0), 0.0)
+    fac = S = None
+    if torch.finfo(dtype).bits == 32 and N >= 512 and N & (N - 1) == 0:
+        fac, perm = ctdst.build_fold1(N, dtype, device)
+        inv = inv[:, perm][:, :, perm]
+    else:
+        S = torch.as_tensor(dst1_matrix(N), dtype=dtype).to(device)
+    return SpectralData(inv_den=torch.as_tensor(inv, dtype=dtype).to(device),
+                        l2m=l2m, m2l=m2l, S=S, fac=fac)

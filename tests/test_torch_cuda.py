@@ -1,9 +1,11 @@
 """The port on a CUDA card: the fused RHS kernel (K1) with and without its
 coupling options, the fused tracer kernel (K2), the fused spectral solve
-(K7) and the multigrid's line sweep (K3) and residual (K4) against their
+(K7), the multigrid's line sweep (K3) and residual (K4), and the qg-node
+family's fused tendency (K5) and masked vertex sweep (K6) against their
 plain PyTorch versions, the wrappers' input checks and launch counts, a
-multigrid solve on the card against the CPU, and the CUDA step against the
-CPU step, uncoupled, coupled and with the multigrid. Every test needs a card
+multigrid and a vertex-multigrid solve on the card against the CPU, and the
+CUDA step against the CPU step, uncoupled, coupled, with the multigrid and
+for the qg-node family. Every test needs a card
 and nvcc, is marked
 `cuda` and skips without a card. The file imports neither jax nor
 msom_tpu, so it runs on a machine without them:
@@ -17,7 +19,8 @@ tests/test_torch_rhs.py measures for that cancellation. K7 against the
 cuBLAS chain: 1e-5 of max|psi_m| in f32 (two f32 roundings of N-term sums),
 1e-12 in f64. K3 (after four sweeps) and K4: 1e-12 (f64) and 1e-5 (f32) of
 max|out|; the kernels fuse a*b+c into one rounding and multiply by
-1/delta^2 where the plain version divides."""
+1/delta^2 where the plain version divides. K5 as K1 (the same stacked
+Laplacians), K6 (after four sweeps) as K3."""
 
 import dataclasses
 
@@ -27,6 +30,7 @@ import torch
 
 from msom_tpu_torch.models import fused_rhs, fused_tracer
 from msom_tpu_torch.models import qg
+from msom_tpu_torch.models.qg_node import coastline_mask
 from msom_tpu_torch.params import QGConfig
 from msom_tpu_torch.solvers import fused_mg, fused_spectral, mg, spectral
 
@@ -479,3 +483,239 @@ def test_mg_cuda_step_matches_cpu_step(cuda, modal, extrap):
         got = getattr(gpu, name).cpu()
         assert (got - want).abs().max() <= 1e-10 * want.abs().max(), name
     assert (gpu.psi_old is None) == (not extrap)
+
+
+# ---------------------------------------------------------------------------
+# the qg-node family: K5 (fused nodal tendency) and K6 (masked vertex sweep)
+# ---------------------------------------------------------------------------
+
+def _node_config(N, nl, dtype, **kw):
+    from msom_tpu_torch.models import qg_node
+    base = dict(N=N, nl=nl, L0=100.0, f0=46.5, beta=0.5, hEkb=1e-3,
+                tau0=1e-3, tau1=5e-4, tf1=2.0, tf2=3.0, dy_ws=0.3, nu=5.0,
+                dh=tuple([1.0 / nl] * nl), N2=tuple([1.0 + l for l in
+                                                     range(nl - 1)]),
+                noise_init=1e-3, bc_fac=0.0, DT=5e-2, CFL=0.2,
+                TOLERANCE=1e-8, dtype=dtype)
+    base.update(kw)
+    return qg_node.NodeQGConfig(**base)
+
+
+NODE_OPTIONS = {
+    "freeslip": {},
+    "noslip_nu4": dict(bc_fac=1.0, nu4=50.0),
+    "pg": dict(inputs=("psi_pg",)),
+    "topo": dict(inputs=("topo",)),
+    "qf3": dict(inputs=("q_forcing_3d",)),
+    "flag_ms": dict(flag_ms=1),
+    "island": dict(inputs=("island",)),
+    "all": dict(bc_fac=1.0, nu4=50.0, flag_ms=1,
+                inputs=("psi_pg", "topo", "q_forcing_3d", "island")),
+}
+
+
+def _node_case(N, nl, dtype, option, device, seed=0):
+    """(cfg, const, q, psi) of one K5 option set with rough fields. The
+    constants are built without flag_ms and the island (either would select
+    the vertex multigrid, which needs N a power of 2) and take them after:
+    K5 reads only the mask and the S2 profile."""
+    from msom_tpu_torch.models import qg_node
+    from msom_tpu_torch.ops import vertex
+    kw = dict(NODE_OPTIONS.get(option, dict(gp_low=4.0)))
+    names = kw.pop("inputs", ())
+    cfg = _node_config(N, nl, dtype, **kw)
+    rng = np.random.default_rng(seed)
+    M = N + 1
+    inputs = {}
+    if "psi_pg" in names:
+        inputs["psi_pg"] = 1e-3 * rng.uniform(-1, 1, (nl, M, M))
+    if "topo" in names:
+        inputs["topo"] = 1e-2 * rng.uniform(-1, 1, (M, M))
+    if "q_forcing_3d" in names:
+        inputs["q_forcing_3d"] = rng.uniform(-1, 1, (nl, M, M))
+    const = qg_node.build_constants(dataclasses.replace(cfg, flag_ms=0),
+                                    device=device, **inputs)
+    tdt = getattr(torch, dtype)
+    if cfg.flag_ms:
+        # S2 = f_var^2 / N2, f_var = f0 + beta (y - L0/2)
+        f_var = cfg.f0 + cfg.beta * (np.arange(M) * cfg.delta - cfg.L0 / 2)
+        prof = torch.as_tensor(f_var[None] ** 2
+                               / np.asarray(cfg.N2)[:, None],
+                               dtype=tdt).to(device)
+        const = dataclasses.replace(
+            const, S2_prof=prof,
+            S2=prof[..., None].expand(nl - 1, M, M).contiguous())
+    if "island" in names:
+        m = const.mask.clone()
+        m[M // 3:M // 3 + 6, M // 2:M // 2 + 7] = 0.0
+        const = dataclasses.replace(const, mask=m)
+    psi = torch.as_tensor(1e-3 * rng.uniform(-1, 1, (nl, M, M)),
+                          dtype=tdt).to(device)
+    psi = vertex.bc_psi(psi)
+    return cfg, const, qg_node.comp_q(cfg, const, psi), psi
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("N,nl,option", [(64, 1, "barotropic")] + [
+    (N, nl, option) for N, nl in ((100, 3), (128, 4))
+    for option in sorted(NODE_OPTIONS)])
+def test_node_kernel_matches_plain_version(cuda, dtype, N, nl, option):
+    """K5 against its plain version with each option set; N = 100 leaves
+    partial tiles (M = 101); nl = 1 is the barotropic form."""
+    from msom_tpu_torch.models import fused_node_rhs, qg_node
+    cfg, const, q, psi = _node_case(N, nl, dtype, option, cuda, N + nl)
+    qf = qg_node.q_forcing_profile(cfg, const.yv[:, 0],
+                                   torch.tensor(0.37, device=cuda,
+                                                dtype=psi.dtype))
+    before = fused_node_rhs.launches
+    dq = fused_node_rhs.rhs_fused_node(cfg, const, q, psi, qf)
+    torch.cuda.synchronize()
+    assert fused_node_rhs.launches == before + 1
+    ref = fused_node_rhs.rhs_node_reference(cfg, const, q, psi, qf)
+    assert (dq - ref).abs().max() <= LIMITS[psi.dtype] * ref.abs().max()
+
+
+def test_node_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from msom_tpu_torch.models import fused_node_rhs, qg_node
+    cfg, const, q, psi = _node_case(32, 3, "float32", "freeslip", cuda)
+    qf = torch.zeros(33, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        fused_node_rhs.rhs_fused_node(cfg, const, q, psi.half(), qf)
+    with pytest.raises(ValueError, match="qf_profile"):
+        fused_node_rhs.rhs_fused_node(cfg, const, q, psi, qf.double())
+    with pytest.raises(ValueError, match="psi must"):
+        fused_node_rhs.rhs_fused_node(cfg, const, q, psi.transpose(1, 2),
+                                      qf)
+    # an x-varying S2 has no profile: the kernel refuses, rhs_pv runs the
+    # torch ops on the card
+    N2 = 1.0 + np.random.default_rng(0).uniform(0, 1, (2, 33, 33))
+    xconst = qg_node.build_constants(cfg, N2=N2, device=cuda)
+    with pytest.raises(ValueError, match="varies in x"):
+        fused_node_rhs.rhs_fused_node(cfg, xconst, q, psi, qf)
+    before = fused_node_rhs.launches
+    t = torch.zeros((), device=cuda)
+    dq = qg_node.rhs_pv(cfg, xconst, q, psi, t)
+    assert fused_node_rhs.launches == before and dq.is_cuda
+    # nl = 8 in f64 needs more shared memory than a block has
+    big, bconst, bq, bpsi = _node_case(16, 8, "float64", "freeslip", cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_node_rhs.rhs_fused_node(big, bconst, bq, bpsi,
+                                      torch.zeros(17, device=cuda,
+                                                  dtype=torch.float64))
+
+
+def _vlevel(nl, n, dtype, device, seed=0):
+    """The finest vertex level of a coastline-masked grid with an
+    x-varying S2, and two random masked fields."""
+    from msom_tpu_torch.solvers import vmg
+    rng = np.random.default_rng(seed)
+    N = n - 1
+    tdt = getattr(torch, dtype)
+    mask = torch.as_tensor(coastline_mask(N), dtype=tdt).to(device)
+    S2 = None
+    if nl > 1:
+        S2 = torch.as_tensor(1.0 + 0.3 * rng.standard_normal(
+            (nl - 1, n, n)) ** 2, dtype=tdt).to(device)
+    idh0 = np.r_[0.0, rng.uniform(1, 3, nl - 1)]
+    idh1 = np.r_[rng.uniform(1, 3, nl - 1), 0.0]
+    lvl = vmg.build_vlevels(nl=nl, N=N, L0=100.0, S2=S2, idh0=idh0,
+                            idh1=idh1, mask=mask, dtype=tdt,
+                            iRd2_low=0.0 if nl > 1 else 5.0)[0]
+    da, res = (torch.as_tensor(rng.standard_normal((nl, n, n)), dtype=tdt)
+               .to(device) * mask for _ in range(2))
+    return lvl, da, res
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("n,nl", [(3, 1), (5, 2), (9, 3), (17, 4), (65, 3),
+                                  (129, 4), (257, 8)])
+def test_vmg_sweep_matches_plain_version(cuda, dtype, n, nl):
+    """Four K6 sweeps in a row against four plain ones; every n is 2^k + 1,
+    so the last tile is partial."""
+    from msom_tpu_torch.solvers import fused_vmg
+    lvl, da, res = _vlevel(nl, n, dtype, cuda, n + nl)
+    before = fused_vmg.launches
+    k = p = da
+    for _ in range(4):
+        k = fused_vmg.vrb_sweep(k, res, lvl)
+        p = fused_vmg.vrb_sweep_reference(p, res, lvl)
+    torch.cuda.synchronize()
+    assert fused_vmg.launches == before + 4
+    assert k.shape == da.shape and k.data_ptr() != da.data_ptr()
+    assert (k - p).abs().max() <= MG_LIMITS[da.dtype] * p.abs().max()
+
+
+def test_vmg_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from msom_tpu_torch.solvers import fused_vmg
+    lvl, da, res = _vlevel(3, 33, "float32", cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        fused_vmg.vrb_sweep(da.half(), res.half(), lvl)
+    with pytest.raises(ValueError, match="res must"):
+        fused_vmg.vrb_sweep(da, res.transpose(1, 2), lvl)
+    with pytest.raises(ValueError, match="the level takes"):
+        fused_vmg.vrb_sweep(da.double(), res.double(), lvl)
+    with pytest.raises(ValueError, match="the mask"):
+        fused_vmg.vrb_sweep(da, res,
+                            dataclasses.replace(lvl, mask=lvl.mask[:, :32]))
+    big, a9, r9 = _vlevel(9, 17, "float32", cuda)
+    with pytest.raises(ValueError, match="nl = 9"):
+        fused_vmg.vrb_sweep(a9, r9, big)
+
+
+def test_vpoisson_on_the_card_matches_the_cpu(cuda):
+    """A masked solve, f64, 64^2 x 3, tol 1e-8: the same cycles, the
+    solution to 1e-10, every sweep a K6 launch on the card."""
+    from msom_tpu_torch.solvers import fused_vmg, vmg
+    rng = np.random.default_rng(5)
+    nl, N = 3, 64
+    S2 = torch.tensor(1.0 + 0.3 * rng.standard_normal((nl - 1, N + 1,
+                                                       N + 1)) ** 2)
+    mask = torch.tensor(coastline_mask(N))
+    idh0 = np.r_[0.0, rng.uniform(1, 3, nl - 1)]
+    idh1 = np.r_[rng.uniform(1, 3, nl - 1), 0.0]
+    b = torch.tensor(rng.standard_normal((nl, N + 1, N + 1))) * mask
+    out = {}
+    for dev in ("cpu", cuda):
+        levels = vmg.build_vlevels(nl=nl, N=N, L0=100.0, S2=S2.to(dev),
+                                   idh0=idh0, idh1=idh1, mask=mask.to(dev),
+                                   dtype=torch.float64)
+        before = fused_vmg.launches
+        a, st = vmg.vpoisson(torch.zeros_like(b).to(dev), b.to(dev),
+                             levels=levels, idh0=idh0, idh1=idh1,
+                             tolerance=1e-8)
+        out[str(dev)] = (a.cpu(), st, fused_vmg.launches - before)
+    (a_c, st_c, n_c), (a_g, st_g, n_g) = out["cpu"], out["cuda"]
+    assert st_g.iters == st_c.iters > 1 and st_g.resa <= 1e-8
+    assert (a_g - a_c).abs().max() <= 1e-10 * a_c.abs().max()
+    assert n_c == 0 and n_g == st_g.iters * len(levels) * 5
+
+
+@pytest.mark.parametrize("solver", ["auto", "vmg"])
+def test_node_cuda_step_matches_cpu_step(cuda, solver):
+    """10 f64 steps of the 3-layer no-slip deck at 64^2, with the spectral
+    inversion, and with solver="vmg" and the coastline mask (the same
+    V-cycles every step); every tendency a K5 launch on the card."""
+    from msom_tpu_torch.models import fused_node_rhs, qg_node
+    from msom_tpu_torch.solvers import fused_vmg
+    cfg = _node_config(64, 3, "float64", bc_fac=1.0, solver=solver)
+    inputs = dict(mask=coastline_mask(64)) if solver == "vmg" else {}
+    psi0 = 1e-3 * np.random.default_rng(42).uniform(-1, 1, (3, 65, 65))
+    step = qg_node.make_step(cfg)
+    runs = {}
+    for dev in ("cpu", cuda):
+        const = qg_node.build_constants(cfg, device=dev, **inputs)
+        state = qg_node.init_state(cfg, const, psi0=psi0)
+        before = fused_node_rhs.launches, fused_vmg.launches
+        cycles = []
+        for _ in range(10):
+            state, diag = step(state, const, 1e9)
+            cycles.append(diag.mg_iters)
+        runs[str(dev)] = (state, cycles, fused_node_rhs.launches - before[0],
+                          fused_vmg.launches - before[1])
+    (cpu, c_cpu, *n_cpu), (gpu, c_gpu, *n_gpu) = runs["cpu"], runs["cuda"]
+    assert c_gpu == c_cpu and n_cpu == [0, 0] and n_gpu[0] == 20
+    assert (n_gpu[1] > 0) == (solver == "vmg")
+    for name in ("q", "psi"):
+        want = getattr(cpu, name)
+        got = getattr(gpu, name).cpu()
+        assert (got - want).abs().max() <= 1e-10 * want.abs().max(), name
