@@ -16,7 +16,9 @@ order; any failure exits non-zero:
    (pg; pg + flsrv; topo; qforc; energy_conserv; sbc = 1) and with all of
    them, and the fused tracer tendency (K2) with 1 and 2 tracers, with and
    without a relaxation field, each at N = 256 with nl = 1, 3, 4, at
-   N = 100 (partial tiles) and at 2048^2 x 4; the fused spectral solve (K7)
+   N = 100 and 257 (partial strips; at 257 the last strip is one row), at
+   N = 48 (one strip holds all four walls) and at 2048^2 x 4; the fused
+   spectral solve (K7)
    at N = 128, 512, 1024 with nl = 1, 4, in f32 also against the f64 chain
    beside the FP32 cuBLAS chain (K7's 3-pass TF32 error within 4 times the
    FP32 chain's);
@@ -1110,11 +1112,15 @@ def main() -> int:
           f"({', '.join(sorted(logs))})")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            if "entry function" in line:     # the kernel the lines below are
+                line = line.split("'")[1]    # of, as its mangled name
+            elif "registers" not in line and "spill" not in line:
+                continue
+            print(f"  {name}: {line.strip()}")
 
     # 2. each kernel against its plain version on the card
-    sizes = [(256, 1), (256, 3), (256, 4), (100, 3), (2048, 4)]
+    sizes = [(256, 1), (256, 3), (256, 4), (100, 3), (257, 4), (48, 3),
+             (2048, 4)]
     main_err = {}
     ok = True
     for dtype in ("float64", "float32") if wanted("kernels") else ():
@@ -1343,7 +1349,7 @@ def main() -> int:
         print(f"K1 {label} at {N}^2 x {nl} f32: kernel {k_ms:.4f} ms, "
               f"plain {p_ms:.4f} ms, bound {bound:.4f} ms by {by} (bytes "
               f"{nbytes} -> {t_b:.4f} ms, operations {nops} -> {t_o:.4f} "
-              f"ms), library_ms null")
+              f"ms), {t_b / k_ms:.3f} of the byte bound, library_ms null")
         rows.append({
             "name": "fused_rhs", "path": f"{label} {N}^2 x {nl} f32",
             "route": "cuda", "source": fused_rhs.SOURCE,

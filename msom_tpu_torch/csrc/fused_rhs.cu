@@ -25,29 +25,60 @@
 // -J(psi, zeta) and -J(psi_l, psi_l+1) leaves Jc. An absent field is a null
 // pointer, and its terms are skipped.
 //
-// Design. One block computes a TY x TX tile of outputs for all nl layers.
-// psi is staged in shared memory with a 3-cell halo, zeta on a 2-cell halo,
-// tmp = lap zeta on a 1-cell halo, and the biharmonic is formed at the
-// outputs. pp is staged like psi on a 1-cell halo (2 with _LS_RV, whose
-// zetap = lap pp is then staged on a 1-cell halo like tmp). q and topo are
-// read once per bracket straight from device memory through the ring rule
-// (`nb_ring`): they enter one bracket each and need no derived field.
-// Layers couple only through l-1 and l+1, and all nl layers of the tile are
-// held at once (the wrapper refuses an option set whose planes exceed the
-// 227 KB of shared memory a block may use). Each thread owns TY/BY output
-// rows of one column and walks the layers in order, so the interface
-// Jacobian Jc_l is computed once and carried to layer l+1 in a register.
+// Design: one block per column strip, marching down y (the TPU kernel's
+// "full-width row slabs with a halo only at the ends", cut to a strip).
+// A block of TX = 128 threads owns TX output columns and SY = 32 output rows
+// for all nl layers; thread t is column x0 + t. It walks its rows in order
+// and keeps ring buffers of whole rows (all layers of a row together) in
+// shared memory: the inputs psi (and pp, q, topo) on a 4-column x-halo, RP =
+// 9 rows; zeta = lap psi on a 2-column halo, RZ = 7 rows; tmp = lap zeta
+// (and zetap = lap pp) on a 1-column halo, RM = 5 rows. Step s of the march
+// computes zeta row s, tmp (and zetap) row s - 2 and the outputs of row
+// s - 4: each stage reads only rows that an earlier step wrote, so a step
+// has ONE barrier, at its end (two more start the block: after zeroing
+// shared memory and after the first rows). The input rows arrive by
+// cp.async (16-byte chunks where N and the pointers allow, else one element
+// a copy), issued DEPTH = 2 steps before their first use, so the loads of
+// row s + 3 overlap the arithmetic of step s. A strip runs SY + 6 steps and
+// loads SY + 6 input rows: the y-halo is paid at the strip's two ends only
+// ((SY + 6) / SY = 1.19), the x-halo is (TX + 6) / TX = 1.05 (TX + 8 = 1.06
+// with the aligned chunks), and no cell is computed twice inside a strip.
+// A stage's column is its thread's, with no division; the 2-4 halo columns
+// of zeta and tmp go to one lane each of different warps (lap_row). At nl =
+// 4 f32 uncoupled the rings take 46.8 KB and the kernel 128 registers: four
+// blocks (16 warps) an SM, and 1024 strips at N = 2048 fill 132 SMs in
+// 1.94 waves; pp and topo add 24.5 KB (3 blocks an SM, 168 registers).
+// nl = 4, the configurations' depth, is a template case: its layer loops
+// unroll and every ring offset is a constant; the loop over a run-time nl
+// serves the other depths (tools/k1_variants.py times the two, and the
+// other choices above, against each other). Layers: each thread
+// walks the layers of its cell in order and carries the interface Jacobian
+// Jc_l to layer l + 1 in a register. The CFL maxima: a running maximum per
+// thread and layer (in registers with a compile-time nl, else in shared
+// memory), reduced once at the block's end. The per-cell arithmetic (mjac,
+// gamma_at, the Laplacians, the face speeds) does not depend on the march:
+// the kernel and the plain version differ in the order of a few sums only.
+// The scalars are rounded to T on the host.
 //
-// Where it is likely to go wrong, and what the code does:
+// Where it is likely to go wrong, and how the march meets it:
 //  1. Wall ghosts of DERIVED fields: the ghost ring of zeta, tmp and zetap
 //     is a rule applied to the field's own interior (pallas_rhs.py `_yfix`
-//     of zeta, tmp and lap pp), filled after the interior is computed; it
-//     is never recomputed from psi's or pp's ghosts.
+//     of zeta, tmp and lap pp); it is never recomputed from psi's or pp's
+//     ghosts. The thread that computes an interior cell next to a wall
+//     writes that cell's ghosts (ghost row -1 or N, ghost column -1 or N,
+//     the corner) in the same step, from the value it just computed; no
+//     other thread writes a ghost, and no stage reads a row of the step
+//     that writes it. Input ghosts are never fetched: after its own copy of
+//     row 0, N - 1 or of column 0, N - 1 has landed (cp.async.wait_group
+//     makes a thread's own copies visible to it), the thread that copied it
+//     writes the ghost row or column by the Dirichlet rule (topo: Neumann).
 //  2. Corner ghosts compose x after y, so a Dirichlet corner is +interior:
 //     one sign per reflected axis (ops/bc.py `pad`). Topography is Neumann:
 //     sign +1 on both axes.
-//  3. Cells beyond the first ghost ring are set to zero and never feed an
-//     interior output: each stage reads at most one cell past its region.
+//  3. Cells beyond the first ghost ring (shared memory is zeroed when the
+//     block starts; stale ring rows past the bottom wall are never read)
+//     never feed an interior output: each stage computes interior cells
+//     only and reads at most one cell past them.
 //  4. Wall faces enter umax through psi's ghost ring (corners included),
 //     exactly as max_face_speed_layers evaluates them.
 //  5. The biharmonic stacks two Laplacians on zeta (three on psi): at
@@ -58,41 +89,56 @@
 //     with parent psi for zeta and zeta (slip ghosts included) for tmp,
 //     which is `_views_slip`'s 2c psi and `_lap_ghostvals`' c (zeta - 2c psi);
 //     the CORNER ghosts keep the Dirichlet fill of the field's own interior
-//     (ops/ghost.py `ghosted_slip`).
+//     (ops/ghost.py `ghosted_slip`). The parent's ghost row is in its ring
+//     one step before the child's first row is computed.
 //  7. At nl == 1 the whole advection block is skipped, the pp terms with it,
 //     but not the topography.
+// All of the wall code runs in strips that touch a wall only (a test that
+// is uniform over the block); interior strips run none of it.
 //
 // Bound. At 2048^2 x 4 in f32 the compulsory traffic of the uncoupled
 // tendency is psi in and dq out, 2 * 4 * 2048^2 * 4 B = 134 MB, about 40 us
 // at 3.35 TB/s; pp adds 4 planes and topo 1 (218 MB, about 65 us). The
 // arithmetic is 130 to 240 FP32 operations per cell and layer
 // (fused_rhs.bound_work counts them), 33 to 60 us at 67 TFLOP/s: the two
-// bounds are of the same order. This version stages every plane in shared
-// memory and recomputes the halo rings (zeta on (TY+4)(TX+4), tmp on
-// (TY+2)(TX+2) cells per TY*TX outputs); it is written to be right, and its
-// distance from the bound is measured by chip_smoke.py.
+// bounds are of the same order. What this design spends beyond them is
+// instruction issue: an output-layer takes about 100 FP32 instructions, 37
+// loads from shared memory and the stages below it 12 more, with the
+// address and loop work beside them, at 16 warps an SM. chip_smoke.py
+// measures the distance from the bound.
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int TX = 32, TY = 32;          // outputs per block
-constexpr int BX = 32, BY = 8;           // threads per block
-constexpr int RPT = TY / BY;             // output rows per thread
-constexpr int NTH = BX * BY;
+constexpr int TX = 128;                  // output columns of a strip
+constexpr int NTH = TX;                  // threads: one a column
+constexpr int SY = 32;                   // output rows of a strip
 constexpr int MAXL = 16;                 // most layers the kernel takes
-constexpr int PW = TX + 6, PH = TY + 6;  // psi, 3-cell halo
-constexpr int ZW = TX + 4, ZH = TY + 4;  // zeta, 2-cell halo
-constexpr int MW = TX + 2, MH = TY + 2;  // tmp = lap zeta, 1-cell halo
-constexpr int PSZ = PW * PH, ZSZ = ZW * ZH, MSZ = MW * MH;
+constexpr int DEPTH = 2;                 // steps an input row is issued early
+// Input ring rows. At step s the stages read rows s - 5 .. s + 1, rows up
+// to s + 1 + DEPTH are in flight, and the ghost row N is written with row
+// N - 1 at the end of step N - 3: all of them need slots of their own.
+constexpr int RP = DEPTH + 7 > 9 ? DEPTH + 7 : 9;
+constexpr int RZ = 7;                    // zeta ring rows
+constexpr int RM = 5;                    // tmp and zetap ring rows
+constexpr int XH = 4;                    // input x-halo (3 used, 16-B chunks)
+constexpr int PW = TX + 2 * XH;          // input ring row: col c = x0 - 4 + c
+constexpr int ZW = TX + 4;               // zeta ring row:  col c = x0 - 2 + c
+constexpr int MW = TX + 2;               // tmp ring row:   col c = x0 - 1 + c
 
 // Order of the device pointers handed to the C entry points.
 enum Ptr { PSI, STRL, WIND, DQ, UMAX, PP, Q, TOPO, IRO, QFORC, NPTRS };
 
+// The scalars of a launch, rounded to T once on the host, and flags for
+// the terms that are on.
+template <typename T>
 struct Params {
-  int N, nl;
-  double delta, beta, iRe, iRe4, ek_top, ek_bot, cslip;
-  double idh0[MAXL], idh1[MAXL];
+  int N, nl, flsrv, vec, has_re, has_re4, has_ekt, has_ekb;
+  T id2, i12d2, i2d, beta, iRe, iRe4, ek_top, ek_bot, cslip;
+  T idh0[MAXL], idh1[MAXL];
 };
 
 template <typename T>
@@ -101,110 +147,96 @@ struct Fields {
   T *dq, *umax_part;
 };
 
-// pp's halo: 2 cells when zetap = lap pp is formed from it, else 1.
-constexpr int pp_halo(int flsrv) { return flsrv ? 2 : 1; }
-
-size_t smem_bytes(int nl, int itemsize, int has_pg, int flsrv) {
-  size_t cells = (size_t)nl * (PSZ + ZSZ + MSZ) + (NTH / 32) * nl;
-  if (has_pg) {
-    const int hp = pp_halo(flsrv);
-    cells += (size_t)nl * (TX + 2 * hp) * (TY + 2 * hp);
-    if (flsrv) cells += (size_t)nl * MSZ;
-  }
-  return (size_t)itemsize * cells;
+// Shared memory of one block, in elements: the input rings first (their
+// rows are 16-byte aligned for cp.async), then the derived rings and the
+// per-thread CFL maxima.
+size_t smem_cells(int nl, int has_pg, int flsrv, int has_q, int has_topo) {
+  const size_t in_planes = (size_t)nl * (1 + (has_pg ? 1 : 0) + (has_q ? 1 : 0))
+                         + (has_topo ? 1 : 0);
+  return in_planes * RP * PW + (size_t)nl * RZ * ZW
+       + (size_t)nl * RM * MW * (flsrv ? 2 : 1) + (size_t)nl * NTH;
 }
 
-// Reflect a first-ring ghost index onto the interior: returns the interior
-// index and multiplies `s` by `sign` once per reflected axis (Dirichlet,
-// sign -1: ghost = -interior, corners +interior; Neumann, sign +1).
-template <typename T>
-__device__ __forceinline__ int reflect(int g, int N, T& s, T sign) {
-  if (g < 0) { s *= sign; return 0; }
-  if (g >= N) { s *= sign; return N - 1; }
-  return g;
-}
-
-__device__ __forceinline__ bool in_ring(int g, int N) {
-  return g >= -1 && g <= N;
+__device__ __forceinline__ int slot(int r, int R) {
+  return (r + 4 * R) % R;    // rows from -3 on
 }
 
 __device__ __forceinline__ bool interior(int g, int N) {
   return g >= 0 && g < N;
 }
 
-// The plane sizes of the staging helpers are template parameters: their
-// index arithmetic divides by them for every staged cell, and a division by
-// a run-time value costs an order of magnitude more than one by a constant.
+// Asynchronous copies into shared memory (cp.async, sm_80 and later).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                 :: "r"(d), "l"(src), "n"(BYTES) : "memory");
+}
 
-// Stage an input field (nl, N, N) into shared memory as (nl, h, w) planes
-// whose cell (0, 0) is global (gy0, gx0): interior cells as they are, the
-// first ghost ring from the Dirichlet rule, zero beyond it (hazard 3).
-template <typename T, int h, int w>
-__device__ __forceinline__ void stage_input(T* dst, const T* __restrict__ src,
-                                            int nl, int gy0, int gx0, int N,
-                                            int tid) {
-  constexpr int plane = h * w;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
+}
+
+// Issue the copies of input row r (interior cells only) of a field of np
+// planes into its ring: V elements a copy, V = 16 B / sizeof(T) where N and
+// the pointers allow, else 1. A chunk lies wholly inside or outside the
+// grid, since x0 - XH and N are multiples of V.
+template <typename T, int V>
+__device__ __forceinline__ void issue_row(T* ring, const T* __restrict__ src,
+                                          int np, int r, int x0, int N,
+                                          int tid) {
+  constexpr int CW = PW / V;
   const size_t NN = (size_t)N * N;
-  for (int k = tid; k < nl * plane; k += NTH) {
-    const int l = k / plane, r = k % plane, iy = r / w, ix = r % w;
-    const int gy = gy0 + iy, gx = gx0 + ix;
-    T v = T(0);
-    if (in_ring(gy, N) && in_ring(gx, N)) {
-      T s = T(1);
-      const int ry = reflect(gy, N, s, T(-1)), rx = reflect(gx, N, s, T(-1));
-      v = s * src[l * NN + (size_t)ry * N + rx];
-    }
-    dst[k] = v;
+  T* dst = ring + slot(r, RP) * np * PW;
+  const T* s = src + (size_t)r * N;
+  for (int k = tid; k < np * CW; k += NTH) {
+    const int l = k / CW, j = k - l * CW, gx = x0 - XH + j * V;
+    if (gx >= 0 && gx < N)
+      cp_async<int(V * sizeof(T))>(dst + l * PW + j * V, s + l * NN + gx);
   }
 }
 
-// f = lap(parent) at the interior cells of f's (nl, h, w) planes; parent's
-// planes are (h + 2) x (w + 2) and hold one more halo cell on every side.
-template <typename T, int h, int w>
-__device__ __forceinline__ void stage_laplacian(T* f, const T* parent, int nl,
-                                                int gy0, int gx0, int N,
-                                                int tid, T id2) {
-  constexpr int plane = h * w, pw = w + 2, pplane = (h + 2) * pw;
-  for (int k = tid; k < nl * plane; k += NTH) {
-    const int l = k / plane, r = k % plane, iy = r / w, ix = r % w;
-    if (interior(gy0 + iy, N) && interior(gx0 + ix, N)) {
-      const T* c = parent + l * pplane + (iy + 1) * pw + ix + 1;
-      f[k] = (c[1] + c[-1] + c[pw] + c[-pw] - T(4) * c[0]) * id2;
-    }
-  }
-}
-
-// Ghost ring of a derived field held in shared memory as (nl, h, w) planes
-// whose cell (0, 0) is global (gy0, gx0): the Dirichlet rule on the field's
-// own interior values (hazards 1 and 2); with cslip != 0 the edge ghosts
-// (one axis outside) are cslip * (parent_interior - parent_ghost) instead
-// (hazard 6), parent being the (h + 2) x (w + 2) planes the field is the
-// Laplacian of, their own ring already filled. Cells beyond the ring are
-// zeroed (hazard 3). Reads only interior cells of f and writes only
-// non-interior ones.
-template <typename T, int h, int w>
-__device__ __forceinline__ void fill_ghosts(T* f, int nl, int gy0, int gx0,
-                                            int N, int tid, const T* parent,
-                                            T cslip) {
-  constexpr int plane = h * w, pw = w + 2, pplane = (h + 2) * pw;
-  for (int k = tid; k < nl * plane; k += NTH) {
-    const int l = k / plane, r = k % plane, iy = r / w, ix = r % w;
-    const int gy = gy0 + iy, gx = gx0 + ix;
-    if (interior(gy, N) && interior(gx, N)) continue;
-    T v = T(0);
-    if (in_ring(gy, N) && in_ring(gx, N)) {
-      T s = T(1);
-      const int ry = reflect(gy, N, s, T(-1)), rx = reflect(gx, N, s, T(-1));
-      const int ky = iy + ry - gy, kx = ix + rx - gx;   // reflected cell
-      const bool edge = ry == gy || rx == gx;           // else a corner
-      if (cslip != T(0) && edge) {
-        const T* pl = parent + l * pplane;
-        v = cslip * (pl[(ky + 1) * pw + kx + 1] - pl[(iy + 1) * pw + ix + 1]);
-      } else {
-        v = s * f[k - r + ky * w + kx];
+// The ghosts that this thread's own copies of input row r feed (hazards 1,
+// 2): ghost row -1 from row 0, ghost row N from row N - 1, ghost columns
+// -1 and N, and the corners; `sign` -1 (Dirichlet) or +1 (Neumann). Runs
+// after the thread's wait on row r, before the barrier that publishes it.
+template <typename T, int V>
+__device__ __forceinline__ void fix_row(T* ring, int np, int r, int x0,
+                                        int N, int tid, T sign) {
+  constexpr int CW = PW / V;
+  const bool top = r == 0, bot = r == N - 1;
+  T* row = ring + slot(r, RP) * np * PW;
+  T* up = ring + slot(r - 1, RP) * np * PW;
+  T* dn = ring + slot(r + 1, RP) * np * PW;
+  for (int k = tid; k < np * CW; k += NTH) {
+    const int l = k / CW, j = k - l * CW, gx0 = x0 - XH + j * V;
+    if (gx0 < 0 || gx0 >= N) continue;
+    if (!top && !bot && gx0 > 0 && gx0 + V < N) continue;   // no wall cell
+    for (int e = 0; e < V; ++e) {
+      const int c = l * PW + j * V + e, gx = gx0 + e;
+      const T v = row[c];
+      if (top) up[c] = sign * v;
+      if (bot) dn[c] = sign * v;
+      if (gx == 0 && j * V + e > 0) {
+        row[c - 1] = sign * v;
+        if (top) up[c - 1] = v;
+        if (bot) dn[c - 1] = v;
+      }
+      if (gx == N - 1 && j * V + e + 1 < PW) {
+        row[c + 1] = sign * v;
+        if (top) up[c + 1] = v;
+        if (bot) dn[c + 1] = v;
       }
     }
-    f[k] = v;
   }
 }
 
@@ -214,37 +246,11 @@ struct Nb {
   T e, w, n, s, ne, nw, se, sw;
 };
 
-// Neighbours of the cell p points at in a shared-memory plane of row
-// stride wp.
+// Neighbours of the cell c points at; m and p point at the same column of
+// the rows below (y - 1) and above (y + 1).
 template <typename T>
-__device__ __forceinline__ Nb<T> nb_at(const T* p, int wp) {
-  return {p[1],      p[-1],     p[wp],      p[-wp],
-          p[wp + 1], p[wp - 1], p[-wp + 1], p[-wp - 1]};
-}
-
-// One value of an (N, N) field in device memory, first ghost ring included:
-// ghost = sign * interior per reflected axis. Indices further out clamp to
-// the wall cell; only masked threads of a partial tile reach them.
-template <typename T>
-__device__ __forceinline__ T ring_read(const T* __restrict__ f, int gy, int gx,
-                                       int N, T sign) {
-  T s = T(1);
-  const int ry = reflect(gy, N, s, sign), rx = reflect(gx, N, s, sign);
-  return s * f[(size_t)ry * N + rx];
-}
-
-// Neighbours of cell (gy, gx) of an (N, N) field read from device memory.
-template <typename T>
-__device__ __forceinline__ Nb<T> nb_ring(const T* __restrict__ f, int gy,
-                                         int gx, int N, T sign) {
-  return {ring_read(f, gy, gx + 1, N, sign),
-          ring_read(f, gy, gx - 1, N, sign),
-          ring_read(f, gy + 1, gx, N, sign),
-          ring_read(f, gy - 1, gx, N, sign),
-          ring_read(f, gy + 1, gx + 1, N, sign),
-          ring_read(f, gy + 1, gx - 1, N, sign),
-          ring_read(f, gy - 1, gx + 1, N, sign),
-          ring_read(f, gy - 1, gx - 1, N, sign)};
+__device__ __forceinline__ Nb<T> nb3(const T* m, const T* c, const T* p) {
+  return {c[1], c[-1], p[0], m[0], p[1], p[-1], m[1], m[-1]};
 }
 
 // -J(p, q), the 12-point Arakawa bracket (ops/ghost.arakawa_mjac_g).
@@ -258,174 +264,342 @@ __device__ __forceinline__ T mjac(const Nb<T>& p, const Nb<T>& q, T i12d2) {
   return j * i12d2;
 }
 
+// The 5-point Laplacian of the cell c points at, rows m below and p above.
 template <typename T>
-__device__ __forceinline__ T lap5(const T* f, int w, T id2) {
-  return (f[1] + f[-1] + f[w] + f[-w] - T(4) * f[0]) * id2;
+__device__ __forceinline__ T lap3(const T* m, const T* c, const T* p, T id2) {
+  return (c[1] + c[-1] + p[0] + m[0] - T(4) * c[0]) * id2;
 }
 
-// Gamma(a)[l] at one cell; a points at layer l's cell, layers `plane` apart.
+// Gamma(a)[l] at one cell; a points at layer l's cell, layers `plane` apart;
+// s0 and s1 the stretching profiles of the interfaces above and below.
 template <typename T>
 __device__ __forceinline__ T gamma_at(const T* a, int plane, int l, int nl,
-                                      const T* s, int N, int gy,
-                                      const Params& p) {
+                                      T s0, T s1, const Params<T>& p) {
   T g = T(0);
-  if (l > 0) g += T(p.idh0[l]) * (s[(l - 1) * N + gy] * (a[-plane] - a[0]));
-  if (l < nl - 1) g += T(p.idh1[l]) * (s[l * N + gy] * (a[plane] - a[0]));
+  if (l > 0) g += p.idh0[l] * (s0 * (a[-plane] - a[0]));
+  if (l < nl - 1) g += p.idh1[l] * (s1 * (a[plane] - a[0]));
   return g;
+}
+
+// One cell (gy, column c of f's ring row) of f = lap(parent), all nl
+// layers, if it is interior. f's ring rows are W wide with column c at
+// x0 - h + c; the parent's rows (ring R_PAR, width PWP) hold column c of f
+// at c + (hp - h), hp being the parent's halo. In a wall strip (`edge`) the
+// thread of a cell next to a wall also writes that cell's ghosts: the
+// Dirichlet rule on f's own value (hazard 1), corners +value (hazard 2),
+// with cslip != 0 the edge ghosts cslip * (parent interior - parent ghost)
+// instead (hazard 6). With nl a compile-time NL every layer's loads come
+// before the first store, which a store through a generic pointer would
+// otherwise hold back.
+template <typename T, int NL, int W, int R, int h, int PWP, int R_PAR, int hp>
+__device__ __forceinline__ void lap_cell(T* f, const T* par, int gy, int c,
+                                         int x0, int nl, int N, bool edge,
+                                         T id2, T cslip) {
+  constexpr int off = hp - h;
+  const int gx = x0 - h + c;
+  if (!interior(gx, N)) return;
+  const T* pm = par + slot(gy - 1, R_PAR) * nl * PWP;
+  const T* p0 = par + slot(gy, R_PAR) * nl * PWP;
+  const T* pp = par + slot(gy + 1, R_PAR) * nl * PWP;
+  T* f0 = f + slot(gy, R) * nl * W;
+  if constexpr (NL > 0) {
+    T v[NL];
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      const int a = l * PWP + c + off;
+      v[l] = lap3(pm + a, p0 + a, pp + a, id2);
+    }
+#pragma unroll
+    for (int l = 0; l < NL; ++l) f0[l * W + c] = v[l];
+  } else {
+    for (int l = 0; l < nl; ++l) {
+      const int a = l * PWP + c + off;
+      f0[l * W + c] = lap3(pm + a, p0 + a, pp + a, id2);
+    }
+  }
+  const bool top = gy == 0, bot = gy == N - 1;
+  if (!(edge && (top || bot || gx == 0 || gx == N - 1))) return;
+  // the ghosts of a cell next to a wall, from the values just written
+  T* fu = f + slot(gy - 1, R) * nl * W;
+  T* fd = f + slot(gy + 1, R) * nl * W;
+  const bool lft = gx == 0, rgt = gx == N - 1 && c + 1 < W;
+  for (int l = 0; l < nl; ++l) {
+    const int a = l * PWP + c + off, b = l * W + c;
+    const T v = f0[b];
+    if (top) fu[b] = cslip != T(0) ? cslip * (p0[a] - pm[a]) : -v;
+    if (bot) fd[b] = cslip != T(0) ? cslip * (p0[a] - pp[a]) : -v;
+    if (lft) {
+      f0[b - 1] = cslip != T(0) ? cslip * (p0[a] - p0[a - 1]) : -v;
+      if (top) fu[b - 1] = v;
+      if (bot) fd[b - 1] = v;
+    }
+    if (rgt) {
+      f0[b + 1] = cslip != T(0) ? cslip * (p0[a] - p0[a + 1]) : -v;
+      if (top) fu[b + 1] = v;
+      if (bot) fd[b + 1] = v;
+    }
+  }
+}
+
+// Row gy of f = lap(parent) (see lap_cell). Thread t takes column x0 + t,
+// the one of its output; the 2h halo columns go to the last lane of warps
+// 0 .. 2h - 1, so that no warp takes two of them, and in a strip at an
+// x-wall the wall cell's ghosts fall to the first or the last warp alone.
+template <typename T, int NL, int W, int R, int h, int PWP, int R_PAR, int hp>
+__device__ __forceinline__ void lap_row(T* f, const T* par, int gy, int x0,
+                                        int nl, int N, bool edge, T id2,
+                                        T cslip, int tid) {
+  static_assert(W == NTH + 2 * h && 2 * h <= NTH / 32, "halo lanes");
+  lap_cell<T, NL, W, R, h, PWP, R_PAR, hp>(f, par, gy, tid + h, x0, nl, N,
+                                           edge, id2, cslip);
+  const int e = tid >> 5;
+  if ((tid & 31) == 31 && e < 2 * h)
+    lap_cell<T, NL, W, R, h, PWP, R_PAR, hp>(f, par, gy, e < h ? e : NTH + e,
+                                             x0, nl, N, edge, id2, cslip);
 }
 
 // COUPLED = false is the uncoupled free-slip tendency: every coupling term
 // below is compiled out, which keeps that launch at its registers and its
 // speed. COUPLED = true takes the options at run time from the null
-// pointers of F and from p.cslip; HP is pp's halo (pp_halo), 2 with _LS_RV.
-// The coupled f32 kernel is held to two blocks an SM (128 registers): left
-// alone it takes 208 registers, one block an SM, and waits on latency.
-template <typename T, bool COUPLED, int HP>
-__global__ void __launch_bounds__(NTH, (COUPLED && sizeof(T) == 4) ? 2 : 1)
-rhs_kernel(const Fields<T> F, const Params p) {
-  extern __shared__ unsigned char smem_raw[];
-  const int N = p.N, nl = p.nl;
+// pointers of F and from p.cslip and p.flsrv.
+template <typename T, bool COUPLED, int NL>
+__global__ void __launch_bounds__(NTH, COUPLED ? 3 : 4)
+rhs_kernel(const Fields<T> F, const Params<T> p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int N = p.N, nl = NL > 0 ? NL : p.nl;
   const bool has_pg = COUPLED && F.pp != nullptr;
-  const bool flsrv = COUPLED && HP == 2;
+  const bool flsrv = COUPLED && p.flsrv != 0;
   const bool has_q = COUPLED && F.q != nullptr;
-  constexpr int QH = TY + 2 * HP, QW = TX + 2 * HP, QSZ = QW * QH;  // pp
-  T* sp = reinterpret_cast<T*>(smem_raw);  // psi   (nl, PH, PW)
-  T* sz = sp + nl * PSZ;                   // zeta  (nl, ZH, ZW)
-  T* sm = sz + nl * ZSZ;                   // tmp   (nl, MH, MW)
-  T* sred = sm + nl * MSZ;                 // (NTH/32, nl) warp maxima
-  T* spp = sred + (NTH / 32) * nl;         // pp    (nl, QH, QW)
-  T* szp = spp + (has_pg ? nl * QSZ : 0);  // zetap (nl, MH, MW)
+  const bool has_topo = COUPLED && F.topo != nullptr;
+  T* sp = reinterpret_cast<T*>(smem_raw);          // psi   (RP, nl, PW)
+  T* spp = sp + RP * nl * PW;                       // pp    (RP, nl, PW)
+  T* sq = spp + (has_pg ? RP * nl * PW : 0);        // q     (RP, nl, PW)
+  T* st = sq + (has_q ? RP * nl * PW : 0);          // topo  (RP, 1, PW)
+  T* sz = st + (has_topo ? RP * PW : 0);            // zeta  (RZ, nl, ZW)
+  T* sm = sz + RZ * nl * ZW;                        // tmp   (RM, nl, MW)
+  T* szp = sm + RM * nl * MW;                       // zetap (RM, nl, MW)
+  T* smax = szp + (flsrv ? RM * nl * MW : 0);       // CFL   (nl, NTH)
+  const int ncells = static_cast<int>(smax - sp) + nl * NTH;
 
-  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
-  const int tid = threadIdx.y * BX + threadIdx.x;
+  const int tid = threadIdx.x;
+  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * SY;
+  const int y1 = min(y0 + SY, N);                   // output rows [y0, y1)
   const size_t NN = (size_t)N * N;
-  const T id2 = T(1.0 / (p.delta * p.delta));
-  const T i12d2 = T(1.0 / (12.0 * p.delta * p.delta));
-  const T i2d = T(1.0 / (2.0 * p.delta));
-  const T cslip = COUPLED ? T(p.cslip) : T(0);
+  const T id2 = p.id2, i12d2 = p.i12d2, i2d = p.i2d;
+  const T cslip = COUPLED ? p.cslip : T(0);
+  // a strip whose rings reach a wall's first ghost cell; xwall: an x-wall,
+  // whose ghost columns every input row feeds
+  const bool xwall = x0 <= XH || x0 + TX + XH >= N;
+  const bool edge = xwall || y0 <= 3 || y1 + 3 >= N;
 
-  // 1. psi on a 3-cell halo and pp on its own, first ring by the Dirichlet
-  //    rule
-  stage_input<T, PH, PW>(sp, F.psi, nl, y0 - 3, x0 - 3, N, tid);
-  if (has_pg)
-    stage_input<T, QH, QW>(spp, F.pp, nl, y0 - HP, x0 - HP, N, tid);
+  for (int k = tid; k < ncells; k += NTH) sp[k] = T(0);   // hazard 3
   __syncthreads();
 
-  // 2. zeta = lap psi at the interior cells of its 2-cell halo, then its
-  //    ghost ring (from zeta's own interior; slip edges from psi); zetap =
-  //    lap pp likewise on a 1-cell halo, always by the Dirichlet rule
-  stage_laplacian<T, ZH, ZW>(sz, sp, nl, y0 - 2, x0 - 2, N, tid, id2);
-  if (flsrv)
-    stage_laplacian<T, MH, MW>(szp, spp, nl, y0 - 1, x0 - 1, N, tid, id2);
-  __syncthreads();
-  fill_ghosts<T, ZH, ZW>(sz, nl, y0 - 2, x0 - 2, N, tid, sp, cslip);
-  if (flsrv)
-    fill_ghosts<T, MH, MW>(szp, nl, y0 - 1, x0 - 1, N, tid, spp, T(0));
+  // f(std::integral_constant<int, V>) with this launch's copy width V
+  auto with_v = [&](auto f) {
+    if (p.vec)
+      f(std::integral_constant<int, 16 / sizeof(T)>());
+    else
+      f(std::integral_constant<int, 1>());
+  };
+  // the copies of input row r (the rows [y0 - 3, y1 + 2] that lie in the
+  // grid) and, once they have landed, the ghosts they feed
+  auto load = [&](int r) {
+    if (r < 0 || r >= N || r > y1 + 2) return;
+    with_v([&](auto v) {
+      constexpr int V = decltype(v)::value;
+      issue_row<T, V>(sp, F.psi, nl, r, x0, N, tid);
+      if (has_pg) issue_row<T, V>(spp, F.pp, nl, r, x0, N, tid);
+      if (has_q) issue_row<T, V>(sq, F.q, nl, r, x0, N, tid);
+      if (has_topo) issue_row<T, V>(st, F.topo, 1, r, x0, N, tid);
+    });
+  };
+  auto fix = [&](int r) {
+    if (!(xwall || r == 0 || r == N - 1) || r < 0 || r >= N || r > y1 + 2)
+      return;
+    with_v([&](auto v) {
+      constexpr int V = decltype(v)::value;
+      fix_row<T, V>(sp, nl, r, x0, N, tid, T(-1));
+      if (has_pg) fix_row<T, V>(spp, nl, r, x0, N, tid, T(-1));
+      if (has_q) fix_row<T, V>(sq, nl, r, x0, N, tid, T(-1));
+      if (has_topo) fix_row<T, V>(st, 1, r, x0, N, tid, T(1));
+    });
+  };
+
+  // prologue: rows y0 - 3 .. y0 - 1 (read by the first step) in one group,
+  // then rows y0 .. y0 + DEPTH - 2 a group each; step s then issues row
+  // s + 1 + DEPTH and waits for row s + 2
+  const int s0 = y0 - 2;
+  for (int r = s0 - 1; r <= s0 + 1; ++r) load(r);
+  cp_async_commit();
+  for (int r = s0 + 2; r <= s0 + DEPTH; ++r) {
+    load(r);
+    cp_async_commit();
+  }
+  cp_async_wait<DEPTH - 1>();
+  for (int r = s0 - 1; r <= s0 + 1; ++r) fix(r);
   __syncthreads();
 
-  // 3. tmp = lap zeta on a 1-cell halo, ghost ring from tmp's interior
-  //    (slip edges from zeta)
-  stage_laplacian<T, MH, MW>(sm, sz, nl, y0 - 1, x0 - 1, N, tid, id2);
-  __syncthreads();
-  fill_ghosts<T, MH, MW>(sm, nl, y0 - 1, x0 - 1, N, tid, sz, cslip);
-  __syncthreads();
+  const int gx = x0 + tid;
+  // with a compile-time NL the CFL maxima stay in registers, and a cell's
+  // outputs are stored after all of its loads (see lap_cell)
+  T umx[NL > 0 ? NL : 1];
+  for (int l = 0; l < (NL > 0 ? NL : 1); ++l) umx[l] = T(0);
+  for (int s = s0; s <= y1 + 3; ++s) {
+    load(s + 1 + DEPTH);
+    cp_async_commit();
 
-  // 4. the tendency at the outputs, layer by layer
-  const int ox = threadIdx.x, gx = x0 + ox;
-  T jprev[RPT];   // the interface Jacobian Jc_l-1 at this thread's cells
+    // zeta row s
+    if (s <= y1 + 1 && interior(s, N))
+      lap_row<T, NL, ZW, RZ, 2, PW, RP, XH>(sz, sp, s, x0, nl, N, edge,
+                                            id2, cslip, tid);
+    // tmp (and zetap) row s - 2
+    const int t = s - 2;
+    if (t >= y0 - 1 && t <= y1 && interior(t, N)) {
+      lap_row<T, NL, MW, RM, 1, ZW, RZ, 2>(sm, sz, t, x0, nl, N, edge, id2,
+                                           cslip, tid);
+      if (flsrv)
+        lap_row<T, NL, MW, RM, 1, PW, RP, XH>(szp, spp, t, x0, nl, N, edge,
+                                              id2, T(0), tid);
+    }
+
+    // the outputs of row s - 4, layer by layer
+    const int gy = s - 4;
+    if (gy >= y0 && gy < y1 && gx < N) {
+      const int ip = tid + XH, iz = tid + 2, im = tid + 1;
+      const int kpm = slot(gy - 1, RP) * nl * PW + ip;
+      const int kp0 = slot(gy, RP) * nl * PW + ip;
+      const int kpp = slot(gy + 1, RP) * nl * PW + ip;
+      const T* Zm = sz + slot(gy - 1, RZ) * nl * ZW + iz;
+      const T* Z0 = sz + slot(gy, RZ) * nl * ZW + iz;
+      const T* Zp = sz + slot(gy + 1, RZ) * nl * ZW + iz;
+      const int kmm = slot(gy - 1, RM) * nl * MW + im;
+      const int km0 = slot(gy, RM) * nl * MW + im;
+      const int kmp = slot(gy + 1, RM) * nl * MW + im;
+      const int ktm = slot(gy - 1, RP) * PW + ip;     // topo: one plane
+      const int kt0 = slot(gy, RP) * PW + ip;
+      const int ktp = slot(gy + 1, RP) * PW + ip;
+      T jprev = T(0);   // the interface Jacobian Jc_l-1 at this cell
+      T sprev = T(0);   // the stretching profile of that interface
+      T res[NL > 0 ? NL : 1], spd[NL > 0 ? NL : 1];
 #pragma unroll
-  for (int j = 0; j < RPT; ++j) jprev[j] = T(0);
-
-  for (int l = 0; l < nl; ++l) {
-    T umx = T(0);
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      const int oy = threadIdx.y + BY * j, gy = y0 + oy;
-      const int gyc = gy < N ? gy : N - 1;   // profile row (masked rows)
-      const T* P = sp + l * PSZ + (oy + 3) * PW + ox + 3;
-      const T* Z = sz + l * ZSZ + (oy + 2) * ZW + ox + 2;
-      const T* M = sm + l * MSZ + (oy + 1) * MW + ox + 1;
-      const T* Q = spp + l * QSZ + (oy + HP) * QW + ox + HP;
-      const Nb<T> pn = nb_at(P, PW);
-      T acc = T(0);
-      if (nl > 1) {   // hazard 7
-        const Nb<T> zn = nb_at(Z, ZW);
-        if (has_q)
-          acc = mjac(pn, nb_ring(F.q + l * NN, gy, gx, N, T(-1)), i12d2);
-        else
-          acc = mjac(pn, zn, i12d2);
-        acc += T(p.beta) * (pn.w - pn.e) * i2d;
-        if (has_pg) acc += mjac(nb_at(Q, QW), zn, i12d2);
-        T jnext = T(0);
-        if (l < nl - 1) {
-          const Nb<T> pup = nb_at(P + PSZ, PW);
-          if (has_pg)
-            jnext = mjac(nb_at(Q, QW), pup, i12d2)
-                  + mjac(pn, nb_at(Q + QSZ, QW), i12d2);
-          if (!has_q) jnext += mjac(pn, pup, i12d2);
-          acc += F.strl[l * N + gyc] * jnext * T(p.idh1[l]);
+      for (int l = 0; l < nl; ++l) {
+        const T scur = l < nl - 1 ? F.strl[l * N + gy] : T(0);
+        const int lp = l * PW, lz = l * ZW, lm = l * MW;
+        const Nb<T> pn = nb3(sp + kpm + lp, sp + kp0 + lp, sp + kpp + lp);
+        const T* Z = Z0 + lz;
+        const T* M = sm + km0 + lm;
+        T acc = T(0);
+        if (nl > 1) {   // hazard 7
+          const Nb<T> zn = nb3(Zm + lz, Z, Zp + lz);
+          if (has_q)
+            acc = mjac(pn, nb3(sq + kpm + lp, sq + kp0 + lp, sq + kpp + lp),
+                       i12d2);
+          else
+            acc = mjac(pn, zn, i12d2);
+          acc += p.beta * (pn.w - pn.e) * i2d;
+          Nb<T> qn;
+          if (has_pg) {
+            qn = nb3(spp + kpm + lp, spp + kp0 + lp, spp + kpp + lp);
+            acc += mjac(qn, zn, i12d2);
+          }
+          T jnext = T(0);
+          if (l < nl - 1) {
+            const Nb<T> pup = nb3(sp + kpm + lp + PW, sp + kp0 + lp + PW,
+                                  sp + kpp + lp + PW);
+            if (has_pg)
+              jnext = mjac(qn, pup, i12d2)
+                    + mjac(pn, nb3(spp + kpm + lp + PW, spp + kp0 + lp + PW,
+                                   spp + kpp + lp + PW), i12d2);
+            if (!has_q) jnext += mjac(pn, pup, i12d2);
+            acc += scur * jnext * p.idh1[l];
+          }
+          if (l > 0) acc -= sprev * jprev * p.idh0[l];
+          jprev = jnext;
+          if (flsrv)
+            acc += mjac(pn, nb3(szp + kmm + lm, szp + km0 + lm,
+                                szp + kmp + lm), i12d2);
         }
-        if (l > 0) acc -= F.strl[(l - 1) * N + gyc] * jprev[j] * T(p.idh0[l]);
-        jprev[j] = jnext;
-        if (flsrv)
-          acc += mjac(pn, nb_at(szp + l * MSZ + (oy + 1) * MW + ox + 1, MW),
-                      i12d2);
-      }
-      if (p.iRe != 0.0) {
-        acc += T(p.iRe) * M[0];
-        if (nl > 1)
-          acc += T(p.iRe) * gamma_at(Z, ZSZ, l, nl, F.strl, N, gyc, p);
-      }
-      if (p.iRe4 != 0.0) {
-        T bih = lap5(M, MW, id2);
-        if (nl > 1) bih += gamma_at(M, MSZ, l, nl, F.strl, N, gyc, p);
-        acc += T(p.iRe4) * bih;
-      }
-      if (l == 0 && p.ek_top != 0.0) acc -= T(p.ek_top) * Z[0];
-      if (l == nl - 1 && p.ek_bot != 0.0) acc -= T(p.ek_bot) * Z[0];
-      if (l == 0) acc -= F.wind[gyc];
-      if (COUPLED && F.topo != nullptr && l == nl - 1)
-        acc += mjac(pn, nb_ring(F.topo, gy, gx, N, T(1)), i12d2) * F.iro[gyc];
+        if (p.has_re) {
+          acc += p.iRe * M[0];
+          if (nl > 1) acc += p.iRe * gamma_at(Z, ZW, l, nl, sprev, scur, p);
+        }
+        if (p.has_re4) {
+          T bih = lap3(sm + kmm + lm, M, sm + kmp + lm, id2);
+          if (nl > 1) bih += gamma_at(M, MW, l, nl, sprev, scur, p);
+          acc += p.iRe4 * bih;
+        }
+        if (l == 0 && p.has_ekt) acc -= p.ek_top * Z[0];
+        if (l == nl - 1 && p.has_ekb) acc -= p.ek_bot * Z[0];
+        if (l == 0) acc -= F.wind[gy];
+        if (has_topo && l == nl - 1)
+          acc += mjac(pn, nb3(st + ktm, st + kt0, st + ktp), i12d2)
+                 * F.iro[gy];
 
-      // the four faces of this cell (hazard 4: wall faces via the ghosts)
-      const T uc = -(pn.n - pn.s) * i2d;
-      const T ucW = -(pn.nw - pn.sw) * i2d;
-      const T ucE = -(pn.ne - pn.se) * i2d;
-      const T vc = (pn.e - pn.w) * i2d;
-      const T vcS = (pn.se - pn.sw) * i2d;
-      const T vcN = (pn.ne - pn.nw) * i2d;
-      const T speed = fmax(fmax(fabs(T(0.5) * (uc + ucW)),
-                                fabs(T(0.5) * (uc + ucE))),
-                           fmax(fabs(T(0.5) * (vc + vcS)),
-                                fabs(T(0.5) * (vc + vcN))));
-      if (gy < N && gx < N) {
+        // the four faces of this cell (hazard 4: wall faces via the ghosts)
+        const T uc = -(pn.n - pn.s) * i2d;
+        const T ucW = -(pn.nw - pn.sw) * i2d;
+        const T ucE = -(pn.ne - pn.se) * i2d;
+        const T vc = (pn.e - pn.w) * i2d;
+        const T vcS = (pn.se - pn.sw) * i2d;
+        const T vcN = (pn.ne - pn.nw) * i2d;
+        const T speed = fmax(fmax(fabs(T(0.5) * (uc + ucW)),
+                                  fabs(T(0.5) * (uc + ucE))),
+                             fmax(fabs(T(0.5) * (vc + vcS)),
+                                  fabs(T(0.5) * (vc + vcN))));
         const size_t o = l * NN + (size_t)gy * N + gx;
         if (COUPLED && F.qforc != nullptr) acc += F.qforc[o];
-        F.dq[o] = acc;
-        umx = fmax(umx, speed);
+        if constexpr (NL > 0) {
+          res[l] = acc;
+          spd[l] = speed;
+        } else {
+          F.dq[o] = acc;
+          smax[l * NTH + tid] = fmax(smax[l * NTH + tid], speed);
+        }
+        sprev = scur;
+      }
+      if constexpr (NL > 0) {
+#pragma unroll
+        for (int l = 0; l < NL; ++l) {
+          F.dq[l * NN + (size_t)gy * N + gx] = res[l];
+          umx[l] = fmax(umx[l], spd[l]);
+        }
       }
     }
-    for (int o = 16; o > 0; o >>= 1)
-      umx = fmax(umx, __shfl_xor_sync(0xffffffffu, umx, o));
-    if ((tid & 31) == 0) sred[(tid >> 5) * nl + l] = umx;
+
+    // row s + 2, read from the next step on, has landed: its ghosts, then
+    // the step's one barrier
+    cp_async_wait<DEPTH - 1>();
+    fix(s + 2);
+    __syncthreads();
   }
-  __syncthreads();
+  cp_async_wait<0>();
+  if constexpr (NL > 0) {
+#pragma unroll
+    for (int l = 0; l < NL; ++l) smax[l * NTH + tid] = umx[l];
+    __syncthreads();
+  }
+
   if (tid < nl) {
-    T m = sred[tid];
-    for (int w = 1; w < NTH / 32; ++w) m = fmax(m, sred[w * nl + tid]);
+    T m = smax[tid * NTH];
+    for (int i = 1; i < NTH; ++i) m = fmax(m, smax[tid * NTH + i]);
     F.umax_part[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * nl + tid] = m;
   }
 }
 
 template <typename T>
-int run(void (*kernel)(const Fields<T>, const Params), const Fields<T>& F,
-        const Params& p, size_t smem, void* stream) {
+int run(void (*kernel)(const Fields<T>, const Params<T>),
+        const Fields<T>& F, const Params<T>& p, size_t smem, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.N + TX - 1) / TX, (p.N + TY - 1) / TY), block(BX, BY);
+  const dim3 grid((p.N + TX - 1) / TX, (p.N + SY - 1) / SY), block(NTH);
   kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(F, p);
   return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<size_t>(ptr) & 15) == 0;
 }
 
 template <typename T>
@@ -448,39 +622,57 @@ int launch(const void* const* ptrs, int N, int nl, int flsrv,
   F.qforc = static_cast<const T*>(ptrs[QFORC]);
   F.dq = static_cast<T*>(const_cast<void*>(ptrs[DQ]));
   F.umax_part = static_cast<T*>(const_cast<void*>(ptrs[UMAX]));
-  Params p;
+  Params<T> p;
   p.N = N;
   p.nl = nl;
-  p.delta = scal[0];
-  p.beta = scal[1];
-  p.iRe = scal[2];
-  p.iRe4 = scal[3];
-  p.ek_top = scal[4];
-  p.ek_bot = scal[5];
-  p.cslip = scal[6];
+  p.flsrv = flsrv != 0;
+  // 16-byte copies need every input row to start on 16 bytes
+  p.vec = N % (16 / (int)sizeof(T)) == 0 && aligned16(F.psi)
+       && (!F.pp || aligned16(F.pp)) && (!F.q || aligned16(F.q))
+       && (!F.topo || aligned16(F.topo));
+  const double delta = scal[0];
+  p.id2 = T(1.0 / (delta * delta));
+  p.i12d2 = T(1.0 / (12.0 * delta * delta));
+  p.i2d = T(1.0 / (2.0 * delta));
+  p.beta = T(scal[1]);
+  p.iRe = T(scal[2]);
+  p.iRe4 = T(scal[3]);
+  p.ek_top = T(scal[4]);
+  p.ek_bot = T(scal[5]);
+  p.cslip = T(scal[6]);
+  p.has_re = scal[2] != 0.0;
+  p.has_re4 = scal[3] != 0.0;
+  p.has_ekt = scal[4] != 0.0;
+  p.has_ekb = scal[5] != 0.0;
   for (int l = 0; l < MAXL; ++l) {
-    p.idh0[l] = l < nl ? idh0[l] : 0.0;
-    p.idh1[l] = l < nl ? idh1[l] : 0.0;
+    p.idh0[l] = T(l < nl ? idh0[l] : 0.0);
+    p.idh1[l] = T(l < nl ? idh1[l] : 0.0);
   }
-  const bool coupled = F.pp || F.q || F.topo || F.qforc || p.cslip != 0.0;
-  const size_t smem = smem_bytes(nl, sizeof(T), F.pp != nullptr, flsrv);
-  if (!coupled) return run(rhs_kernel<T, false, 1>, F, p, smem, stream);
-  return flsrv ? run(rhs_kernel<T, true, 2>, F, p, smem, stream)
-               : run(rhs_kernel<T, true, 1>, F, p, smem, stream);
+  const bool coupled = F.pp || F.q || F.topo || F.qforc || scal[6] != 0.0;
+  const size_t smem = sizeof(T) * smem_cells(nl, F.pp != nullptr, p.flsrv,
+                                             F.q != nullptr,
+                                             F.topo != nullptr);
+  if (nl == 4)
+    return coupled ? run(rhs_kernel<T, true, 4>, F, p, smem, stream)
+                   : run(rhs_kernel<T, false, 4>, F, p, smem, stream);
+  return coupled ? run(rhs_kernel<T, true, 0>, F, p, smem, stream)
+                 : run(rhs_kernel<T, false, 0>, F, p, smem, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of (TY x TX) tiles, the rows of `umax_part`.
+// Number of strips (TX columns by SY rows), the rows of `umax_part`.
 int fused_rhs_num_blocks(int N) {
-  return ((N + TX - 1) / TX) * ((N + TY - 1) / TY);
+  return ((N + TX - 1) / TX) * ((N + SY - 1) / SY);
 }
 
 // Dynamic shared memory of one block, in bytes, for an option set.
-long long fused_rhs_smem_bytes(int nl, int itemsize, int has_pg, int flsrv) {
-  return (long long)smem_bytes(nl, itemsize, has_pg, flsrv);
+long long fused_rhs_smem_bytes(int nl, int itemsize, int has_pg, int flsrv,
+                               int has_q, int has_topo) {
+  return (long long)itemsize
+       * (long long)smem_cells(nl, has_pg, flsrv, has_q, has_topo);
 }
 
 // ptrs = device pointers in the order of `Ptr` (psi, strl, wind, dq,

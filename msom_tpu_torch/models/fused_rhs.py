@@ -58,7 +58,7 @@ def _lib():
         fn.restype = ctypes.c_int
     lib.fused_rhs_num_blocks.argtypes = [ctypes.c_int]
     lib.fused_rhs_num_blocks.restype = ctypes.c_int
-    lib.fused_rhs_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.fused_rhs_smem_bytes.argtypes = [ctypes.c_int] * 6
     lib.fused_rhs_smem_bytes.restype = ctypes.c_longlong
     lib.fused_rhs_error_string.argtypes = [ctypes.c_int]
     lib.fused_rhs_error_string.restype = ctypes.c_char_p
@@ -114,7 +114,8 @@ def rhs_fused(cfg, const, psi: torch.Tensor, q: torch.Tensor | None = None):
                              f"{psi.dtype} tensor {shape} on {psi.device}")
     lib = _lib()
     smem = lib.fused_rhs_smem_bytes(nl, psi.element_size(),
-                                    int(pp is not None), int(flsrv))
+                                    int(pp is not None), int(flsrv),
+                                    int(need_q), int(topo is not None))
     if smem > SMEM_LIMIT:
         raise ValueError(f"rhs_fused: nl = {nl} with these options needs "
                          f"{smem} B of shared memory per block, more than "

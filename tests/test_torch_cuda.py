@@ -76,9 +76,13 @@ def _psi(cfg, device, seed):
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("N,nl,Re", [(64, 1, 1000.0), (100, 3, 0.0),
-                                     (128, 4, 1000.0)])
+                                     (128, 4, 1000.0), (48, 3, 1000.0),
+                                     (257, 4, 0.0), (200, 8, 1000.0)])
 def test_kernel_matches_plain_version(cuda, dtype, N, nl, Re):
-    """N = 100 leaves partial tiles at the far walls."""
+    """A strip is 128 columns by 64 rows: N = 100 and 257 leave partial
+    strips at the far walls (at 257 the last strip holds one row), N = 48
+    puts all four walls into one strip; nl = 8 at N = 200 (16-byte
+    copies, two strips across)."""
     cfg = _config(N, nl, dtype, Re)
     const = qg.build_constants(cfg, device=cuda)
     psi = _psi(cfg, cuda, N + nl)
@@ -145,8 +149,14 @@ OPTIONS = {
 }
 
 
-@pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("N,nl", [(64, 1), (100, 3), (128, 4)])
+# nl = 8 in f32 only: in f64 the rings of pp (and of q) need more shared
+# memory than a block may use at nl = 8 (see the refusal test below)
+COUPLED_SIZES = [(dtype, N, nl) for dtype in ("float64", "float32")
+                 for N, nl in ((64, 1), (100, 3), (128, 4), (48, 3),
+                               (257, 4))] + [("float32", 200, 8)]
+
+
+@pytest.mark.parametrize("dtype,N,nl", COUPLED_SIZES)
 @pytest.mark.parametrize("option", sorted(OPTIONS))
 def test_coupled_kernel_matches_plain_version(cuda, dtype, N, nl, option):
     kw, names = OPTIONS[option]
@@ -278,10 +288,10 @@ def test_coupled_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 def test_option_set_that_exceeds_shared_memory_is_refused(cuda):
-    """All layers of a tile are staged at once: pp + _LS_RV at nl = 5 in
-    f64 needs more than the 227 KB a block may use, where the uncoupled
-    kernel still runs."""
-    cfg = _config(64, 5, "float64", flsrv=1)
+    """All layers of a strip's ring rows are held at once: pp + _LS_RV at
+    nl = 7 in f64 needs more than the 227 KB a block may use (nl = 6
+    fits), where the uncoupled kernel still runs."""
+    cfg = _config(64, 7, "float64", flsrv=1)
     psi = _psi(cfg, cuda, 1)
     const = qg.build_constants(cfg, device=cuda, **_fields(cfg, 1, "psipg"))
     with pytest.raises(ValueError, match="shared memory"):
