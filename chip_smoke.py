@@ -56,15 +56,19 @@ order; any failure exits non-zero:
    from the numpy-seeded noise IC, bench.py's 200 spin-up steps, then 40
    steps timed with CUDA events, counting K1's, K3's and K4's launches and
    the V-cycles of every solve; K3 and K4 alone on the final state against
-   their plain versions and bounds; a four-step profile.
+   their plain versions and bounds, K3 by level (launches and device time
+   a step on the timed path, each level's time against its bound); a
+   four-step profile.
 8. the qg-node family (phase name node): hold the nodal tendency (K5)
    against its plain version in f32 and f64 with every option set (bench's
    own no-slip configuration, free slip, no slip with nu4, pg, topo, qf3,
    flag_ms, an island mask, bench's coastline mask, all together) at
-   N = 256 with nl = 3, 4, N = 100 (partial tiles), 2048^2 x 4, and the
-   barotropic form (nl = 1 with gp_low) at N = 256, 100 and 2048; the masked
-   vertex relaxation (K6: five sweeps in one launch, beside five one-sweep
-   launches, bitwise, and the plain version) on a coastline grid with an
+   N = 256 with nl = 3, 4, N = 100 (partial strips), N = 24 (one strip
+   holds all four walls), N = 130 (last strips of three columns and
+   three rows), 2048^2 x 4, and the barotropic form (nl = 1 with gp_low)
+   at N = 256, 100 and 2048; the masked vertex relaxation (K6: five
+   sweeps in one launch, beside five one-sweep launches, bitwise, and the
+   plain version) on a coastline grid with an
    x-varying S2 at nl = 1-4, n = 3, 5, 9, 17, 65, 257, 2049; a whole masked
    vpoisson on the card against the CPU (128^2 x 3 f64, tol 1e-8: same
    cycles, one K6 launch a level and cycle); the node step on the card
@@ -220,6 +224,28 @@ def roofline(nbytes, nops, itemsize):
             else "operations", t_bytes, t_ops)
 
 
+def device_ms(fn, n=20):
+    """Mean device milliseconds of fn() over n calls: the time of the
+    kernels the profiler records, without the host's gaps between them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / n
+
+
+def _device_us(event):
+    us = getattr(event, "self_device_time_total", None)
+    return event.self_cuda_time_total if us is None else us
+
+
 def kernel_profile(label, step_fn, steps, ms_step):
     """Device time by kernel over a profiled window of `steps` steps, and
     the share of the step the device is busy (against the unprofiled
@@ -235,9 +261,7 @@ def kernel_profile(label, step_fn, steps, ms_step):
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
+        us = _device_us(e)
         if us > 0:
             rows.append((us / 1e3 / steps, e.count / steps, e.key))
     rows.sort(reverse=True)
@@ -445,6 +469,7 @@ def mg_path(QGConfig, rows, main_err):
     fused_rhs.launches = fused_tracer.launches = 0
     fused_spectral.launches = 0
     fused_mg.sweep_launches = fused_mg.residual_launches = 0
+    fused_mg.sweep_launches_by_n.clear()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     cycles = []       # V-cycles of every solve of the timed steps
@@ -460,6 +485,7 @@ def mg_path(QGConfig, rows, main_err):
     ms_step = start.elapsed_time(end) / steps
     n_rhs, n_sweep, n_res = (fused_rhs.launches, fused_mg.sweep_launches,
                              fused_mg.residual_launches)
+    sweeps_by_n = dict(fused_mg.sweep_launches_by_n)
     finite = state_ok(state, diag, shape)
     mean_c, max_c = float(np.mean(cycles)), max(cycles)
     print(f"mg path {N}^2 x {nl} f32 solver=mg tol=1e-3 mg_extrap after "
@@ -519,23 +545,39 @@ def mg_path(QGConfig, rows, main_err):
             "launches": n_launch, "max_abs_err": main_err[name], "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None})
-    # the sweeps of one V-cycle over all levels, at their bounds and timed
+    # the sweeps of one V-cycle over all levels, at their bounds and timed,
+    # and K3's launches and device time a step on the timed path by level
     nrelax = 4
     total_bound, per_level = 0.0, []
     for lv in const.levels:
         n = lv.sw.t0.shape[-1]
         z = torch.zeros((nl, n, n), device="cuda")
         kw = dict(d2=lv.delta * lv.delta, **sign)
-        ms = cuda_ms(lambda: fused_mg.rb_line_sweep(z, z, lv.sw, **kw), 50)
-        total_bound += nrelax * roofline(
-            *fused_mg.sweep_bound_work(nl, n, 4), 4)[0]
-        per_level.append((n, ms))
-    print(f"mg_sweep by level, ms a launch: "
-          + ", ".join(f"n={n}: {ms:.4f}" for n, ms in per_level)
+
+        def sweep():
+            fused_mg.rb_line_sweep(z, z, lv.sw, **kw)
+
+        ms = cuda_ms(sweep, 50)
+        bound = roofline(*fused_mg.sweep_bound_work(nl, n, 4), 4)[0]
+        total_bound += nrelax * bound
+        per_level.append((n, ms, device_ms(sweep), bound))
+    print(f"mg_sweep by level, ms a launch back to back: "
+          + ", ".join(f"n={n}: {ms:.4f}" for n, ms, _, _ in per_level)
           + f"; one V-cycle at nrelax {nrelax}: "
-          f"{nrelax * sum(ms for _, ms in per_level):.4f} ms in "
+          f"{nrelax * sum(ms for _, ms, _, _ in per_level):.4f} ms in "
           f"{nrelax * len(per_level)} launches against a summed bound of "
           f"{total_bound:.4f} ms")
+    by_level = [(n, sweeps_by_n.pop(n, 0) / steps, dev, bound)
+                for n, _, dev, bound in per_level]
+    print("mg_sweep by level on the timed path (n: launches a step, device "
+          "ms a launch, device ms a step, bound ms a launch, device ms over "
+          "bound): "
+          + ", ".join(f"n={n}: {k:.2f}, {dev:.4f}, {k * dev:.4f}, {b:.5f}, "
+                      f"{dev / b:.1f}" for n, k, dev, b in by_level)
+          + f"; in all {sum(k * dev for _, k, dev, _ in by_level):.4f} "
+          f"device ms a step against a bound of "
+          f"{sum(k * b for _, k, _, b in by_level):.4f}; launches at other "
+          f"widths {sum(sweeps_by_n.values())}")
 
     box = [state]
 
@@ -657,8 +699,8 @@ def fused_mm_path(QGConfig, rows, main_err):
 # bench.py's two node rows at full width
 # ---------------------------------------------------------------------------
 
-NODE_SIZES = [(256, 1), (256, 3), (256, 4), (100, 3), (100, 1), (2048, 4),
-              (2048, 1)]
+NODE_SIZES = [(256, 1), (256, 3), (256, 4), (100, 3), (100, 1), (24, 4),
+              (130, 4), (2048, 4), (2048, 1)]
 VMG_SIZES = [3, 5, 9, 17, 65, 257, 2049]
 
 
@@ -996,7 +1038,7 @@ def node_paths(NodeQGConfig, rows, k5_err, k6_err):
         print(f"K5 {label} at {N}^2 x {nl} f32: kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms, bound {bound:.4f} ms by {by} (bytes {work[0]} "
               f"-> {t_b:.4f} ms, operations {work[1]} -> {t_o:.4f} ms), "
-              f"library_ms null")
+              f"{t_b / k_ms:.3f} of the byte bound, library_ms null")
         rows.append({
             "name": "node_rhs", "path": f"{label} {N}^2 x {nl} f32",
             "route": "cuda", "source": fused_node_rhs.SOURCE,

@@ -10,8 +10,9 @@ mask) and the stratification S2 as an (nl-1, N+1) y-profile. `qf_profile`
 is the (N+1,) y-profile of the time-varying wind (qg_node.q_forcing_profile).
 
 On a CUDA tensor it launches the hand-written Hopper kernel in
-`csrc/node_rhs.cu` (built at first use by `_build`, bound with ctypes) or
-raises. On a CPU tensor it computes the plain PyTorch version
+`csrc/node_rhs.cu` (built at first use by `_build`, bound with ctypes), a
+row-marching strip kernel whose rings of rows fit a block's shared memory
+for every nl up to 8 in both types, or raises. On a CPU tensor it computes the plain PyTorch version
 `rhs_node_reference`, the walled rhs_pv as torch ops, which is also what
 `qg_node.rhs_pv` runs on either device when S2 varies in x (an N2 field
 input). `launches` counts kernel launches.
@@ -112,7 +113,7 @@ def _lib():
         fn.restype = ctypes.c_int
     lib.node_rhs_max_nl.argtypes = []
     lib.node_rhs_max_nl.restype = ctypes.c_int
-    lib.node_rhs_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.node_rhs_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.node_rhs_smem_bytes.restype = ctypes.c_longlong
     lib.node_rhs_error_string.argtypes = [ctypes.c_int]
     lib.node_rhs_error_string.restype = ctypes.c_char_p
@@ -175,10 +176,12 @@ def rhs_fused_node(cfg, const, q: torch.Tensor, psi: torch.Tensor,
     if not 1 <= nl <= lib.node_rhs_max_nl():
         raise ValueError(f"rhs_fused_node: nl = {nl}, the kernel takes 1 to "
                          f"{lib.node_rhs_max_nl()}")
-    smem = lib.node_rhs_smem_bytes(nl, psi.element_size())
+    has_pg, has_topo = (nl > 1 and const.has_pg), (nl > 1 and const.has_topo)
+    smem = lib.node_rhs_smem_bytes(nl, psi.element_size(), has_pg, has_topo)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"rhs_fused_node: nl = {nl} in {psi.dtype} needs "
-                         f"{smem} B of shared memory per block, more than "
+        raise ValueError(f"rhs_fused_node: nl = {nl} in {psi.dtype} with "
+                         f"psi_pg {has_pg}, topo {has_topo} needs {smem} B "
+                         f"of shared memory per block, more than "
                          f"{SMEM_LIMIT}")
     dq = torch.empty_like(psi)
     dh = cfg.dh

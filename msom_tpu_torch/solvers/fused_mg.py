@@ -20,11 +20,12 @@ a CPU tensor each computes its plain PyTorch version
 `residual_norm_reference`: `residual_plain`), which are also what a
 multigrid level without profiles runs on either device
 (`solvers/mg.py`). `sweep_launches` and `residual_launches` count kernel
-launches.
+launches, `sweep_launches_by_n` K3's by level width n.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -40,6 +41,7 @@ SWEEP_SOURCE = "msom_tpu_torch/csrc/mg_sweep.cu"
 RESIDUAL_SOURCE = "msom_tpu_torch/csrc/mg_residual.cu"
 
 sweep_launches = 0
+sweep_launches_by_n: collections.Counter[int] = collections.Counter()
 residual_launches = 0
 
 
@@ -211,6 +213,7 @@ def rb_line_sweep(da: torch.Tensor, res: torch.Tensor, prof: SweepProfiles,
         raise RuntimeError("mg_sweep launch failed: "
                            + lib.mg_sweep_error_string(rc).decode())
     sweep_launches += 1
+    sweep_launches_by_n[n] += 1
     return out
 
 

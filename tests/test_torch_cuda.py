@@ -595,11 +595,15 @@ def _node_case(N, nl, dtype, option, device, seed=0):
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("N,nl,option", [(64, 1, "barotropic")] + [
-    (N, nl, option) for N, nl in ((100, 3), (128, 4))
+    (N, nl, option)
+    for N, nl in ((100, 3), (128, 4), (24, 4), (256, 4), (200, 8))
     for option in sorted(NODE_OPTIONS)])
 def test_node_kernel_matches_plain_version(cuda, dtype, N, nl, option):
-    """K5 against its plain version with each option set; N = 100 leaves
-    partial tiles (M = 101); nl = 1 is the barotropic form."""
+    """K5 against its plain version with each option set at the strips'
+    edges: N = 24 (one strip holds all four walls), N = 100 and 200 (partial
+    last strips), N = 128 and 256 (M = 2^k + 1: the last strip keeps one
+    more column and row, the wall's); nl = 3 and 8 run the loop over a
+    run-time nl, nl = 4 the unrolled case; nl = 1 is the barotropic form."""
     from msom_tpu_torch.models import fused_node_rhs, qg_node
     cfg, const, q, psi = _node_case(N, nl, dtype, option, cuda, N + nl)
     qf = qg_node.q_forcing_profile(cfg, const.yv[:, 0],
@@ -634,9 +638,10 @@ def test_node_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     t = torch.zeros((), device=cuda)
     dq = qg_node.rhs_pv(cfg, xconst, q, psi, t)
     assert fused_node_rhs.launches == before and dq.is_cuda
-    # nl = 8 in f64 needs more shared memory than a block has
-    big, bconst, bq, bpsi = _node_case(16, 8, "float64", "freeslip", cuda)
-    with pytest.raises(ValueError, match="shared memory"):
+    # every nl <= 8 fits in a block's shared memory, in f64 with every
+    # field too; nl = 9 is past the kernel's layers
+    big, bconst, bq, bpsi = _node_case(16, 9, "float64", "freeslip", cuda)
+    with pytest.raises(ValueError, match="kernel takes 1 to 8"):
         fused_node_rhs.rhs_fused_node(big, bconst, bq, bpsi,
                                       torch.zeros(17, device=cuda,
                                                   dtype=torch.float64))

@@ -1,13 +1,17 @@
 """The plain version of the port's fused qg-node tendency (kernel K5,
 msom_tpu_torch.models.fused_node_rhs) against the JAX package's rhs_pv on
-the CPU in float64, for the five cases of tests/test_pallas_node_rhs.py,
-and once against the Pallas kernel in interpret mode; the wrapper's routing
-on a CPU tensor and for an x-varying S2; the bound count.
+the CPU in float64, for the five cases of tests/test_pallas_node_rhs.py and
+two at the CUDA kernel's strip edges (N = 24, where one strip holds all
+four walls; bench.py's curved coastline), and on the coupled case and those
+two against the Pallas kernel in interpret mode; the wrapper's routing on a
+CPU tensor and for an x-varying S2; the bound count.
 
 Tolerance: 1e-12 of max|dq|. The plain version runs the same formulas as
 rhs_pv; the wind is the same expression of t, broadcast from a column
 instead of evaluated on a full grid. Against the Pallas kernel, which sums
 the terms in another order, the same 1e-12 holds."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -52,21 +56,30 @@ def _coupled_inputs(N, nl=3):
         mask=m)
 
 
+def _coast_inputs(N):
+    """bench.py's curved coastline (qg_node.coastline_mask), handed to both
+    packages as numpy."""
+    return dict(mask=tqn.coastline_mask(N))
+
+
+# name: (config overrides, the numpy inputs of build_constants at N)
 CASES = {
-    "freeslip": ({}, False),
-    "noslip_biharmonic": (dict(bc_fac=1.0, nu4=50.0), False),
-    "coupled": (dict(bc_fac=1.0, nu4=50.0, flag_ms=1), True),
-    "barotropic": (dict(nl=1, dh=(1.0,), N2=(1.0,), gp_low=4.0), False),
-    "ragged96": (dict(N=96), False),
+    "freeslip": ({}, None),
+    "noslip_biharmonic": (dict(bc_fac=1.0, nu4=50.0), None),
+    "coupled": (dict(bc_fac=1.0, nu4=50.0, flag_ms=1), _coupled_inputs),
+    "barotropic": (dict(nl=1, dh=(1.0,), N2=(1.0,), gp_low=4.0), None),
+    "ragged96": (dict(N=96), None),
+    "allwalls24": (dict(N=24, bc_fac=1.0, nu4=50.0), None),
+    "coast": ({}, _coast_inputs),
 }
 
 
 def _setup(name):
     """(jcfg, jconst, tcfg, tconst, q, psi) from one numpy psi."""
-    over, coupled = CASES[name]
+    over, make_inputs = CASES[name]
     kw = _kw(**over)
     jcfg, tcfg = jqn.NodeQGConfig(**kw), tqn.NodeQGConfig(**kw)
-    inputs = _coupled_inputs(kw["N"]) if coupled else {}
+    inputs = make_inputs(kw["N"]) if make_inputs else {}
     jconst = jqn.build_constants(jcfg, **inputs)
     tconst = tqn.build_constants(tcfg, device="cpu", **inputs)
     M = kw["N"] + 1
@@ -104,12 +117,32 @@ def test_plain_version_matches_rhs_pv(name):
     _close(tqn.comp_q(tcfg, tconst, torch.tensor(psi)), q, 1e-13)
 
 
-def test_plain_version_matches_pallas_kernel():
+def _with_kernel_data(jcfg, jconst):
+    """jconst with the Pallas kernel's data: the package's own, or, below
+    the smallest grid it picks a tile for (M < 65), data built here with a
+    tile of 8 rows, the smallest the kernel takes (uncoupled cases only)."""
+    if jconst.nrhsk is not None:
+        return jconst
+    assert not (np.any(np.asarray(jconst.psi_pg))
+                or np.any(np.asarray(jconst.topo))
+                or jconst.q_forcing_3d is not None)
+    M, T = jcfg.N + 1, 8
+    s2 = pnk._tile_profile_ragged(np.asarray(jconst.S2)[..., 0], T, pnk._H,
+                                  (M + T - 1) // T)
+    return dataclasses.replace(jconst, nrhsk=pnk.NodeRhsData(
+        S2=jnp.asarray(s2), T=T, has_pg=False, has_topo=False,
+        has_qf3=False))
+
+
+@pytest.mark.parametrize("name", ["allwalls24", "coast", "coupled"])
+def test_plain_version_matches_pallas_kernel(name):
     """Against `_node_kernel` in interpret mode on the coupled case (every
-    option: pg, topo, qf3, flag_ms, an island, no slip, nu4)."""
-    jcfg, jconst, tcfg, tconst, q, psi = _setup("coupled")
-    assert jconst.nrhsk is not None and tconst.S2_prof is not None
-    assert tconst.has_pg and tconst.has_topo
+    option: pg, topo, qf3, flag_ms, an island, no slip, nu4), at N = 24
+    (no slip, nu4) and on bench's coastline."""
+    jcfg, jconst, tcfg, tconst, q, psi = _setup(name)
+    jconst = _with_kernel_data(jcfg, jconst)
+    assert tconst.S2_prof is not None
+    assert tconst.has_pg == tconst.has_topo == (name == "coupled")
     t = jnp.asarray(T_EVAL, jnp.float64)
     qf = jqn.q_forcing_profile(jcfg, jconst.yv[:, 0], t)
     want = pnk.rhs_fused_node(jcfg, jconst, jnp.asarray(q), jnp.asarray(psi),

@@ -44,21 +44,22 @@ VARIANTS = {
 }
 
 
-def build():
-    """{name: library} of every variant, with the nvcc register lines."""
-    src = (ROOT / fused_rhs.SOURCE).read_text()
-    OUT.mkdir(parents=True, exist_ok=True)
+def build(source=fused_rhs.SOURCE, variants=VARIANTS, out=OUT):
+    """{name: library} of every variant of `source` (a path in the repo),
+    built into `out`, with the nvcc register lines."""
+    src = (ROOT / source).read_text()
+    out.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         text = src
         for old, new in subs:
             if old not in text:
                 raise SystemExit(f"{name}: {old!r} is not in the source")
             text = text.replace(old, new)
-        cu = OUT / f"{name}.cu"
+        cu = out / f"{name}.cu"
         cu.write_text(text)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-               str(OUT / f"lib{name}.so"), str(cu)]
+               str(out / f"lib{name}.so"), str(cu)]
         jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)
     libs = {}
@@ -69,16 +70,17 @@ def build():
         regs = [ln.split(":")[-1].strip() for ln in log.splitlines()
                 if "registers" in ln]
         print(f"{name}: {'; '.join(regs)}")
-        libs[name] = ctypes.CDLL(str(OUT / f"lib{name}.so"))
+        libs[name] = ctypes.CDLL(str(out / f"lib{name}.so"))
     return libs
 
 
-def bound(lib):
-    """The wrapper's ctypes declarations made on another library."""
+def bound(lib, module=fused_rhs):
+    """The ctypes declarations of `module`'s wrapper (its cached `_lib`)
+    made on another library."""
     load = _build.load
     _build.load = lambda name: lib
     try:
-        return fused_rhs._lib.__wrapped__()
+        return module._lib.__wrapped__()
     finally:
         _build.load = load
 
