@@ -14,11 +14,12 @@ order; any failure exits non-zero:
 2. hold each kernel against its plain PyTorch version on the card, in f32
    and f64: the fused RHS (K1) uncoupled, with each coupling option alone
    (pg; pg + flsrv; topo; qforc; energy_conserv; sbc = 1) and with all of
-   them, and the fused tracer tendency (K2) with 1 and 2 tracers, with and
+   them, and the fused tracer tendency (K2, a row-marching strip kernel)
+   with 1, 2 and 3 tracers (3: the loop over a run-time count), with and
    without a relaxation field, each at N = 256 with nl = 1, 3, 4, at
-   N = 100 and 257 (partial strips; at 257 the last strip is one row), at
-   N = 48 (one strip holds all four walls) and at 2048^2 x 4; the fused
-   spectral solve (K7)
+   N = 100, 130 and 257 (partial strips; at 257 the last strip is one row
+   and one column, copied one element at a time), at N = 48 (one strip
+   holds all four walls) and at 2048^2 x 4; the fused spectral solve (K7)
    at N = 128, 512, 1024 with nl = 1, 4, in f32 also against the f64 chain
    beside the FP32 cuBLAS chain (K7's 3-pass TF32 error within 4 times the
    FP32 chain's);
@@ -1161,8 +1162,8 @@ def main() -> int:
             print(f"  {name}: {line.strip()}")
 
     # 2. each kernel against its plain version on the card
-    sizes = [(256, 1), (256, 3), (256, 4), (100, 3), (257, 4), (48, 3),
-             (2048, 4)]
+    sizes = [(256, 1), (256, 3), (256, 4), (100, 3), (130, 4), (257, 4),
+             (48, 3), (2048, 4)]
     main_err = {}
     ok = True
     for dtype in ("float64", "float32") if wanted("kernels") else ():
@@ -1197,10 +1198,11 @@ def main() -> int:
                 if dtype == "float32" and (N, nl) == (2048, 4):
                     main_err["fused_rhs", name] = abs_err
                 del dq_k, dq_r
-            # K2: 1 and 2 tracers, with and without a relaxation field
-            for nptr in (1, 2):
-                tcfg = dataclasses.replace(cfg, nptr=nptr, Pe=cfg.Pe[:nptr],
-                                           ptr_r=cfg.ptr_r[:nptr]).validate()
+            # K2: 1, 2 and 3 tracers, with and without a relaxation field
+            for nptr in (1, 2, 3):
+                tcfg = dataclasses.replace(
+                    cfg, nptr=nptr, Pe=(cfg.Pe + (7e2,))[:nptr],
+                    ptr_r=(cfg.ptr_r + (13.0,))[:nptr]).validate()
                 tr = dev(1e-3 * rng.uniform(-1, 1, (nl, nptr, N, N)), dtype)
                 relax = dev(1e-3 * rng.uniform(-1, 1, (nl, nptr, N, N)),
                             dtype)
@@ -1412,12 +1414,14 @@ def main() -> int:
                                                             tr))
             nbytes, nops = fused_tracer.bound_work(cfg, const, 4)
             bound, by, t_b, t_o = roofline(nbytes, nops, 4)
-            print(f"K2 at {N}^2 x {nl} x {cfg.nptr} tracers f32: kernel "
-                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms "
-                  f"by {by} (bytes {nbytes} -> {t_b:.4f} ms, operations "
-                  f"{nops} -> {t_o:.4f} ms), library_ms null")
+            print(f"K2 (row-marching strip) at {N}^2 x {nl} x {cfg.nptr} "
+                  f"tracers f32: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"bound {bound:.4f} ms by {by} (bytes {nbytes} -> "
+                  f"{t_b:.4f} ms, operations {nops} -> {t_o:.4f} ms), "
+                  f"{t_b / k_ms:.3f} of the byte bound, library_ms null")
             rows.append({
                 "name": "fused_tracer", "path": f"{label} {N}^2 x {nl} f32",
+                "design": "row-marching strip",
                 "route": "cuda", "source": fused_tracer.SOURCE,
                 "replaces": "msom_tpu/models/pallas_rhs.py:778",
                 "launches": n_tr, "max_abs_err": main_err["fused_tracer"],

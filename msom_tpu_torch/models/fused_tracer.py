@@ -7,10 +7,11 @@ tracers, dtr = -J(psi_l, c) + iPe_j lap(c) + ir_j (relax - c) (ptr_rhs,
 msqg/qg.h:573-588), with Neumann tracer ghosts and Dirichlet psi ghosts.
 
 On a CUDA tensor it launches the hand-written Hopper kernel in
-`csrc/fused_tracer.cu` (built at first use by `_build`, bound with ctypes)
-or raises. On a CPU tensor it computes the plain PyTorch version,
-`tracer_fused_reference`, the tracer block of `qg.rhs`. `launches` counts
-kernel launches.
+`csrc/fused_tracer.cu`, a strip that marches down y on the grid and
+shared memory that `launch_geometry` gives it (built at first use by
+`_build`, bound with ctypes), or raises. On a CPU tensor it computes the
+plain PyTorch version, `tracer_fused_reference`, the tracer block of
+`qg.rhs`. `launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -26,7 +27,28 @@ from msom_tpu_torch.ops.ghost import ghosted
 
 SOURCE = "msom_tpu_torch/csrc/fused_tracer.cu"
 
+# The strip of csrc/fused_tracer.cu: TX columns (one thread each) by SY rows
+# of one layer, and a ring of RING rows of TX + 2 XH columns for psi_l and
+# each tracer of the layer in shared memory. SY is chosen here; TX, RING and
+# XH are the kernel's, whose launch refuses a geometry that does not fit
+# them.
+TX, SY, RING, XH = 128, 32, 8, 4
+
 launches = 0
+
+
+def strips(n: int, width: int) -> list[tuple[int, int]]:
+    """The [start, stop) ranges of the strips that cover 0 .. n - 1: all
+    `width` long but the last, which keeps the remainder."""
+    return [(a, min(a + width, n)) for a in range(0, n, width)]
+
+
+def launch_geometry(N: int, nl: int, nptr: int, itemsize: int):
+    """(grid, threads a block, dynamic shared-memory bytes) of the kernel's
+    launch, strips of SY rows, for N^2 planes, nl layers and nptr tracers
+    of `itemsize` bytes."""
+    grid = (len(strips(N, TX)), len(strips(N, SY)), nl)
+    return grid, TX, RING * (1 + nptr) * (TX + 2 * XH) * itemsize
 
 
 def tracer_fused_reference(cfg, const, psi: torch.Tensor,
@@ -44,7 +66,8 @@ def _lib():
     dbl = ctypes.POINTER(ctypes.c_double)
     for fn in (lib.fused_tracer_f32, lib.fused_tracer_f64):
         fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_double, dbl, dbl, ptr]
+                       ctypes.c_int, ctypes.c_double, dbl, dbl, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ptr]
         fn.restype = ctypes.c_int
     lib.fused_tracer_max_nptr.argtypes = []
     lib.fused_tracer_max_nptr.restype = ctypes.c_int
@@ -83,11 +106,12 @@ def tracer_fused(cfg, const, psi: torch.Tensor,
         else lib.fused_tracer_f64
     dbl = ctypes.c_double * nptr
     relax = None if const.ptr_relax is None else const.ptr_relax.data_ptr()
+    (gx, gy, _), _, smem = launch_geometry(N, nl, nptr, psi.element_size())
     with torch.cuda.device(psi.device):
         stream = torch.cuda.current_stream(psi.device).cuda_stream
         rc = fn(psi.data_ptr(), tracers.data_ptr(), relax, dtr.data_ptr(), N,
                 nl, nptr, cfg.delta, dbl(*cfg.iPe[:nptr]),
-                dbl(*cfg.ptr_ir[:nptr]), stream)
+                dbl(*cfg.ptr_ir[:nptr]), SY, gx, gy, smem, stream)
     if rc != 0:
         raise RuntimeError("fused_tracer launch failed: "
                            + lib.fused_tracer_error_string(rc).decode())

@@ -181,12 +181,19 @@ def test_coupled_kernel_matches_plain_version(cuda, dtype, N, nl, option):
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("relax", [False, True])
-@pytest.mark.parametrize("N,nl,nptr", [(64, 1, 1), (100, 3, 2), (128, 4, 3)])
+@pytest.mark.parametrize("N,nl,nptr", [(64, 1, 1), (100, 3, 2), (128, 4, 3),
+                                       (48, 3, 2), (257, 4, 2), (130, 2, 2),
+                                       (64, 2, 5), (96, 1, 16)])
 def test_tracer_kernel_matches_plain_version(cuda, dtype, relax, N, nl, nptr):
     """Distinct Pe and relaxation times per tracer: a wrong (l, j) order of
-    the flattened planes would show."""
-    cfg = _config(N, nl, dtype, nptr=nptr, Pe=(1e3, 2e3, 7e2)[:nptr],
-                  ptr_r=(100.0, 0.0, 13.0)[:nptr])
+    the flattened planes would show. N = 48: one strip holds all four walls;
+    N = 257: the last strips are one column and one row, and the rows are
+    copied one element at a time; nptr = 5 and 16: the loop over a run-time
+    nptr."""
+    Pe = ((1e3, 2e3, 7e2) + tuple(1e3 + 90.0 * j for j in range(3, nptr)))
+    ptr_r = ((100.0, 0.0, 13.0) + tuple(5.0 + j for j in range(3, nptr)))
+    Pe, ptr_r = Pe[:nptr], ptr_r[:nptr]
+    cfg = _config(N, nl, dtype, nptr=nptr, Pe=Pe, ptr_r=ptr_r)
     const = qg.build_constants(
         cfg, device=cuda, **_fields(cfg, N, *(["ptr_relax"] if relax else [])))
     psi = _psi(cfg, cuda, N)
@@ -200,6 +207,44 @@ def test_tracer_kernel_matches_plain_version(cuda, dtype, relax, N, nl, nptr):
     dtr_r = fused_tracer.tracer_fused_reference(cfg, const, psi, tr)
     assert dtr.shape == tr.shape
     assert (dtr - dtr_r).abs().max() <= LIMITS[psi.dtype] * dtr_r.abs().max()
+
+
+@pytest.mark.parametrize("rows", [1, 7, 64])
+@pytest.mark.parametrize("nptr", [2, 3])
+def test_tracer_kernel_takes_the_callers_strip_height(cuda, monkeypatch, rows,
+                                                      nptr):
+    """The wrapper's launch_geometry decides the strips: any height gives
+    the plain version's values (rows = 1: a strip of one row, shorter than
+    the copies' lead), in both the template and the run-time case."""
+    monkeypatch.setattr(fused_tracer, "SY", rows)
+    cfg = _config(130, 2, "float64", nptr=nptr, Pe=(1e3, 2e3, 7e2)[:nptr],
+                  ptr_r=(100.0, 0.0, 13.0)[:nptr])
+    const = qg.build_constants(cfg, device=cuda,
+                               **_fields(cfg, rows, "ptr_relax"))
+    psi = _psi(cfg, cuda, rows)
+    tr = torch.as_tensor(
+        np.random.default_rng(rows).uniform(-1, 1, (2, nptr, 130, 130)),
+        dtype=psi.dtype).to(cuda)
+    dtr = fused_tracer.tracer_fused(cfg, const, psi, tr)
+    dtr_r = fused_tracer.tracer_fused_reference(cfg, const, psi, tr)
+    assert (dtr - dtr_r).abs().max() <= LIMITS[psi.dtype] * dtr_r.abs().max()
+
+
+@pytest.mark.parametrize("name,value", [("RING", 5), ("TX", 256)])
+def test_tracer_launch_refuses_a_geometry_that_does_not_fit(cuda, monkeypatch,
+                                                            name, value):
+    """A ring short of the kernel's rows, or a grid of the wrong strip
+    width, is refused at the launch, not run."""
+    monkeypatch.setattr(fused_tracer, name, value)
+    cfg = _config(256, 1, "float32", nptr=2, Pe=(1e3, 2e3),
+                  ptr_r=(100.0, 0.0))
+    const = qg.build_constants(cfg, device=cuda)
+    psi = _psi(cfg, cuda, 0)
+    tr = torch.zeros((1, 2, 256, 256), device=cuda)
+    before = fused_tracer.launches
+    with pytest.raises(RuntimeError, match="fused_tracer launch failed"):
+        fused_tracer.tracer_fused(cfg, const, psi, tr)
+    assert fused_tracer.launches == before
 
 
 @pytest.mark.parametrize("dtype,limit", [("float64", 1e-12),

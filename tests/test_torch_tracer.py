@@ -4,7 +4,14 @@ PyTorch version that the CUDA kernel K2 is held against on the card) against
 the JAX package's Pallas tracer kernel in interpret mode
 (pallas_rhs.tracer_fused) and the tracer block of qg.rhs, on identical
 float64 inputs, at atol 1e-12 x max(|dtr|, 1) as tests/test_pallas_rhs.py
-does."""
+does; the kernel's launch geometry (its strips, grid and shared memory)
+as the wrapper computes it and passes it to the launch; and the kernel's
+own source, run on the CPU in tools/strip_emulation.py's host emulation of
+a block, against the plain version."""
+
+import shutil
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -146,3 +153,75 @@ def test_tracer_bound_work_at_the_coupled_path():
     some = types.SimpleNamespace(ptr_relax=torch.empty(0))
     assert fused_tracer.bound_work(cfg, none, 4)[0] == 20 * 2048 ** 2 * 4
     assert fused_tracer.bound_work(cfg, some, 4)[0] == 28 * 2048 ** 2 * 4
+
+
+# Hopper's opt-in limit of shared memory a block (227 KB)
+SMEM_OPTIN = 232448
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_tracer_launch_fits_shared_memory_for_every_nptr(itemsize):
+    """Every nptr the kernel takes (1 to 16) fits one block's shared memory
+    in f32 and f64, so none is refused."""
+    for nptr in range(1, 17):
+        grid, threads, smem = fused_tracer.launch_geometry(2048, 4, nptr,
+                                                           itemsize)
+        assert threads == fused_tracer.TX == 128
+        assert 0 < smem <= SMEM_OPTIN
+    # the ring: 8 rows of psi_l and each tracer, 128 + 8 columns each
+    assert fused_tracer.launch_geometry(2048, 4, 2, 4)[2] == 8 * 3 * 136 * 4
+
+
+@pytest.mark.parametrize("nl", [1, 4])
+def test_tracer_launch_grid_at_the_coupled_width(nl):
+    """At N = 2048 the grid is 16 strips across, 64 down, one layer a
+    z-index."""
+    assert fused_tracer.launch_geometry(2048, nl, 2, 4)[0] == (16, 64, nl)
+
+
+@pytest.mark.parametrize("N", [257, 2048, 130, 48, 1])
+def test_tracer_strips_cover_every_cell_once(N):
+    """The strips of the grid, the last of each direction keeping the
+    remainder (N = 257: one column and one row), cover each cell once."""
+    (gx, gy, _), _, _ = fused_tracer.launch_geometry(N, 1, 2, 4)
+    cols = fused_tracer.strips(N, fused_tracer.TX)
+    rows = fused_tracer.strips(N, fused_tracer.SY)
+    assert (len(cols), len(rows)) == (gx, gy)
+    count = np.zeros((N, N), int)
+    for y0, y1 in rows:
+        for x0, x1 in cols:
+            assert 0 < x1 - x0 <= fused_tracer.TX
+            assert 0 < y1 - y0 <= fused_tracer.SY
+            count[y0:y1, x0:x1] += 1
+    assert (count == 1).all()
+    if N == 257:
+        assert cols[-1] == (256, 257) and rows[-1] == (256, 257)
+
+
+def _emulation():
+    if shutil.which("g++") is None:
+        pytest.skip("the host emulation needs g++")
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+    import strip_emulation
+    return strip_emulation
+
+
+@pytest.mark.parametrize("early", [False, True])
+def test_tracer_kernel_source_in_host_emulation(tmp_path, early):
+    """csrc/fused_tracer.cu itself, its copies landing at their wait or at
+    their issue, matches the plain version on the CPU at N = 48, 130 and
+    257 (all walls in one strip, partial strips, one-element copies), the
+    template and the run-time nptr, f64 and f32, relax on and off."""
+    emu = _emulation()
+    lib = emu.build("shipped", early=early, out=tmp_path)
+    assert emu.worst_error(lib) <= 1.0
+
+
+@pytest.mark.parametrize("ring,right", [(6, True), (5, False)])
+def test_tracer_ring_rule_in_host_emulation(tmp_path, ring, right):
+    """The ring needs DEPTH + 3 = 6 rows: with 5, a row's copy, landing at
+    its issue, overwrites a row that the step still reads."""
+    emu = _emulation()
+    lib = emu.build(f"ring{ring}", emu.ring_patch(ring), early=True,
+                    out=tmp_path)
+    assert (emu.worst_error(lib, emu.CASES[:2]) <= 1.0) == right
