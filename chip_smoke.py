@@ -5,9 +5,9 @@
 
 Needs one CUDA card, nvcc and the repository checkout; imports nothing of
 JAX or msom_tpu. With no argument every phase runs; with phase names
-(kernels, steps, paths, fused_mm, mg, node) the build and those phases only
-(for work on one part: the kernels' record then lists what ran). Phases, in
-order; any failure exits non-zero:
+(kernels, steps, paths, fused_mm, mg, node, periodic, stochastic) the build
+and those phases only (for work on one part: the kernels' record then lists
+what ran). Phases, in order; any failure exits non-zero:
 
 1. build every kernel from msom_tpu_torch/csrc (one nvcc per source, all
    started together);
@@ -42,7 +42,10 @@ order; any failure exits non-zero:
    also its library yardstick) and its two bounds (the FP32 pipe's, and the
    TF32 tensor cores' for its three passes, which it is held to), and
    fail if K7 is not faster than that chain; the host time of a solve of
-   each; profile four steps of the K7 variant;
+   each; profile four steps of the K7 variant; then K7 on the periodic
+   Fourier basis (fourier_matrix, the naturally ordered inv_den) against
+   the cuBLAS chain at N = 128 and 1024 with nl = 4, f64 and f32, in f32
+   within K7_F64_RATIO of the FP32 chain's error against f64;
 7. the multigrid (phase name mg): hold the red-black line sweep (K3, four
    sweeps in a row, so that a fault on a tile's rim can spread) and the
    fused residual (K4) against their plain versions in f32 and f64, with
@@ -83,6 +86,28 @@ order; any failure exits non-zero:
    K5 and K6 (a relaxation, and five one-sweep launches) alone on the final
    state against their plain versions and bounds, K6 by level; a four-step
    profile of each.
+9. the doubly periodic msqg (phase name periodic): K1's periodic kernel
+   with each option set (uncoupled, pg, pg + flsrv, topo, qforc,
+   energy_conserv, all together; pp's ghosts from a uniform flow) and K2's
+   periodic mode (1-3 tracers, relaxation on and off) against their plain
+   versions in f64 and f32 at the sizes of phase 2; the periodic step on the
+   card against the CPU (128^2 x 3 f64, 20 steps: uncoupled, coupled with
+   upg/vpg, _LS_RV, topography, forcing and two tracers, and solver="mg"
+   with the same V-cycles); then the periodic_coupled path at 2048^2 x 4
+   f32 (bench's physics with sbc = -1, flsrv = 1, a uniform flow, bench's
+   topography and two tracers, the rfft2 inversion): 20 warm-up and 40
+   timed steps counting K1's and K2's launches, both kernels on the final
+   state against their plain versions and bounds, a four-step profile and
+   the device time of the rfft2/irfft2 pair (cuFFT) a step.
+10. the stochastic msqg (phase name stochastic): K1's stochastic mode,
+   walled and periodic, uncoupled and with every coupling option, against
+   its plain version in f64 and f32 at the sizes of phase 2; the step at
+   amp_stoch = 0 on the card against the CPU (128^2 x 3 f64, 20 steps);
+   then bench.py's stochastic row at 1024^2 x 4 f32 (walled, the folded
+   DST, tr_stoch = 50, amp_stoch = 1e-6, noise from a seeded generator on
+   the card): 60 spin-up and 20 timed steps counting K1's launches, K1 on
+   the final state against its plain version and bound, a four-step
+   profile.
 
 TF32 is switched off for matmuls and convolutions before anything runs:
 1-pass reduced-precision transforms give O(1) solution error at N = 2048.
@@ -113,10 +138,25 @@ MG_LIMITS = {4: 1e-5, 8: 1e-12}
 MG_SWEEPS = 4
 MG_SOLVE_LIMIT = 1e-10                    # CUDA solve vs CPU solve, f64
 MG_MAX_CYCLES = 20      # a solve that needs more at tol 1e-3 is spinning
-PHASES = ("kernels", "steps", "paths", "fused_mm", "mg", "node")
+PHASES = ("kernels", "steps", "paths", "fused_mm", "mg", "node", "periodic",
+          "stochastic")
 K1_OPTIONS = ("pg", "pg_flsrv", "topo", "qforc", "energy_conserv", "slip",
               "all")
+# the periodic kernel's option sets (no slip: the domain has no wall), and
+# the stochastic variant's, walled and periodic
+K1_PERIODIC_OPTIONS = ("pg", "pg_flsrv", "topo", "qforc", "energy_conserv",
+                       "all")
+K1_STOCHASTIC_OPTIONS = ("stochastic", "stochastic_all")
 TRACERS = dict(nptr=2, Pe=(1e3, 2e3), ptr_r=(100.0, 0.0))
+# the kernels' check sizes: nl = 1, 3, 4; partial strips (100, 130, and at
+# 257 one row and one column, copied one element at a time); one strip
+# holding the whole width (48); and the paths' width
+KERNEL_SIZES = [(256, 1), (256, 3), (256, 4), (100, 3), (130, 4), (257, 4),
+                (48, 3), (2048, 4)]
+# a uniform large-scale flow (tests/test_pallas_rhs.py:299-301), the fourth
+# layer at rest: pp = vpg x - upg y, which does not wrap
+PG_FLOW = dict(upg=(0.02, 0.01, 0.0, 0.0), vpg=(0.01, -0.005, 0.0, 0.0))
+STOCH = dict(stochastic=True, tr_stoch=50.0, amp_stoch=1e-6)
 
 
 def verron(QGConfig, N, **kw):
@@ -161,20 +201,28 @@ def coupled_fields(cfg, noise=0.0, seed=0):
 
 def k1_variant(cfg, const, name):
     """(cfg, const) of one K1 option set, cut out of constants built with
-    every coupling field and flsrv = 1."""
-    no_pg = dict(pp_pad=None, pp=None, zetap_pad=None, umax_pp=None)
+    every coupling field and flsrv = 1. A periodic cfg (sbc = -1) stays
+    periodic; "slip" needs walls."""
+    no_pg = dict(pp_pad=None, pp=None, zetap_pad=None, umax_pp=None,
+                 pp_t=None, zetap_t=None)
     no_topo = dict(topo_pad=None, topo=None, iro=None)
     off = {"uncoupled": {**no_pg, **no_topo, "qforc": None},
-           "pg": {**no_topo, "zetap_pad": None, "qforc": None},
+           "pg": {**no_topo, "zetap_pad": None, "zetap_t": None,
+                  "qforc": None},
            "pg_flsrv": {**no_topo, "qforc": None},
            "topo": {**no_pg, "qforc": None},
            "qforc": {**no_pg, **no_topo},
            "energy_conserv": {**no_pg, **no_topo, "qforc": None},
            "slip": {**no_pg, **no_topo, "qforc": None},
+           "stochastic": {**no_pg, **no_topo, "qforc": None},
+           "stochastic_all": {},
            "all": {}}[name]
-    kw = dict(flsrv=int(name in ("pg_flsrv", "all")),
+    walled_sbc = 1.0 if name in ("slip", "all", "stochastic_all") else 0.0
+    stoch = name.startswith("stochastic")
+    kw = dict(flsrv=int(name in ("pg_flsrv", "all", "stochastic_all")),
               energy_conserv=name in ("energy_conserv", "all"),
-              sbc=1.0 if name in ("slip", "all") else 0.0)
+              stochastic=stoch, tr_stoch=50.0 if stoch else cfg.tr_stoch,
+              sbc=cfg.sbc if cfg.sbc == -1 else walled_sbc)
     return (dataclasses.replace(cfg, **kw).validate(),
             dataclasses.replace(const, **off))
 
@@ -250,7 +298,7 @@ def _device_us(event):
 def kernel_profile(label, step_fn, steps, ms_step):
     """Device time by kernel over a profiled window of `steps` steps, and
     the share of the step the device is busy (against the unprofiled
-    ms/step)."""
+    ms/step); returns the rows (ms a step, launches a step, name)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -274,6 +322,7 @@ def kernel_profile(label, step_fn, steps, ms_step):
           f"{len(rows)} kernels, {sum(r[1] for r in rows):.1f} launches/step")
     for ms, n, name in rows[:14]:
         print(f"  {ms:9.4f} ms/step {n:6.1f} launches/step  {name[:90]}")
+    return rows
 
 
 def timed_steps(step, state, const, steps):
@@ -1115,6 +1164,400 @@ def node_paths(NodeQGConfig, rows, k5_err, k6_err):
     return True
 
 
+# ---------------------------------------------------------------------------
+# the doubly periodic and the stochastic msqg (phase names periodic and
+# stochastic): K1's periodic and stochastic modes, K2's periodic mode, the
+# steps on the card against the CPU, and the two paths at full width
+# ---------------------------------------------------------------------------
+
+def k1_mode_checks(QGConfig, periodic, names, sizes=KERNEL_SIZES):
+    """K1 against its plain version on the card, f64 and f32, every option
+    set in `names` (k1_variant), periodic (sbc = -1, pp from a uniform
+    flow and a rough psipg: its ghosts follow the non-wrap law) or walled;
+    returns (ok, {name: max|d dq| at 2048^2 x 4 f32})."""
+    import torch
+    from msom_tpu_torch.models import fused_rhs, qg
+    ok, errs = True, {}
+    for dtype in ("float64", "float32"):
+        lim = LIMITS[8 if dtype == "float64" else 4]
+        for N, nl in sizes:
+            Re = 0.0 if N in (100, 2048) else 1000.0
+            flow = {k: v[:nl] for k, v in PG_FLOW.items()} if periodic \
+                else {}
+            cfg = bench_config(QGConfig, N, nl, dtype, Re=Re, Eks=0.001,
+                               flsrv=1, sbc=-1.0 if periodic else 0.0,
+                               **flow)
+            full = qg.build_constants(cfg, device="cuda",
+                                      **coupled_fields(cfg, 1e-3, N + nl))
+            rng = np.random.default_rng(N + nl)
+            psi = torch.as_tensor(1e-3 * rng.uniform(-1, 1, (nl, N, N)),
+                                  dtype=getattr(torch, dtype),
+                                  device="cuda")
+            q = qg.comp_q(cfg, full, psi).contiguous()
+            for name in names:
+                vcfg, vconst = k1_variant(cfg, full, name)
+                qin = q if vcfg.energy_conserv or vcfg.stochastic else None
+                dq_k, um_k = fused_rhs.rhs_fused(vcfg, vconst, psi, qin)
+                dq_r, um_r = fused_rhs.rhs_fused_reference(vcfg, vconst, psi,
+                                                           qin)
+                torch.cuda.synchronize()
+                abs_err = (dq_k - dq_r).abs().max().item()
+                rel = abs_err / dq_r.abs().max().item()
+                rel_u = ((um_k - um_r).abs() / um_r).max().item()
+                good = rel <= lim and rel_u <= lim
+                ok &= good
+                print(f"K1 {'periodic' if periodic else 'walled'} check "
+                      f"{dtype} N={N} nl={nl} Re={Re:g} {name}: max|d dq|/"
+                      f"max|dq| = {rel:.3e}, max|d umax|/umax = {rel_u:.3e} "
+                      f"(limit {lim:g}) {'ok' if good else 'FAIL'}")
+                if dtype == "float32" and (N, nl) == (2048, 4):
+                    errs[name] = abs_err
+                del dq_k, dq_r
+            del full, psi, q
+            torch.cuda.empty_cache()
+    return ok, errs
+
+
+def k2_checks(QGConfig, periodic, sizes=KERNEL_SIZES):
+    """K2, walled or periodic, against its plain version on the card, f64
+    and f32, 1, 2 and 3 tracers (3: the loop over a run-time count), with
+    and without a relaxation field; returns (ok, max|d dtr| at 2048^2 x 4 x
+    2 f32 without relaxation)."""
+    import torch
+    from msom_tpu_torch.models import fused_tracer, qg
+    ok, err = True, None
+    for dtype in ("float64", "float32"):
+        lim = LIMITS[8 if dtype == "float64" else 4]
+        for N, nl in sizes:
+            rng = np.random.default_rng(N + nl)
+            psi = torch.as_tensor(1e-3 * rng.uniform(-1, 1, (nl, N, N)),
+                                  dtype=getattr(torch, dtype),
+                                  device="cuda")
+            for nptr in (1, 2, 3):
+                cfg = bench_config(QGConfig, N, nl, dtype,
+                                   sbc=-1.0 if periodic else 0.0,
+                                   nptr=nptr, Pe=(1e3, 2e3, 7e2)[:nptr],
+                                   ptr_r=(100.0, 0.0, 13.0)[:nptr])
+                const = qg.build_constants(cfg, device="cuda")
+                shape = (nl, nptr, N, N)
+                tr = torch.as_tensor(1e-3 * rng.uniform(-1, 1, shape),
+                                     dtype=psi.dtype, device="cuda")
+                relax = torch.as_tensor(1e-3 * rng.uniform(-1, 1, shape),
+                                        dtype=psi.dtype, device="cuda")
+                for with_relax in (False, True):
+                    tconst = dataclasses.replace(
+                        const, ptr_relax=relax if with_relax else None)
+                    d_k = fused_tracer.tracer_fused(cfg, tconst, psi, tr)
+                    d_r = fused_tracer.tracer_fused_reference(cfg, tconst,
+                                                              psi, tr)
+                    torch.cuda.synchronize()
+                    abs_err = (d_k - d_r).abs().max().item()
+                    rel = abs_err / d_r.abs().max().item()
+                    good = rel <= lim
+                    ok &= good
+                    print(f"K2 {'periodic' if periodic else 'walled'} "
+                          f"check {dtype} N={N} nl={nl} "
+                          f"nptr={nptr} relax={with_relax}: max|d dtr|/"
+                          f"max|dtr| = {rel:.3e} (limit {lim:g}) "
+                          f"{'ok' if good else 'FAIL'}")
+                    if (dtype == "float32" and (N, nl, nptr) == (2048, 4, 2)
+                            and not with_relax):
+                        err = abs_err
+                    del d_k, d_r
+                del const, tr, relax
+            del psi
+            torch.cuda.empty_cache()
+    return ok, err
+
+
+def step_check(QGConfig, label, cfg, coupled=False):
+    """The step on the card against the port on the CPU, f64, 20 steps from
+    one numpy IC (coupled: bench's fields, a weak 3-D forcing, numpy
+    tracers; a periodic cfg takes its pp from upg/vpg, not psipg; a
+    stochastic cfg draws from a generator seeded alike on each side).
+    Returns False if they differ beyond STEP_LIMIT, or with solver="mg"
+    the V-cycles differ or the kernels did not run."""
+    import torch
+    from msom_tpu_torch.models import qg
+    from msom_tpu_torch.solvers import fused_mg
+    rng = np.random.default_rng(42)
+    psi0 = 1e-3 * rng.uniform(-1, 1, (cfg.nl, cfg.N, cfg.N))
+    fields, tr0 = {}, None
+    if coupled:
+        fields = coupled_fields(cfg)
+        if cfg.sbc == -1:
+            del fields["psipg"]
+        fields["qforc"] = 1e-5 * rng.standard_normal(psi0.shape)
+        tr0 = 1e-3 * rng.uniform(-1, 1, (cfg.nl, cfg.nptr, cfg.N, cfg.N))
+    states, cycles, launched = {}, {}, {}
+    for where in ("cpu", "cuda"):
+        const = qg.build_constants(cfg, device=where, **fields)
+        state = qg.init_state(cfg, const, psi0=psi0, tracers0=tr0)
+        gen = torch.Generator(device=where).manual_seed(7) \
+            if cfg.stochastic else None
+        step = qg.make_step(cfg, gen)
+        before = fused_mg.sweep_launches, fused_mg.residual_launches
+        cycles[where] = []
+        for _ in range(20):
+            state, diag = step(state, const, 1e9)
+            cycles[where].append(diag.mg_iters)
+        states[where] = state
+        launched[where] = (fused_mg.sweep_launches - before[0],
+                           fused_mg.residual_launches - before[1])
+    names = ["q", "psi"] + (["tracers"] if tr0 is not None else [])
+    rels = {}
+    for name in names:
+        want = getattr(states["cpu"], name)
+        rels[name] = ((getattr(states["cuda"], name).cpu() - want)
+                      .abs().max() / want.abs().max()).item()
+    good = all(r <= STEP_LIMIT for r in rels.values())
+    extra = ""
+    if cfg.solver == "mg":
+        # the same V-cycles every step, through the kernels on the card
+        # only (each of the 40 solves: one K4 for the first residual and
+        # one a cycle, at least one cycle); a periodic solve runs torch
+        # ops, no kernel (solvers/mg.py)
+        want_k = cfg.sbc != -1
+        good &= (cycles["cuda"] == cycles["cpu"]
+                 and min(cycles["cuda"]) >= 1
+                 and launched["cpu"] == (0, 0)
+                 and (launched["cuda"][0] > 0) == want_k
+                 and (launched["cuda"][1] >= 60 + sum(cycles["cuda"])
+                      if want_k else launched["cuda"][1] == 0))
+        extra = (f", V-cycles of the first solve cuda {cycles['cuda']} "
+                 f"cpu {cycles['cpu']}, K3/K4 launches "
+                 f"{launched['cuda']}")
+    print(f"step check {label} 128^2 x 3 f64, 20 steps cuda vs cpu: "
+          + ", ".join(f"rel {k} = {v:.3e}" for k, v in rels.items())
+          + f" (limit {STEP_LIMIT:g}){extra} {'ok' if good else 'FAIL'}")
+    return good
+
+
+def _path_run(label, cfg, const, state, step, warm, steps, want):
+    """Warm up, then time `steps` steps with CUDA events, counting the
+    launches of K1, K2, K7, K3 and K4: (state, ms/step, K1 launches, K2
+    launches), or None if a count differs from `want` (K1, K2) or zero
+    for the others, or the state is not finite."""
+    import torch
+    from msom_tpu_torch.models import fused_rhs, fused_tracer
+    from msom_tpu_torch.solvers import fused_mg, fused_spectral
+    N, nl = cfg.N, cfg.nl
+    for _ in range(warm):
+        state, diag = step(state, const, 1e18)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_rhs.launches = fused_tracer.launches = 0
+    fused_spectral.launches = 0
+    fused_mg.sweep_launches = fused_mg.residual_launches = 0
+    state, diag, ms_step = timed_steps(step, state, const, steps)
+    n_rhs, n_tr = fused_rhs.launches, fused_tracer.launches
+    finite = state_ok(state, diag, (nl, N, N))
+    print(f"{label} path {N}^2 x {nl} f32: {ms_step:.4f} ms/step, "
+          f"{N * N * nl / (ms_step * 1e-3):.4e} grid-points/s, fused_rhs "
+          f"launches {n_rhs} (expected {want[0]}), fused_tracer launches "
+          f"{n_tr} (expected {want[1]}), ke {diag.ke.item():.6e}, dt "
+          f"{diag.dt.item():.6e}, t {state.t.item():.6e}, finite {finite}, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if (n_rhs, n_tr) != want or not finite or fused_spectral.launches \
+            or fused_mg.sweep_launches or fused_mg.residual_launches:
+        return None
+    return state, ms_step, n_rhs, n_tr
+
+
+def _kernel_row(label, name, kernel, plain, bound_work, launches, source,
+                replaces, mode):
+    """Hold one kernel against its plain version on the path's final state
+    (f32, LIMITS[4] of max|out|; `kernel` and `plain` return the tendency),
+    time both and print them beside the bound; returns the kernels' JSON
+    record, or None if they disagree."""
+    import torch
+    out_k, out_r = kernel(), plain()
+    torch.cuda.synchronize()
+    abs_err = (out_k - out_r).abs().max().item()
+    rel = abs_err / out_r.abs().max().item()
+    del out_k, out_r
+    k_ms, p_ms = kernel_times(kernel, plain)
+    nbytes, nops = bound_work
+    bound, by, t_b, t_o = roofline(nbytes, nops, 4)
+    good = rel <= LIMITS[4]
+    print(f"{name} ({mode}) on the {label} path's final state, f32: "
+          f"max|d out|/max|out| = {rel:.3e} (limit {LIMITS[4]:g}) "
+          f"{'ok' if good else 'FAIL'}; kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms, bound {bound:.4f} ms by {by} (bytes {nbytes} -> "
+          f"{t_b:.4f} ms, operations {nops} -> {t_o:.4f} ms), "
+          f"{t_b / k_ms:.3f} of the byte bound, library_ms null")
+    if not good:
+        return None
+    return {"name": name, "path": label, "mode": mode, "route": "cuda",
+            "source": source, "replaces": replaces, "launches": launches,
+            "max_abs_err": abs_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def periodic_path(QGConfig, rows):
+    """The doubly periodic coupled path (the "_LS_RV class" multiple-scale
+    patch) at 2048^2 x 4 f32: bench's physics with sbc = -1, flsrv = 1,
+    the uniform flow PG_FLOW, bench's sine topography and two tracers, the
+    spectral "auto" inversion (rfft2); 20 warm-up and 40 timed steps, K1
+    and K2 alone against their plain versions and bounds, a four-step
+    profile and the device time of the rfft2/irfft2 pair. Appends K1's and
+    K2's records to `rows`; returns False if the path failed."""
+    import torch
+    from msom_tpu_torch.models import fused_rhs, fused_tracer, qg
+    N, nl, warm, steps = 2048, 4, 20, 40
+    cfg = bench_config(QGConfig, N, nl, "float32", sbc=-1.0, flsrv=1,
+                       **PG_FLOW, **TRACERS)
+    t0 = time.perf_counter()
+    const = qg.build_constants(cfg, device="cuda",
+                               topo=coupled_fields(cfg)["topo"])
+    rng = np.random.default_rng(0)
+    psi0 = 1e-3 * rng.uniform(-1, 1, (nl, N, N))
+    tr0 = 1e-3 * rng.uniform(-1, 1, (nl, cfg.nptr, N, N))
+    state = qg.init_state(cfg, const, psi0=psi0, tracers0=tr0)
+    step = qg.make_step(cfg)
+    torch.cuda.synchronize()
+    spec = const.spec
+    print(f"periodic_coupled path set-up: {time.perf_counter() - t0:.1f} s, "
+          f"spectral solve by rfft2/irfft2 {spec.periodic and spec.S is None}"
+          f" (inv_den {tuple(spec.inv_den.shape)})")
+    label = f"periodic_coupled {N}^2 x {nl} f32"
+    run = _path_run("periodic_coupled", cfg, const, state, step, warm, steps,
+                    (2 * steps, 2 * steps))
+    if run is None:
+        return False
+    state, ms_step, n_rhs, n_tr = run
+    psi, tr = state.psi.contiguous(), state.tracers
+    for rec in (
+            _kernel_row(label, "fused_rhs",
+                        lambda: fused_rhs.rhs_fused(cfg, const, psi)[0],
+                        lambda: fused_rhs.rhs_fused_reference(cfg, const,
+                                                              psi)[0],
+                        fused_rhs.bound_work(cfg, const, 4), n_rhs,
+                        fused_rhs.SOURCE,
+                        "msom_tpu/models/pallas_rhs.py:441", "periodic"),
+            _kernel_row(label, "fused_tracer",
+                        lambda: fused_tracer.tracer_fused(cfg, const, psi,
+                                                          tr),
+                        lambda: fused_tracer.tracer_fused_reference(
+                            cfg, const, psi, tr),
+                        fused_tracer.bound_work(cfg, const, 4), n_tr,
+                        fused_tracer.SOURCE,
+                        "msom_tpu/models/pallas_rhs.py:778", "periodic")):
+        if rec is None:
+            return False
+        rows.append(rec)
+    box = [state]
+
+    def one_step():
+        box[0], _ = step(box[0], const, 1e18)
+
+    prof = kernel_profile("periodic_coupled", one_step, 4, ms_step)
+    fft = [(ms, n) for ms, n, name in prof if "fft" in name.lower()]
+    print(f"periodic_coupled: rfft2/irfft2 (cuFFT) device time "
+          f"{sum(ms for ms, _ in fft):.4f} ms/step in "
+          f"{sum(n for _, n in fft):.1f} launches/step ({len(fft)} kernels)")
+    return bool(fft)
+
+
+def stochastic_path(QGConfig, rows):
+    """bench.py's stochastic row (bench.py:60-62, :370-377) at 1024^2 x 4
+    f32: walled, spectral (the folded DST), tr_stoch = 50, amp_stoch =
+    1e-6, noise from a seeded generator on the card; bench's 60 spin-up
+    steps, then 20 timed; K1's stochastic mode alone against its plain
+    version and bound, and a four-step profile. Appends K1's record to
+    `rows`; returns False if the path failed."""
+    import torch
+    from msom_tpu_torch.models import fused_rhs, qg
+    N, nl, warm, steps = 1024, 4, 60, 20
+    cfg = bench_config(QGConfig, N, nl, "float32", **STOCH)
+    const = qg.build_constants(cfg, device="cuda")
+    psi0 = 1e-3 * np.random.default_rng(0).uniform(-1, 1, (nl, N, N))
+    state = qg.init_state(cfg, const, psi0=psi0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step = qg.make_step(cfg, gen)
+    label = f"stochastic {N}^2 x {nl} f32"
+    run = _path_run("stochastic", cfg, const, state, step, warm, steps,
+                    (2 * steps, 0))
+    if run is None:
+        return False
+    state, ms_step, n_rhs, _ = run
+    psi, q = state.psi.contiguous(), state.q.contiguous()
+    rec = _kernel_row(label, "fused_rhs",
+                      lambda: fused_rhs.rhs_fused(cfg, const, psi, q)[0],
+                      lambda: fused_rhs.rhs_fused_reference(cfg, const, psi,
+                                                            q)[0],
+                      fused_rhs.bound_work(cfg, const, 4), n_rhs,
+                      fused_rhs.SOURCE, "msom_tpu/models/pallas_rhs.py:441",
+                      "stochastic")
+    if rec is None:
+        return False
+    rows.append(rec)
+    box = [state]
+
+    def one_step():
+        box[0], _ = step(box[0], const, 1e18)
+
+    kernel_profile("stochastic", one_step, 4, ms_step)
+    return True
+
+
+def k7_checks(periodic, shapes):
+    """K7 against its plain version, the cuBLAS chain, f64 and f32, at each
+    (N, nl) of `shapes`, on the DST-II basis or (periodic) the Fourier
+    basis (build_spectral(periodic=True, transform="matmul",
+    fused_mm=True): fourier_matrix and the naturally ordered inv_den); in
+    f32 also its error against the f64 chain, within K7_F64_RATIO times the
+    FP32 chain's. Returns (ok, the errors at 1024^2 x 4 f32: "fused_spectral"
+    max|d psi_m| and "fused_spectral_f64" (kernel, chain) against f64)."""
+    import torch
+    from msom_tpu_torch.solvers import fused_spectral, spectral
+    ok, errs = True, {}
+    for dtype in ("float64", "float32"):
+        isz = 8 if dtype == "float64" else 4
+        for N, nl in shapes:
+            spec = spectral.build_spectral(
+                nl=nl, N=N, L0=80.0, dh=np.full(nl, 1.0 / nl),
+                s_profile=np.full(nl - 1, (0.003 / 0.025) ** 2),
+                periodic=periodic, dtype=getattr(torch, dtype),
+                transform="matmul", fused_mm=True, device="cuda")
+            qm = torch.as_tensor(np.random.default_rng(N + nl)
+                                 .standard_normal((nl, N, N)),
+                                 dtype=getattr(torch, dtype), device="cuda")
+            before = fused_spectral.launches
+            pm_k = fused_spectral.fused_mm_solve(spec.S, spec.inv_den, qm,
+                                                 spec.mm)
+            pm_r = spectral._mm_solve(spec.S, spec.inv_den, qm)
+            torch.cuda.synchronize()
+            abs_err = (pm_k - pm_r).abs().max().item()
+            scale = pm_r.abs().max().item()
+            rel = abs_err / scale
+            good = (rel <= K7_LIMITS[isz]
+                    and fused_spectral.launches == before + 4)
+            extra = ""
+            if dtype == "float32":
+                # both against the f64 chain: the 3-pass TF32 split within
+                # K7_F64_RATIO of the FP32 chain's own error
+                pm_d = spectral._mm_solve(spec.S.double(),
+                                          spec.inv_den.double(), qm.double())
+                e_k = (pm_k - pm_d).abs().max().item() / scale
+                e_r = (pm_r - pm_d).abs().max().item() / scale
+                good &= e_k <= K7_F64_RATIO * e_r
+                extra = (f", against the f64 chain: kernel {e_k:.3e}, "
+                         f"cuBLAS FP32 {e_r:.3e}, ratio {e_k / e_r:.2f} "
+                         f"(limit {K7_F64_RATIO:g})")
+                if (N, nl) == (1024, 4):
+                    errs["fused_spectral"] = abs_err
+                    errs["fused_spectral_f64"] = (e_k, e_r)
+                del pm_d
+            ok &= good
+            print(f"K7 {'Fourier-basis ' if periodic else ''}check {dtype} "
+                  f"N={N} nl={nl}: max|d psi_m|/max|psi_m| = {rel:.3e} "
+                  f"(limit {K7_LIMITS[isz]:g}){extra} "
+                  f"{'ok' if good else 'FAIL'}")
+            del spec, qm, pm_k, pm_r
+    return ok, errs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1124,7 +1567,7 @@ def main() -> int:
     from msom_tpu_torch.models import fused_rhs, fused_tracer, qg
     from msom_tpu_torch.models.qg_node import NodeQGConfig
     from msom_tpu_torch.params import QGConfig
-    from msom_tpu_torch.solvers import fused_mg, fused_spectral, spectral
+    from msom_tpu_torch.solvers import fused_mg, fused_spectral
 
     only = set(sys.argv[1:])
     if only - set(PHASES):
@@ -1145,9 +1588,6 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
     t_start = time.perf_counter()
 
-    def dev(a, dtype):
-        return torch.as_tensor(a, dtype=getattr(torch, dtype)).cuda()
-
     # 1. build
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -1162,116 +1602,17 @@ def main() -> int:
             print(f"  {name}: {line.strip()}")
 
     # 2. each kernel against its plain version on the card
-    sizes = [(256, 1), (256, 3), (256, 4), (100, 3), (130, 4), (257, 4),
-             (48, 3), (2048, 4)]
     main_err = {}
     ok = True
-    for dtype in ("float64", "float32") if wanted("kernels") else ():
-        isz = 8 if dtype == "float64" else 4
-        lim = LIMITS[isz]
-        for N, nl in sizes:
-            # the uncoupled kernel with and without Re, then each option set
-            Re = 0.0 if N in (100, 2048) else 1000.0
-            cfg = bench_config(QGConfig, N, nl, dtype, Re=Re, Eks=0.001,
-                               flsrv=1, **TRACERS)
-            rng = np.random.default_rng(N + nl)
-            full = qg.build_constants(cfg, device="cuda",
-                                      **coupled_fields(cfg, 1e-3, N + nl))
-            psi = dev(1e-3 * rng.uniform(-1, 1, (nl, N, N)), dtype)
-            q = qg.comp_q(cfg, full, psi)
-            for name in ("uncoupled",) + K1_OPTIONS:
-                vcfg, vconst = k1_variant(cfg, full, name)
-                qin = q if vcfg.energy_conserv else None
-                dq_k, um_k = fused_rhs.rhs_fused(vcfg, vconst, psi, qin)
-                dq_r, um_r = fused_rhs.rhs_fused_reference(vcfg, vconst, psi,
-                                                           qin)
-                torch.cuda.synchronize()
-                abs_err = (dq_k - dq_r).abs().max().item()
-                rel = abs_err / dq_r.abs().max().item()
-                rel_u = ((um_k - um_r).abs() / um_r).max().item()
-                good = rel <= lim and rel_u <= lim
-                ok &= good
-                print(f"K1 check {dtype} N={N} nl={nl} Re={Re:g} {name}: "
-                      f"max|d dq|/max|dq| = {rel:.3e}, "
-                      f"max|d umax|/umax = {rel_u:.3e} (limit {lim:g}) "
-                      f"{'ok' if good else 'FAIL'}")
-                if dtype == "float32" and (N, nl) == (2048, 4):
-                    main_err["fused_rhs", name] = abs_err
-                del dq_k, dq_r
-            # K2: 1, 2 and 3 tracers, with and without a relaxation field
-            for nptr in (1, 2, 3):
-                tcfg = dataclasses.replace(
-                    cfg, nptr=nptr, Pe=(cfg.Pe + (7e2,))[:nptr],
-                    ptr_r=(cfg.ptr_r + (13.0,))[:nptr]).validate()
-                tr = dev(1e-3 * rng.uniform(-1, 1, (nl, nptr, N, N)), dtype)
-                relax = dev(1e-3 * rng.uniform(-1, 1, (nl, nptr, N, N)),
-                            dtype)
-                for with_relax in (False, True):
-                    tconst = dataclasses.replace(
-                        full, ptr_relax=relax if with_relax else None)
-                    d_k = fused_tracer.tracer_fused(tcfg, tconst, psi, tr)
-                    d_r = fused_tracer.tracer_fused_reference(tcfg, tconst,
-                                                              psi, tr)
-                    torch.cuda.synchronize()
-                    abs_err = (d_k - d_r).abs().max().item()
-                    rel = abs_err / d_r.abs().max().item()
-                    good = rel <= lim and d_k.shape == tr.shape
-                    ok &= good
-                    print(f"K2 check {dtype} N={N} nl={nl} nptr={nptr} "
-                          f"relax={with_relax}: max|d dtr|/max|dtr| = "
-                          f"{rel:.3e} (limit {lim:g}) "
-                          f"{'ok' if good else 'FAIL'}")
-                    if (dtype == "float32" and (N, nl, nptr) == (2048, 4, 2)
-                            and not with_relax):
-                        main_err["fused_tracer"] = abs_err
-                    del d_k, d_r
-                del tr, relax
-            del full, psi, q
-            torch.cuda.empty_cache()
-        # K7 against the cuBLAS chain
-        for N in (128, 512, 1024):
-            for nl in (1, 4):
-                spec = spectral.build_spectral(
-                    nl=nl, N=N, L0=80.0, dh=np.full(nl, 1.0 / nl),
-                    s_profile=np.full(nl - 1, (0.003 / 0.025) ** 2),
-                    dtype=getattr(torch, dtype), transform="matmul",
-                    fused_mm=True, device="cuda")
-                qm = dev(np.random.default_rng(N + nl).standard_normal(
-                    (nl, N, N)), dtype)
-                before = fused_spectral.launches
-                pm_k = fused_spectral.fused_mm_solve(spec.S, spec.inv_den, qm,
-                                                     spec.mm)
-                pm_r = spectral._mm_solve(spec.S, spec.inv_den, qm)
-                torch.cuda.synchronize()
-                abs_err = (pm_k - pm_r).abs().max().item()
-                scale = pm_r.abs().max().item()
-                rel = abs_err / scale
-                good = (rel <= K7_LIMITS[isz]
-                        and fused_spectral.launches == before + 4)
-                ok &= good
-                extra = ""
-                if dtype == "float32":
-                    # both against the f64 chain: the 3-pass TF32 split
-                    # within K7_F64_RATIO of the FP32 chain's own error
-                    pm_d = spectral._mm_solve(spec.S.double(),
-                                              spec.inv_den.double(),
-                                              qm.double())
-                    e_k = (pm_k - pm_d).abs().max().item() / scale
-                    e_r = (pm_r - pm_d).abs().max().item() / scale
-                    good &= e_k <= K7_F64_RATIO * e_r
-                    ok &= good
-                    extra = (f", against the f64 chain: kernel {e_k:.3e}, "
-                             f"cuBLAS FP32 {e_r:.3e}, ratio {e_k / e_r:.2f} "
-                             f"(limit {K7_F64_RATIO:g})")
-                    if (N, nl) == (1024, 4):
-                        main_err["fused_spectral_f64"] = (e_k, e_r)
-                    del pm_d
-                print(f"K7 check {dtype} N={N} nl={nl}: max|d psi_m|/"
-                      f"max|psi_m| = {rel:.3e} (limit {K7_LIMITS[isz]:g})"
-                      f"{extra} {'ok' if good else 'FAIL'}")
-                if dtype == "float32" and (N, nl) == (1024, 4):
-                    main_err["fused_spectral"] = abs_err
-                del spec, qm, pm_k, pm_r
+    if wanted("kernels"):
+        good1, errs = k1_mode_checks(QGConfig, False,
+                                     ("uncoupled",) + K1_OPTIONS)
+        main_err.update({("fused_rhs", n): e for n, e in errs.items()})
+        good2, main_err["fused_tracer"] = k2_checks(QGConfig, False)
+        good7, errs = k7_checks(False, [(N, nl) for N in (128, 512, 1024)
+                                        for nl in (1, 4)])
+        main_err.update(errs)
+        ok = good1 and good2 and good7
     if not ok:
         return 2
     print(f"kernel checks done at {time.perf_counter() - t_start:.0f} s")
@@ -1296,50 +1637,7 @@ def main() -> int:
                    ("mg mode_pv_invert", verron(QGConfig, 128, solver="mg",
                                                 mode_pv_invert=True))]
     for label, cfg in checks:
-        rng = np.random.default_rng(42)
-        psi0 = 1e-3 * rng.uniform(-1, 1, (cfg.nl, cfg.N, cfg.N))
-        fields, tr0 = {}, None
-        if label == "coupled":
-            fields = coupled_fields(cfg)
-            fields["qforc"] = 1e-5 * rng.standard_normal(psi0.shape)
-            tr0 = 1e-3 * rng.uniform(-1, 1, (cfg.nl, cfg.nptr, cfg.N, cfg.N))
-        step = qg.make_step(cfg)
-        states, cycles, launched = {}, {}, {}
-        for where in ("cpu", "cuda"):
-            const = qg.build_constants(cfg, device=where, **fields)
-            state = qg.init_state(cfg, const, psi0=psi0, tracers0=tr0)
-            before = fused_mg.sweep_launches, fused_mg.residual_launches
-            cycles[where] = []
-            for _ in range(20):
-                state, diag = step(state, const, 1e9)
-                cycles[where].append(diag.mg_iters)
-            states[where] = state
-            launched[where] = (fused_mg.sweep_launches - before[0],
-                               fused_mg.residual_launches - before[1])
-        names = ["q", "psi"] + (["tracers"] if tr0 is not None else [])
-        rels = {}
-        for name in names:
-            want = getattr(states["cpu"], name)
-            rels[name] = ((getattr(states["cuda"], name).cpu() - want)
-                          .abs().max() / want.abs().max()).item()
-        good = all(r <= STEP_LIMIT for r in rels.values())
-        extra = ""
-        if cfg.solver == "mg":
-            # the same V-cycles every step, through the kernels on the card
-            # only (each of the 40 solves: one K4 for the first residual and
-            # one a cycle, at least one cycle)
-            good &= (cycles["cuda"] == cycles["cpu"]
-                     and min(cycles["cuda"]) >= 1
-                     and launched["cpu"] == (0, 0)
-                     and launched["cuda"][0] > 0
-                     and launched["cuda"][1] >= 60 + sum(cycles["cuda"]))
-            extra = (f", V-cycles of the first solve cuda {cycles['cuda']} "
-                     f"cpu {cycles['cpu']}, K3/K4 launches "
-                     f"{launched['cuda']}")
-        print(f"step check {label} 128^2 x 3 f64, 20 steps cuda vs cpu: "
-              + ", ".join(f"rel {k} = {v:.3e}" for k, v in rels.items())
-              + f" (limit {STEP_LIMIT:g}){extra} {'ok' if good else 'FAIL'}")
-        if not good:
+        if not step_check(QGConfig, label, cfg, coupled=label == "coupled"):
             return 3
 
     # 4 and 5. the uncoupled main path and the coupled path at full size
@@ -1440,8 +1738,11 @@ def main() -> int:
         torch.cuda.empty_cache()
     print(f"full-size paths done at {time.perf_counter() - t_start:.0f} s")
 
-    # 6. the fused-solve path: 1024^2 x 4, K7 beside cuBLAS and the fold
-    if wanted("fused_mm") and not fused_mm_path(QGConfig, rows, main_err):
+    # 6. the fused-solve path: 1024^2 x 4, K7 beside cuBLAS and the fold;
+    # K7 on the periodic Fourier basis
+    if wanted("fused_mm") and not (
+            fused_mm_path(QGConfig, rows, main_err)
+            and k7_checks(True, [(128, 4), (1024, 4)])[0]):
         return 5
 
     # 7c. the multigrid path at full width
@@ -1461,6 +1762,46 @@ def main() -> int:
         if not node_paths(NodeQGConfig, rows, k5_err, k6_err):
             return 8
         print(f"node paths done at {time.perf_counter() - t_start:.0f} s")
+
+    # 9. the doubly periodic msqg: K1's and K2's periodic modes, the steps,
+    # the periodic coupled path
+    if wanted("periodic"):
+        good1, _ = k1_mode_checks(QGConfig, True,
+                                  ("uncoupled",) + K1_PERIODIC_OPTIONS)
+        good2, _ = k2_checks(QGConfig, True)
+        per = dict(sbc=-1.0, upg=(0.02, 0.01, 0.0), vpg=(0.01, -0.005, 0.0))
+        if not (good1 and good2
+                and step_check(QGConfig, "periodic uncoupled",
+                               verron(QGConfig, 128, sbc=-1.0))
+                and step_check(QGConfig, "periodic coupled",
+                               verron(QGConfig, 128, flsrv=1, **per,
+                                      **TRACERS), coupled=True)
+                and step_check(QGConfig, "periodic mg",
+                               verron(QGConfig, 128, sbc=-1.0,
+                                      solver="mg"))):
+            return 9
+        print(f"periodic checks done at {time.perf_counter() - t_start:.0f} "
+              "s")
+        if not periodic_path(QGConfig, rows):
+            return 9
+        print(f"periodic path done at {time.perf_counter() - t_start:.0f} s")
+
+    # 10. the stochastic msqg: K1's stochastic mode, walled and periodic,
+    # the step, bench.py's stochastic row
+    if wanted("stochastic"):
+        good_w, _ = k1_mode_checks(QGConfig, False, K1_STOCHASTIC_OPTIONS)
+        good_p, _ = k1_mode_checks(QGConfig, True, K1_STOCHASTIC_OPTIONS)
+        if not (good_w and good_p
+                and step_check(QGConfig, "stochastic (amp_stoch = 0)",
+                               verron(QGConfig, 128, stochastic=True,
+                                      tr_stoch=50.0, amp_stoch=0.0))):
+            return 10
+        print(f"stochastic checks done at "
+              f"{time.perf_counter() - t_start:.0f} s")
+        if not stochastic_path(QGConfig, rows):
+            return 10
+        print(f"stochastic path done at {time.perf_counter() - t_start:.0f} "
+              "s")
 
     print(f"total {time.perf_counter() - t_start:.0f} s")
     print("kernels: " + json.dumps(sorted({r["name"] for r in rows})))

@@ -6,11 +6,12 @@ take a `device` and run on "cuda" unless the caller passes "cpu"; the
 multigrid level builders (mg.build_layered_coeffs, vmg.build_vlevels) take
 the device of the coefficient fields they are given, else `device`.
 
-Ported so far: the msqg step for the walled configurations (free slip and
-partial slip) with the direct spectral inversion or the multigrid
-(solver="mg", layered or mode_pv_invert), uncoupled or coupled to a
-large-scale streamfunction, bottom topography, a 3-D forcing and passive
-tracers; and the qg-node family's walled step (models/qg_node.py: any
+Ported so far: the msqg step, walled (free slip and partial slip) or doubly
+periodic (sbc = -1), with the direct spectral inversion (periodic: rfft2 or
+the Fourier basis) or the multigrid (solver="mg", layered or
+mode_pv_invert), uncoupled or coupled to a large-scale streamfunction,
+bottom topography, a 3-D forcing and passive tracers, with or without
+stochastic forcing (a torch.Generator given to make_step); and the qg-node family's walled step (models/qg_node.py: any
 interior mask, partial-slip rings, the nodal spectral inversion or the
 masked vertex multigrid solvers/vmg.py). Seven hand-written Hopper kernels:
 the fused tendency (models/fused_rhs.py, csrc/fused_rhs.cu), the fused

@@ -7,8 +7,8 @@ the port; `state_to_numpy` is its inverse. msqg has no learned weights:
 every constant is derived from the config by `build_constants`.
 
 The `key` leaf, the JAX PRNG key, is ignored: only stochastic forcing draws
-from it, which is not ported, and a jax.random stream cannot be continued
-in torch. The `tracers` leaf (nl, nptr, N, N) and the multigrid warm
+from it, and a jax.random stream cannot be continued in torch; the port's
+stochastic step draws from the torch.Generator given to `qg.make_step`. The `tracers` leaf (nl, nptr, N, N) and the multigrid warm
 start's `psi_old` leaf (nl, N, N) are carried when present. Leaves of
 unported features (the filter mean qof/nbar) raise NotImplementedError.
 

@@ -1,9 +1,9 @@
 // Fused msqg tendency for Hopper (sm_90a): kernel K1 of the port.
 //
 // Replaces the Pallas TPU kernel `_rhs_kernel` (msom_tpu/models/pallas_rhs.py,
-// entry `rhs_fused`) for the walled configurations (free slip and partial
-// slip). From psi (nl, N, N) and the static coupling fields it computes, in
-// one pass over device memory,
+// entry `rhs_fused`): walls (free slip and partial slip) and the doubly
+// periodic domain. From psi (nl, N, N) and the static coupling fields it
+// computes, in one pass over device memory,
 //
 //   dq = -J(psi, zeta) + beta v                          (nl > 1 only)
 //      - J(pp, zeta)                                      (with pp)
@@ -22,8 +22,29 @@
 // the CFL controller, written per block to `umax_part` (nblocks, nl) and
 // reduced by the caller (the JAX code also takes that max outside its
 // kernel). With ENERGY_CONSERV advection (a `q` input) -J(psi, q) replaces
-// -J(psi, zeta) and -J(psi_l, psi_l+1) leaves Jc. An absent field is a null
+// -J(psi, zeta) and -J(psi_l, psi_l+1) leaves Jc. The stochastic variant
+// (the STOCHASTIC flag, with q; msqg/qg_stochastic.h:17-111) keeps
+// -J(psi, zeta) but in layer 0, drops -J(psi_l, psi_l+1) from Jc too, and
+// adds -q / tr_stoch (pallas_rhs.py:526-564). An absent field is a null
 // pointer, and its terms are skipped.
+//
+// The PERIODIC flag selects the doubly periodic kernel (a template case of
+// its own, so the walled kernels are the code they were): psi, q, zeta and
+// tmp have no wall and no ghost rule. Every input row is fetched modulo N,
+// and the x-halo columns of the first and the last strip come from the
+// other end of the row, so the halo cells of zeta and tmp are computed from
+// the wrapped psi like any other. Beside them run two other laws: pp has
+// the reference's custom non-wrap ghosts (msqg/qg.h:1105-1114), made at
+// build; zetap wraps, but its ring is lap(pp_pad) wrapped, which is not
+// lap(pp) at a wrapped position. So both are read padded, as the TPU
+// kernel reads them (pallas_rhs.py:234-243), from `pp` and `zetap` in the
+// layout of const.pp_t and const.zetap_t: (nl, N+2, N+8), pp_pad or
+// zetap_pad with three zero columns on either side, so that column gx of
+// the grid sits at gx + 4 of a row N + 8 long and the 16-byte chunks of
+// the input rings stay aligned. Their rows -1 .. N go into input rings of
+// their own, zetap's in place of the ring that the walled kernel computes.
+// The topography keeps its Neumann ghosts (pallas_rhs.py:723), as with
+// walls.
 //
 // Design: one block per column strip, marching down y (the TPU kernel's
 // "full-width row slabs with a halo only at the ends", cut to a strip).
@@ -95,6 +116,21 @@
 //     but not the topography.
 // All of the wall code runs in strips that touch a wall only (a test that
 // is uniform over the block); interior strips run none of it.
+// The periodic kernel's own hazards:
+//  8. The wrapped halo of a strip that holds the whole width or height
+//     (N < 128 or N <= 32) is the strip's own interior: it is fetched as an
+//     input into slots of its own (rows are slotted by their unwrapped
+//     index, -3 .. N + 2), never read from a ring slot that the march
+//     overwrites. A 16-byte chunk at x0 - 4 or past N - 1 wraps whole when
+//     N % V == 0 (else the copies are one element each). N >= 4: the halo
+//     wraps once.
+//  9. Three laws side by side: psi, q, zeta, tmp wrap; pp's and zetap's
+//     ghosts are data, copied with their rows and never fixed; topo is
+//     fixed by the Neumann rule as with walls.
+// 10. The CFL maxima include the faces between column N - 1 and column 0
+//     and between row N - 1 and row 0, through the wrapped neighbours.
+// 11. Stochastic (either kernel): layer 0 loses its self-advection only;
+//     beta and the pp terms stay, and -q / tr_stoch applies at nl > 1.
 //
 // Bound. At 2048^2 x 4 in f32 the compulsory traffic of the uncoupled
 // tendency is psi in and dq out, 2 * 4 * 2048^2 * 4 B = 134 MB, about 40 us
@@ -130,31 +166,36 @@ constexpr int ZW = TX + 4;               // zeta ring row:  col c = x0 - 2 + c
 constexpr int MW = TX + 2;               // tmp ring row:   col c = x0 - 1 + c
 
 // Order of the device pointers handed to the C entry points.
-enum Ptr { PSI, STRL, WIND, DQ, UMAX, PP, Q, TOPO, IRO, QFORC, NPTRS };
+enum Ptr { PSI, STRL, WIND, DQ, UMAX, PP, Q, TOPO, IRO, QFORC, ZETAP, NPTRS };
+
+// Bits of the launch's `flags`.
+enum Flag { FLSRV = 1, PERIODIC = 2, STOCHASTIC = 4 };
 
 // The scalars of a launch, rounded to T once on the host, and flags for
 // the terms that are on.
 template <typename T>
 struct Params {
   int N, nl, flsrv, vec, has_re, has_re4, has_ekt, has_ekb;
-  T id2, i12d2, i2d, beta, iRe, iRe4, ek_top, ek_bot, cslip;
+  T id2, i12d2, i2d, beta, iRe, iRe4, ek_top, ek_bot, cslip, itr_stoch;
   T idh0[MAXL], idh1[MAXL];
 };
 
 template <typename T>
 struct Fields {
-  const T *psi, *strl, *wind, *pp, *q, *topo, *iro, *qforc;
+  const T *psi, *strl, *wind, *pp, *q, *topo, *iro, *qforc, *zetap;
   T *dq, *umax_part;
 };
 
 // Shared memory of one block, in elements: the input rings first (their
-// rows are 16-byte aligned for cp.async), then the derived rings and the
-// per-thread CFL maxima.
-size_t smem_cells(int nl, int has_pg, int flsrv, int has_q, int has_topo) {
-  const size_t in_planes = (size_t)nl * (1 + (has_pg ? 1 : 0) + (has_q ? 1 : 0))
-                         + (has_topo ? 1 : 0);
+// rows are 16-byte aligned for cp.async; the periodic kernel's zetap is
+// one), then the derived rings and the per-thread CFL maxima.
+size_t smem_cells(int nl, int has_pg, int flsrv, int has_q, int has_topo,
+                  int per) {
+  const size_t in_planes =
+      (size_t)nl * (1 + (has_pg ? 1 : 0) + (has_q ? 1 : 0)
+                    + (flsrv && per ? 1 : 0)) + (has_topo ? 1 : 0);
   return in_planes * RP * PW + (size_t)nl * RZ * ZW
-       + (size_t)nl * RM * MW * (flsrv ? 2 : 1) + (size_t)nl * NTH;
+       + (size_t)nl * RM * MW * (flsrv && !per ? 2 : 1) + (size_t)nl * NTH;
 }
 
 __device__ __forceinline__ int slot(int r, int R) {
@@ -202,6 +243,49 @@ __device__ __forceinline__ void issue_row(T* ring, const T* __restrict__ src,
     const int l = k / CW, j = k - l * CW, gx = x0 - XH + j * V;
     if (gx >= 0 && gx < N)
       cp_async<int(V * sizeof(T))>(dst + l * PW + j * V, s + l * NN + gx);
+  }
+}
+
+// Periodic: the copies of input row r, taken modulo N, into its ring; the
+// x-halo columns of the first and the last strip come from the other end of
+// the row (hazard 8). Chunks start at multiples of V and N % V == 0, so a
+// chunk wraps whole; columns past N + 3 are never read and not fetched.
+template <typename T, int V>
+__device__ __forceinline__ void issue_row_wrap(T* ring,
+                                               const T* __restrict__ src,
+                                               int np, int r, int x0, int N,
+                                               int tid) {
+  constexpr int CW = PW / V;
+  const size_t NN = (size_t)N * N;
+  T* dst = ring + slot(r, RP) * np * PW;
+  const int rw = r < 0 ? r + N : (r >= N ? r - N : r);
+  const T* s = src + (size_t)rw * N;
+  for (int k = tid; k < np * CW; k += NTH) {
+    const int l = k / CW, j = k - l * CW, gx = x0 - XH + j * V;
+    if (gx >= N + XH) continue;
+    const int gw = gx < 0 ? gx + N : (gx >= N ? gx - N : gx);
+    cp_async<int(V * sizeof(T))>(dst + l * PW + j * V, s + l * NN + gw);
+  }
+}
+
+// Periodic pp and zetap: row r (-1 .. N) of a padded field in the layout
+// (np, N + 2, N + 8), grid column gx at gx + 4 (hazard 9). A chunk starts
+// at a multiple of V in a row whose length is one, so it stays aligned;
+// columns past N + 3 lie past the row and are never read.
+template <typename T, int V>
+__device__ __forceinline__ void issue_row_pad(T* ring,
+                                              const T* __restrict__ src,
+                                              int np, int r, int x0, int N,
+                                              int tid) {
+  constexpr int CW = PW / V;
+  const size_t P = (size_t)N + 2 * XH;
+  T* dst = ring + slot(r, RP) * np * PW;
+  const T* s = src + (size_t)(r + 1) * P + XH;
+  for (int k = tid; k < np * CW; k += NTH) {
+    const int l = k / CW, j = k - l * CW, gx = x0 - XH + j * V;
+    if (gx < N + XH)
+      cp_async<int(V * sizeof(T))>(dst + l * PW + j * V,
+                                   s + l * (N + 2) * P + gx);
   }
 }
 
@@ -290,14 +374,16 @@ __device__ __forceinline__ T gamma_at(const T* a, int plane, int l, int nl,
 // with cslip != 0 the edge ghosts cslip * (parent interior - parent ghost)
 // instead (hazard 6). With nl a compile-time NL every layer's loads come
 // before the first store, which a store through a generic pointer would
-// otherwise hold back.
-template <typename T, int NL, int W, int R, int h, int PWP, int R_PAR, int hp>
+// otherwise hold back. PER: the periodic kernel, where every cell of the
+// ring row is computed from the wrapped parent and no ghost is written.
+template <typename T, int NL, int W, int R, int h, int PWP, int R_PAR, int hp,
+          bool PER>
 __device__ __forceinline__ void lap_cell(T* f, const T* par, int gy, int c,
                                          int x0, int nl, int N, bool edge,
                                          T id2, T cslip) {
   constexpr int off = hp - h;
   const int gx = x0 - h + c;
-  if (!interior(gx, N)) return;
+  if (!PER && !interior(gx, N)) return;
   const T* pm = par + slot(gy - 1, R_PAR) * nl * PWP;
   const T* p0 = par + slot(gy, R_PAR) * nl * PWP;
   const T* pp = par + slot(gy + 1, R_PAR) * nl * PWP;
@@ -318,7 +404,7 @@ __device__ __forceinline__ void lap_cell(T* f, const T* par, int gy, int c,
     }
   }
   const bool top = gy == 0, bot = gy == N - 1;
-  if (!(edge && (top || bot || gx == 0 || gx == N - 1))) return;
+  if (PER || !(edge && (top || bot || gx == 0 || gx == N - 1))) return;
   // the ghosts of a cell next to a wall, from the values just written
   T* fu = f + slot(gy - 1, R) * nl * W;
   T* fd = f + slot(gy + 1, R) * nl * W;
@@ -345,40 +431,48 @@ __device__ __forceinline__ void lap_cell(T* f, const T* par, int gy, int c,
 // the one of its output; the 2h halo columns go to the last lane of warps
 // 0 .. 2h - 1, so that no warp takes two of them, and in a strip at an
 // x-wall the wall cell's ghosts fall to the first or the last warp alone.
-template <typename T, int NL, int W, int R, int h, int PWP, int R_PAR, int hp>
+template <typename T, int NL, int W, int R, int h, int PWP, int R_PAR, int hp,
+          bool PER>
 __device__ __forceinline__ void lap_row(T* f, const T* par, int gy, int x0,
                                         int nl, int N, bool edge, T id2,
                                         T cslip, int tid) {
   static_assert(W == NTH + 2 * h && 2 * h <= NTH / 32, "halo lanes");
-  lap_cell<T, NL, W, R, h, PWP, R_PAR, hp>(f, par, gy, tid + h, x0, nl, N,
-                                           edge, id2, cslip);
+  lap_cell<T, NL, W, R, h, PWP, R_PAR, hp, PER>(f, par, gy, tid + h, x0, nl,
+                                                N, edge, id2, cslip);
   const int e = tid >> 5;
   if ((tid & 31) == 31 && e < 2 * h)
-    lap_cell<T, NL, W, R, h, PWP, R_PAR, hp>(f, par, gy, e < h ? e : NTH + e,
-                                             x0, nl, N, edge, id2, cslip);
+    lap_cell<T, NL, W, R, h, PWP, R_PAR, hp, PER>(
+        f, par, gy, e < h ? e : NTH + e, x0, nl, N, edge, id2, cslip);
 }
 
-// COUPLED = false is the uncoupled free-slip tendency: every coupling term
-// below is compiled out, which keeps that launch at its registers and its
-// speed. COUPLED = true takes the options at run time from the null
-// pointers of F and from p.cslip and p.flsrv.
-template <typename T, bool COUPLED, int NL>
+// COUPLED = false is the uncoupled free-slip (or periodic) tendency: every
+// coupling term below is compiled out, which keeps that launch at its
+// registers and its speed. COUPLED = true takes the options at run time
+// from the null pointers of F and from p.cslip and p.flsrv. PER = true is
+// the periodic kernel (hazards 8-10), STOCH = true (with COUPLED, q given)
+// the stochastic variant (hazard 11): template cases of their own, so the
+// walled kernels are the code they were.
+template <typename T, bool COUPLED, int NL, bool PER, bool STOCH>
 __global__ void __launch_bounds__(NTH, COUPLED ? 3 : 4)
 rhs_kernel(const Fields<T> F, const Params<T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int N = p.N, nl = NL > 0 ? NL : p.nl;
   const bool has_pg = COUPLED && F.pp != nullptr;
   const bool flsrv = COUPLED && p.flsrv != 0;
+  constexpr bool stoch = COUPLED && STOCH;
   const bool has_q = COUPLED && F.q != nullptr;
   const bool has_topo = COUPLED && F.topo != nullptr;
   T* sp = reinterpret_cast<T*>(smem_raw);          // psi   (RP, nl, PW)
   T* spp = sp + RP * nl * PW;                       // pp    (RP, nl, PW)
   T* sq = spp + (has_pg ? RP * nl * PW : 0);        // q     (RP, nl, PW)
   T* st = sq + (has_q ? RP * nl * PW : 0);          // topo  (RP, 1, PW)
-  T* sz = st + (has_topo ? RP * PW : 0);            // zeta  (RZ, nl, ZW)
+  T* szi = st + (has_topo ? RP * PW : 0);           // periodic zetap
+  //                                                   (RP, nl, PW)
+  T* sz = szi + (PER && flsrv ? RP * nl * PW : 0);  // zeta  (RZ, nl, ZW)
   T* sm = sz + RZ * nl * ZW;                        // tmp   (RM, nl, MW)
-  T* szp = sm + RM * nl * MW;                       // zetap (RM, nl, MW)
-  T* smax = szp + (flsrv ? RM * nl * MW : 0);       // CFL   (nl, NTH)
+  T* szp = PER ? szi : sm + RM * nl * MW;           // zetap (RM, nl, MW)
+  T* smax = sm + RM * nl * MW
+          + (flsrv && !PER ? RM * nl * MW : 0);     // CFL   (nl, NTH)
   const int ncells = static_cast<int>(smax - sp) + nl * NTH;
 
   const int tid = threadIdx.x;
@@ -403,25 +497,41 @@ rhs_kernel(const Fields<T> F, const Params<T> p) {
       f(std::integral_constant<int, 1>());
   };
   // the copies of input row r (the rows [y0 - 3, y1 + 2] that lie in the
-  // grid) and, once they have landed, the ghosts they feed
+  // grid; periodic: all of them, wrapped, pp's and zetap's rows -1 .. N
+  // and topo's that lie in the grid) and, once they have landed, the
+  // ghosts they feed (periodic: topo's only)
   auto load = [&](int r) {
-    if (r < 0 || r >= N || r > y1 + 2) return;
+    if (r > y1 + 2 || (!PER && (r < 0 || r >= N))) return;
     with_v([&](auto v) {
       constexpr int V = decltype(v)::value;
-      issue_row<T, V>(sp, F.psi, nl, r, x0, N, tid);
-      if (has_pg) issue_row<T, V>(spp, F.pp, nl, r, x0, N, tid);
-      if (has_q) issue_row<T, V>(sq, F.q, nl, r, x0, N, tid);
-      if (has_topo) issue_row<T, V>(st, F.topo, 1, r, x0, N, tid);
+      if constexpr (PER) {
+        issue_row_wrap<T, V>(sp, F.psi, nl, r, x0, N, tid);
+        if (has_pg && r >= -1 && r <= N) {
+          issue_row_pad<T, V>(spp, F.pp, nl, r, x0, N, tid);
+          if (flsrv) issue_row_pad<T, V>(szp, F.zetap, nl, r, x0, N, tid);
+        }
+        if (has_q) issue_row_wrap<T, V>(sq, F.q, nl, r, x0, N, tid);
+        if (has_topo && interior(r, N))
+          issue_row<T, V>(st, F.topo, 1, r, x0, N, tid);
+      } else {
+        issue_row<T, V>(sp, F.psi, nl, r, x0, N, tid);
+        if (has_pg) issue_row<T, V>(spp, F.pp, nl, r, x0, N, tid);
+        if (has_q) issue_row<T, V>(sq, F.q, nl, r, x0, N, tid);
+        if (has_topo) issue_row<T, V>(st, F.topo, 1, r, x0, N, tid);
+      }
     });
   };
   auto fix = [&](int r) {
     if (!(xwall || r == 0 || r == N - 1) || r < 0 || r >= N || r > y1 + 2)
       return;
+    if (PER && !has_topo) return;
     with_v([&](auto v) {
       constexpr int V = decltype(v)::value;
-      fix_row<T, V>(sp, nl, r, x0, N, tid, T(-1));
-      if (has_pg) fix_row<T, V>(spp, nl, r, x0, N, tid, T(-1));
-      if (has_q) fix_row<T, V>(sq, nl, r, x0, N, tid, T(-1));
+      if constexpr (!PER) {
+        fix_row<T, V>(sp, nl, r, x0, N, tid, T(-1));
+        if (has_pg) fix_row<T, V>(spp, nl, r, x0, N, tid, T(-1));
+        if (has_q) fix_row<T, V>(sq, nl, r, x0, N, tid, T(-1));
+      }
       if (has_topo) fix_row<T, V>(st, 1, r, x0, N, tid, T(1));
     });
   };
@@ -450,17 +560,17 @@ rhs_kernel(const Fields<T> F, const Params<T> p) {
     cp_async_commit();
 
     // zeta row s
-    if (s <= y1 + 1 && interior(s, N))
-      lap_row<T, NL, ZW, RZ, 2, PW, RP, XH>(sz, sp, s, x0, nl, N, edge,
-                                            id2, cslip, tid);
+    if (s <= y1 + 1 && (PER || interior(s, N)))
+      lap_row<T, NL, ZW, RZ, 2, PW, RP, XH, PER>(sz, sp, s, x0, nl, N, edge,
+                                                 id2, cslip, tid);
     // tmp (and zetap) row s - 2
     const int t = s - 2;
-    if (t >= y0 - 1 && t <= y1 && interior(t, N)) {
-      lap_row<T, NL, MW, RM, 1, ZW, RZ, 2>(sm, sz, t, x0, nl, N, edge, id2,
-                                           cslip, tid);
-      if (flsrv)
-        lap_row<T, NL, MW, RM, 1, PW, RP, XH>(szp, spp, t, x0, nl, N, edge,
-                                              id2, T(0), tid);
+    if (t >= y0 - 1 && t <= y1 && (PER || interior(t, N))) {
+      lap_row<T, NL, MW, RM, 1, ZW, RZ, 2, PER>(sm, sz, t, x0, nl, N, edge,
+                                                id2, cslip, tid);
+      if (flsrv && !PER)
+        lap_row<T, NL, MW, RM, 1, PW, RP, XH, PER>(szp, spp, t, x0, nl, N,
+                                                   edge, id2, T(0), tid);
     }
 
     // the outputs of row s - 4, layer by layer
@@ -492,10 +602,10 @@ rhs_kernel(const Fields<T> F, const Params<T> p) {
         T acc = T(0);
         if (nl > 1) {   // hazard 7
           const Nb<T> zn = nb3(Zm + lz, Z, Zp + lz);
-          if (has_q)
+          if (has_q && !stoch)
             acc = mjac(pn, nb3(sq + kpm + lp, sq + kp0 + lp, sq + kpp + lp),
                        i12d2);
-          else
+          else if (!(stoch && l == 0))   // hazard 11
             acc = mjac(pn, zn, i12d2);
           acc += p.beta * (pn.w - pn.e) * i2d;
           Nb<T> qn;
@@ -516,9 +626,13 @@ rhs_kernel(const Fields<T> F, const Params<T> p) {
           }
           if (l > 0) acc -= sprev * jprev * p.idh0[l];
           jprev = jnext;
-          if (flsrv)
+          if (flsrv && PER)
+            acc += mjac(pn, nb3(szp + kpm + lp, szp + kp0 + lp,
+                                szp + kpp + lp), i12d2);
+          else if (flsrv)
             acc += mjac(pn, nb3(szp + kmm + lm, szp + km0 + lm,
                                 szp + kmp + lm), i12d2);
+          if (stoch) acc -= sq[kp0 + lp] * p.itr_stoch;
         }
         if (p.has_re) {
           acc += p.iRe * M[0];
@@ -603,13 +717,17 @@ bool aligned16(const void* ptr) {
 }
 
 template <typename T>
-int launch(const void* const* ptrs, int N, int nl, int flsrv,
+int launch(const void* const* ptrs, int N, int nl, int flags,
            const double* scal, const double* idh0, const double* idh1,
            void* stream) {
-  if (nl < 1 || nl > MAXL || N < 1) return (int)cudaErrorInvalidValue;
+  const bool flsrv = flags & FLSRV, per = flags & PERIODIC,
+             stoch = flags & STOCHASTIC;
+  if (nl < 1 || nl > MAXL || N < 1 || (per && N < 4))
+    return (int)cudaErrorInvalidValue;
   if (!ptrs[PSI] || !ptrs[WIND] || !ptrs[DQ] || !ptrs[UMAX]
       || (nl > 1 && !ptrs[STRL]) || (flsrv && !ptrs[PP])
-      || (ptrs[TOPO] && !ptrs[IRO]))
+      || (flsrv && per && !ptrs[ZETAP]) || (ptrs[TOPO] && !ptrs[IRO])
+      || (stoch && !ptrs[Q]) || (per && scal[6] != 0.0))
     return (int)cudaErrorInvalidValue;
   Fields<T> F;
   F.psi = static_cast<const T*>(ptrs[PSI]);
@@ -620,16 +738,18 @@ int launch(const void* const* ptrs, int N, int nl, int flsrv,
   F.topo = static_cast<const T*>(ptrs[TOPO]);
   F.iro = static_cast<const T*>(ptrs[IRO]);
   F.qforc = static_cast<const T*>(ptrs[QFORC]);
+  F.zetap = static_cast<const T*>(ptrs[ZETAP]);
   F.dq = static_cast<T*>(const_cast<void*>(ptrs[DQ]));
   F.umax_part = static_cast<T*>(const_cast<void*>(ptrs[UMAX]));
   Params<T> p;
   p.N = N;
   p.nl = nl;
-  p.flsrv = flsrv != 0;
+  p.flsrv = flsrv;
   // 16-byte copies need every input row to start on 16 bytes
   p.vec = N % (16 / (int)sizeof(T)) == 0 && aligned16(F.psi)
        && (!F.pp || aligned16(F.pp)) && (!F.q || aligned16(F.q))
-       && (!F.topo || aligned16(F.topo));
+       && (!F.topo || aligned16(F.topo))
+       && (!F.zetap || aligned16(F.zetap));
   const double delta = scal[0];
   p.id2 = T(1.0 / (delta * delta));
   p.i12d2 = T(1.0 / (12.0 * delta * delta));
@@ -640,6 +760,7 @@ int launch(const void* const* ptrs, int N, int nl, int flsrv,
   p.ek_top = T(scal[4]);
   p.ek_bot = T(scal[5]);
   p.cslip = T(scal[6]);
+  p.itr_stoch = T(scal[7]);
   p.has_re = scal[2] != 0.0;
   p.has_re4 = scal[3] != 0.0;
   p.has_ekt = scal[4] != 0.0;
@@ -651,12 +772,23 @@ int launch(const void* const* ptrs, int N, int nl, int flsrv,
   const bool coupled = F.pp || F.q || F.topo || F.qforc || scal[6] != 0.0;
   const size_t smem = sizeof(T) * smem_cells(nl, F.pp != nullptr, p.flsrv,
                                              F.q != nullptr,
-                                             F.topo != nullptr);
-  if (nl == 4)
-    return coupled ? run(rhs_kernel<T, true, 4>, F, p, smem, stream)
-                   : run(rhs_kernel<T, false, 4>, F, p, smem, stream);
-  return coupled ? run(rhs_kernel<T, true, 0>, F, p, smem, stream)
-                 : run(rhs_kernel<T, false, 0>, F, p, smem, stream);
+                                             F.topo != nullptr, per);
+  // the kernel of this option set: walled or periodic, stochastic or not,
+  // coupled or not, nl = 4 or a run-time nl
+  auto pick = [&](auto per_c, auto stoch_c) {
+    constexpr bool P = decltype(per_c)::value, S = decltype(stoch_c)::value;
+    if (nl == 4)
+      return coupled ? run(rhs_kernel<T, true, 4, P, S>, F, p, smem, stream)
+                     : run(rhs_kernel<T, false, 4, P, false>, F, p, smem,
+                           stream);
+    return coupled ? run(rhs_kernel<T, true, 0, P, S>, F, p, smem, stream)
+                   : run(rhs_kernel<T, false, 0, P, false>, F, p, smem,
+                         stream);
+  };
+  using yes = std::true_type;
+  using no = std::false_type;
+  if (per) return stoch ? pick(yes(), yes()) : pick(yes(), no());
+  return stoch ? pick(no(), yes()) : pick(no(), no());
 }
 
 }  // namespace
@@ -668,30 +800,35 @@ int fused_rhs_num_blocks(int N) {
   return ((N + TX - 1) / TX) * ((N + SY - 1) / SY);
 }
 
-// Dynamic shared memory of one block, in bytes, for an option set.
+// Dynamic shared memory of one block, in bytes, for an option set (periodic
+// != 0: the periodic kernel).
 long long fused_rhs_smem_bytes(int nl, int itemsize, int has_pg, int flsrv,
-                               int has_q, int has_topo) {
+                               int has_q, int has_topo, int periodic) {
   return (long long)itemsize
-       * (long long)smem_cells(nl, has_pg, flsrv, has_q, has_topo);
+       * (long long)smem_cells(nl, has_pg, flsrv, has_q, has_topo, periodic);
 }
 
 // ptrs = device pointers in the order of `Ptr` (psi, strl, wind, dq,
-// umax_part, pp, q, topo, iro, qforc), null where a field is absent: pp
-// switches the large-scale coupling on, q ENERGY_CONSERV advection, topo
-// (with iro) the topography, qforc the forcing. flsrv != 0 adds _LS_RV
-// (needs pp). scal = {delta, beta, iRe, iRe4, ek_top, ek_bot, cslip};
-// idh0/idh1 host arrays of nl doubles. Launches on `stream` and returns
-// the CUDA error code of the launch (0 on success).
-int fused_rhs_f32(const void* const* ptrs, int N, int nl, int flsrv,
+// umax_part, pp, q, topo, iro, qforc, zetap), null where a field is absent:
+// pp switches the large-scale coupling on (in the periodic kernel pp_t,
+// (nl, N+2, N+8)), q ENERGY_CONSERV advection or with STOCHASTIC the
+// stochastic variant, topo (with iro) the topography, qforc the forcing,
+// zetap (periodic with FLSRV only) zetap_t. flags: FLSRV adds _LS_RV
+// (needs pp), PERIODIC the doubly periodic kernel (N >= 4, no slip),
+// STOCHASTIC the stochastic variant (needs q). scal = {delta, beta, iRe,
+// iRe4, ek_top, ek_bot, cslip, itr_stoch}; idh0/idh1 host arrays of nl
+// doubles. Launches on `stream` and returns the CUDA error code of the
+// launch (0 on success).
+int fused_rhs_f32(const void* const* ptrs, int N, int nl, int flags,
                   const double* scal, const double* idh0, const double* idh1,
                   void* stream) {
-  return launch<float>(ptrs, N, nl, flsrv, scal, idh0, idh1, stream);
+  return launch<float>(ptrs, N, nl, flags, scal, idh0, idh1, stream);
 }
 
-int fused_rhs_f64(const void* const* ptrs, int N, int nl, int flsrv,
+int fused_rhs_f64(const void* const* ptrs, int N, int nl, int flags,
                   const double* scal, const double* idh0, const double* idh1,
                   void* stream) {
-  return launch<double>(ptrs, N, nl, flsrv, scal, idh0, idh1, stream);
+  return launch<double>(ptrs, N, nl, flags, scal, idh0, idh1, stream);
 }
 
 const char* fused_rhs_error_string(int code) {

@@ -1,7 +1,8 @@
 // Fused passive-tracer tendency for Hopper (sm_90a): kernel K2 of the port.
 //
 // Replaces the Pallas TPU kernel `_tracer_kernel`
-// (msom_tpu/models/pallas_rhs.py, entry `tracer_fused`) for walled domains.
+// (msom_tpu/models/pallas_rhs.py, entry `tracer_fused`), walled and doubly
+// periodic.
 // For the nl * nptr tracer planes c_k, k = l * nptr + j (the flattening of
 // the (nl, nptr, N, N) state: layer l = k / nptr, tracer j = k % nptr), it
 // computes in one pass over device memory
@@ -11,7 +12,8 @@
 // (ptr_rhs, msqg/qg.h:573-588), or -ir_j * c_k without a relaxation field.
 // -J is the 12-point Arakawa bracket. psi has Dirichlet ghosts (ghost =
 // -interior, corners +interior), the tracers Neumann ghosts (ghost =
-// +interior on both axes, corners included).
+// +interior on both axes, corners included). In the periodic run (a kernel
+// of its own, `tracer_kernel<.., true>`) both wrap (pallas_rhs.py:797-799).
 //
 // Design: one block per column strip of one layer, marching down y (the
 // design of K1, csrc/fused_rhs.cu, for a 3 x 3 stencil with no derived
@@ -57,8 +59,7 @@
 //     N - 1 replaces its west or east neighbours by sign * its own column's
 //     values of the three rows (`wall_x`); at a corner that value is the
 //     ghost row's, so the corner composes x after y (+interior for both
-//     fields). A periodic mode would put the wrap there in place of the
-//     reflection.
+//     fields).
 //  3. Slots: at step s the ring holds rows s - 1 .. s + 1 (read), s + 2
 //     (landing, its ghosts written at the step's end), s + 3 and s + 4
 //     (issued); the ghost row N, written with row N - 1 = s + 2, takes row
@@ -71,6 +72,14 @@
 //     that is read.
 //  5. The wall code runs in strips that touch a wall only, by a test that is
 //     uniform over the block; interior strips run none of it.
+//  6. Periodic: no ghost is written. The strips at an edge (`march<..,
+//     WRAP>`) fetch their rows modulo N and their x-halo chunks from the
+//     other end of the row; a chunk starts at a multiple of V and N % V == 0,
+//     so it wraps whole (else one element a copy). A strip that holds the
+//     whole width or height (N <= 128, N <= 32) fetches its wrapped halo as
+//     inputs into ring slots of their own: rows are slotted by their
+//     unwrapped index, -1 .. N. The other strips run the interior march.
+//     N >= 4: the halo wraps once.
 //
 // Bound. Bytes: psi (nl planes) and the tracers (nl * nptr) read, dtr
 // (nl * nptr) written, the relaxation field (nl * nptr) read where there is
@@ -152,17 +161,20 @@ struct Chunks {
 
 // Issue the copies of input row r of the np planes (psi_l, then the
 // tracers of layer l, NN apart) into its ring slot.
-template <typename T, int V>
+// WRAP (hazard 6): row r and the columns taken modulo N.
+template <typename T, int V, bool WRAP>
 __device__ __forceinline__ void issue_row(T* ring, const T* __restrict__ psi,
                                           const T* __restrict__ tr, int np,
                                           int r, int x0, int N, size_t NN,
                                           int tid) {
   using C = Chunks<V>;
   T* dst = ring + slot(r) * np * PW;
-  const size_t ro = (size_t)r * N;
+  const int rw = !WRAP ? r : r < 0 ? r + N : (r >= N ? r - N : r);
+  const size_t ro = (size_t)rw * N;
   for (int k = tid; k < np * C::CW; k += NTH) {
     const int pl = k / C::CW, j = C::J0 + k - pl * C::CW;
-    const int gx = x0 - XH + j * V;
+    int gx = x0 - XH + j * V;
+    if (WRAP) gx = gx < 0 ? gx + N : (gx >= N ? gx - N : gx);
     if (gx >= 0 && gx < N) {
       const T* src = (pl == 0 ? psi : tr + (pl - 1) * NN) + ro + gx;
       cp_async<int(V * sizeof(T))>(dst + pl * PW + j * V, src);
@@ -239,11 +251,14 @@ __device__ __forceinline__ T mjac(const Nb<T>& p, const Nb<T>& q, T i12d2) {
 
 // The march of one strip, rows [y0, y1) of columns from x0, layer l.
 // NPT = 2 unrolled, NPT = 0 a loop over p.nptr. WALLS = false compiles the
-// wall code out, for the strips that touch no wall (hazard 5).
-template <typename T, int NPT, bool WALLS>
+// wall code out, for the strips that touch no wall (hazard 5). WRAP: a
+// periodic strip at an edge, no wall code, every row and column fetched
+// modulo N (hazard 6).
+template <typename T, int NPT, bool WALLS, bool WRAP = false>
 __device__ __forceinline__ void march(const Fields<T>& F, const Params<T>& p,
                                       T* ring, int x0, int y0, int y1,
                                       int l) {
+  static_assert(!(WALLS && WRAP), "a strip has walls or wraps");
   const int N = p.N, nptr = NPT > 0 ? NPT : p.nptr, np = 1 + nptr;
   const int tid = threadIdx.x;
   const size_t NN = (size_t)N * N;
@@ -258,12 +273,13 @@ __device__ __forceinline__ void march(const Fields<T>& F, const Params<T>& p,
     else
       f(std::integral_constant<int, 1>());
   };
-  // the copies of row r (the rows [y0 - 1, y1] that lie in the grid) and,
-  // once they have landed, the ghosts they feed
+  // the copies of row r (the rows [y0 - 1, y1] that lie in the grid, all
+  // of them with WRAP) and, once they have landed, the ghosts they feed
   auto load = [&](int r) {
-    if (r < 0 || r >= N || r > y1) return;
+    if ((!WRAP && (r < 0 || r >= N)) || r > y1) return;
     with_v([&](auto v) {
-      issue_row<T, decltype(v)::value>(ring, psi, tr, np, r, x0, N, NN, tid);
+      issue_row<T, decltype(v)::value, WRAP>(ring, psi, tr, np, r, x0, N, NN,
+                                             tid);
     });
   };
   auto fix = [&](int r) {
@@ -341,7 +357,8 @@ __device__ __forceinline__ void march(const Fields<T>& F, const Params<T>& p,
   cp_async_wait<0>();
 }
 
-template <typename T, int NPT>
+// PER: the periodic kernel, whose edge strips wrap (hazard 6).
+template <typename T, int NPT, bool PER>
 __global__ void __launch_bounds__(NTH)
 tracer_kernel(const Fields<T> F, const Params<T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -351,8 +368,10 @@ tracer_kernel(const Fields<T> F, const Params<T> p) {
   const int y1 = min(y0 + p.rows, N);             // output rows [y0, y1)
   // a strip that reads a ghost row or holds column 0 or N - 1 (hazard 5)
   const bool edge = x0 == 0 || x0 + TX >= N || y0 == 0 || y1 == N;
-  if (edge)
-    march<T, NPT, true>(F, p, ring, x0, y0, y1, l);
+  if (PER && edge)
+    march<T, NPT, false, true>(F, p, ring, x0, y0, y1, l);
+  else if (edge)
+    march<T, NPT, !PER>(F, p, ring, x0, y0, y1, l);
   else
     march<T, NPT, false>(F, p, ring, x0, y0, y1, l);
 }
@@ -376,11 +395,12 @@ template <typename T>
 int launch(const void* psi, const void* tr, const void* relax, void* dtr,
            int N, int nl, int nptr, double delta, const double* iPe,
            const double* ir, int rows, int grid_x, int grid_y,
-           long long smem, void* stream) {
+           long long smem, int periodic, void* stream) {
   // the caller's geometry must cover the planes with whole strips of TX
   // columns and `rows` rows, the last keeping the remainder, and give the
   // ring its shared memory
   if (nl < 1 || nl > 65535 || nptr < 1 || nptr > MAXTR || N < 1
+      || (periodic && N < 4)
       || !psi || !tr || !dtr || rows < 1
       || grid_x != (N + TX - 1) / TX || grid_y != (N + rows - 1) / rows
       || smem < (long long)(sizeof(T) * smem_cells(nptr)))
@@ -403,8 +423,13 @@ int launch(const void* psi, const void* tr, const void* relax, void* dtr,
     p.ir[j] = T(j < nptr ? ir[j] : 0.0);
   }
   const dim3 grid(grid_x, grid_y, nl);
-  if (nptr == 2) return run(tracer_kernel<T, 2>, F, p, grid, smem, stream);
-  return run(tracer_kernel<T, 0>, F, p, grid, smem, stream);
+  if (periodic)
+    return nptr == 2
+               ? run(tracer_kernel<T, 2, true>, F, p, grid, smem, stream)
+               : run(tracer_kernel<T, 0, true>, F, p, grid, smem, stream);
+  return nptr == 2
+             ? run(tracer_kernel<T, 2, false>, F, p, grid, smem, stream)
+             : run(tracer_kernel<T, 0, false>, F, p, grid, smem, stream);
 }
 
 }  // namespace
@@ -417,22 +442,24 @@ int fused_tracer_max_nptr() { return MAXTR; }
 // psi (nl, N, N), tr and dtr (nl * nptr, N, N), relax the same or null;
 // iPe and ir host arrays of nptr doubles; device pointers on `stream`;
 // strips of `rows` rows on a grid_x x grid_y x nl grid with `smem` bytes
-// of shared memory a block. Returns the CUDA error code of the launch (0
-// on success).
+// of shared memory a block; periodic != 0 wraps every field (N >= 4).
+// Returns the CUDA error code of the launch (0 on success).
 int fused_tracer_f32(const void* psi, const void* tr, const void* relax,
                      void* dtr, int N, int nl, int nptr, double delta,
                      const double* iPe, const double* ir, int rows,
-                     int grid_x, int grid_y, long long smem, void* stream) {
+                     int grid_x, int grid_y, long long smem, int periodic,
+                     void* stream) {
   return launch<float>(psi, tr, relax, dtr, N, nl, nptr, delta, iPe, ir,
-                       rows, grid_x, grid_y, smem, stream);
+                       rows, grid_x, grid_y, smem, periodic, stream);
 }
 
 int fused_tracer_f64(const void* psi, const void* tr, const void* relax,
                      void* dtr, int N, int nl, int nptr, double delta,
                      const double* iPe, const double* ir, int rows,
-                     int grid_x, int grid_y, long long smem, void* stream) {
+                     int grid_x, int grid_y, long long smem, int periodic,
+                     void* stream) {
   return launch<double>(psi, tr, relax, dtr, N, nl, nptr, delta, iPe, ir,
-                        rows, grid_x, grid_y, smem, stream);
+                        rows, grid_x, grid_y, smem, periodic, stream);
 }
 
 const char* fused_tracer_error_string(int code) {

@@ -2,9 +2,11 @@
 
 `tracer_fused(cfg, const, psi, tracers) -> dtr` computes what the JAX
 package's Pallas kernel (`msom_tpu.models.pallas_rhs.tracer_fused`,
-`_tracer_kernel`) computes on a walled domain: for the (nl, nptr, N, N)
-tracers, dtr = -J(psi_l, c) + iPe_j lap(c) + ir_j (relax - c) (ptr_rhs,
-msqg/qg.h:573-588), with Neumann tracer ghosts and Dirichlet psi ghosts.
+`_tracer_kernel`) computes: for the (nl, nptr, N, N) tracers,
+dtr = -J(psi_l, c) + iPe_j lap(c) + ir_j (relax - c) (ptr_rhs,
+msqg/qg.h:573-588), with Neumann tracer ghosts and Dirichlet psi ghosts on
+a walled domain, and everything wrapped on the doubly periodic one
+(sbc = -1).
 
 On a CUDA tensor it launches the hand-written Hopper kernel in
 `csrc/fused_tracer.cu`, a strip that marches down y on the grid and
@@ -22,7 +24,6 @@ import functools
 import torch
 
 from msom_tpu_torch import _build
-from msom_tpu_torch.ops.bc import BC
 from msom_tpu_torch.ops.ghost import ghosted
 
 SOURCE = "msom_tpu_torch/csrc/fused_tracer.cu"
@@ -33,6 +34,7 @@ SOURCE = "msom_tpu_torch/csrc/fused_tracer.cu"
 # XH are the kernel's, whose launch refuses a geometry that does not fit
 # them.
 TX, SY, RING, XH = 128, 32, 8, 4
+MIN_PERIODIC_N = 4           # the periodic halo wraps once
 
 launches = 0
 
@@ -55,7 +57,7 @@ def tracer_fused_reference(cfg, const, psi: torch.Tensor,
                            tracers: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version (qg.tracer_rhs), on any device."""
     from msom_tpu_torch.models import qg
-    return qg.tracer_rhs(cfg, const, ghosted(psi, BC.DIRICHLET), tracers)
+    return qg.tracer_rhs(cfg, const, ghosted(psi, qg._bc_psi(cfg)), tracers)
 
 
 @functools.cache
@@ -67,7 +69,8 @@ def _lib():
     for fn in (lib.fused_tracer_f32, lib.fused_tracer_f64):
         fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_double, dbl, dbl, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ptr]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_int, ptr]
         fn.restype = ctypes.c_int
     lib.fused_tracer_max_nptr.argtypes = []
     lib.fused_tracer_max_nptr.restype = ctypes.c_int
@@ -97,6 +100,10 @@ def tracer_fused(cfg, const, psi: torch.Tensor,
                 or t.dtype != psi.dtype or not t.is_contiguous()):
             raise ValueError(f"tracer_fused: {name} must be a contiguous "
                              f"{psi.dtype} tensor {shape} on {psi.device}")
+    periodic = cfg.sbc == -1
+    if periodic and N < MIN_PERIODIC_N:
+        raise ValueError(f"tracer_fused: the periodic kernel takes N >= "
+                         f"{MIN_PERIODIC_N}, got {N}")
     lib = _lib()
     if not 1 <= nptr <= lib.fused_tracer_max_nptr():
         raise ValueError(f"tracer_fused: nptr = {nptr}, the kernel takes 1 "
@@ -111,7 +118,8 @@ def tracer_fused(cfg, const, psi: torch.Tensor,
         stream = torch.cuda.current_stream(psi.device).cuda_stream
         rc = fn(psi.data_ptr(), tracers.data_ptr(), relax, dtr.data_ptr(), N,
                 nl, nptr, cfg.delta, dbl(*cfg.iPe[:nptr]),
-                dbl(*cfg.ptr_ir[:nptr]), SY, gx, gy, smem, stream)
+                dbl(*cfg.ptr_ir[:nptr]), SY, gx, gy, smem, int(periodic),
+                stream)
     if rc != 0:
         raise RuntimeError("fused_tracer launch failed: "
                            + lib.fused_tracer_error_string(rc).decode())

@@ -1,6 +1,5 @@
 """Multi-layer quasi-geostrophic model, msqg (the port of
-`msom_tpu.models.qg` for the walled configurations, with the direct spectral
-inversion or the multigrid).
+`msom_tpu.models.qg`, with the direct spectral inversion or the multigrid).
 
 One step is Basilisk's predictor-corrector with CFL-controlled adaptive dt
 (`make_step`): two `update` calls, each a PV inversion, the fused RHS and,
@@ -15,14 +14,17 @@ or with mg_extrap from 2 psi - psi_old (`QGState.psi_old`). With
 mode_pv_invert it solves nl independent Helmholtz problems in the vertical
 modes instead of the layer-coupled system.
 
-Ported: free-slip and partial-slip walls (sbc >= 0), the large-scale (PG)
-streamfunction coupling from `psipg` or `upg/vpg`, _LS_RV (flsrv = 1),
-bottom topography, the 3-D forcing `qforc`, ENERGY_CONSERV advection and
-passive tracers with an optional relaxation field.
+Ported: free-slip and partial-slip walls (sbc >= 0) and the doubly
+periodic domain (sbc = -1: psi, q, the derived fields and the tracers wrap;
+the large-scale streamfunction keeps the reference's non-wrap ghost law and
+the topography its Neumann ghosts), the large-scale (PG) streamfunction
+coupling from `psipg` or `upg/vpg`, _LS_RV (flsrv = 1), bottom topography,
+the 3-D forcing `qforc`, ENERGY_CONSERV advection, passive tracers with an
+optional relaxation field, and stochastic forcing (Euler-Maruyama, noise
+from a `torch.Generator` that the caller gives `make_step`).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-queue-1 item): the doubly periodic case (item 7b); stochastic forcing (item
-8); the wavelet filter (item 9); varRo and 2-D frpg (item 10).
+queue-1 item): the wavelet filter (item 9); varRo and 2-D frpg (item 10).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from msom_tpu_torch.models import fused_rhs, fused_tracer
 from msom_tpu_torch.ops.bc import BC, pad
@@ -55,7 +58,11 @@ class QGConstants:
     fields, and the fused RHS kernel reads them as they are. `pp`, `topo`
     and `iro` are what the fused kernels read beside the padded fields: the
     contiguous interiors (the kernels apply the ghost rules themselves) and
-    the y-profile 1/(Ro dh_bottom)."""
+    the y-profile 1/(Ro dh_bottom). In the periodic run, whose pp and
+    zetap ghosts are data, the kernel reads `pp_t` and `zetap_t` instead:
+    pp_pad and zetap_pad with three zero columns on either side, so that
+    its 16-byte copies of their rows stay aligned (the role of the JAX
+    package's pre-tiled pp_t and zetap_t, pallas_rhs.py:234-243)."""
     strl: torch.Tensor | None     # (nl-1, N, 1) stretching (Fr/Ro)^2
     wind: torch.Tensor            # (N, 1) surface forcing term for layer 0
     idh0: tuple                   # host floats (layer metrics)
@@ -69,8 +76,11 @@ class QGConstants:
     ptr_relax: torch.Tensor | None = None   # (nl, nptr, N, N)
     umax_pp: torch.Tensor | None = None     # (nl,) face-speed maxima of pp
     pp: torch.Tensor | None = None          # (nl, N, N) interior of pp_pad
+    pp_t: torch.Tensor | None = None        # (nl, N+2, N+8), periodic run
+    zetap_t: torch.Tensor | None = None     # (nl, N+2, N+8), periodic flsrv
     topo: torch.Tensor | None = None        # (N, N) interior of topo_pad
     iro: torch.Tensor | None = None         # (N, 1) 1/(Ro dh[nl-1]), topo
+    s_stoch: torch.Tensor | None = None     # (nl, N, N) noise amplitude
     levels: tuple | None = None             # multigrid levels, solver="mg"
     iBu: torch.Tensor | None = None         # (nl, N, 1) -1/Rd^2 per mode
     l2m: torch.Tensor | None = None         # (nl, nl) layers -> modes
@@ -98,11 +108,17 @@ class StepDiag(NamedTuple):
 
 # input fields that build_constants accepts in the JAX package and the port
 # does not yet, with the ROADMAP.md queue-1 item that will bring each
-_UNPORTED_INPUTS = {"s_stoch": 8, "rdpg": 9, "frpg": 10}
+_UNPORTED_INPUTS = {"rdpg": 9, "frpg": 10}
 
 
 def _torch_dtype(cfg: QGConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def _bc_psi(cfg: QGConfig) -> BC:
+    """The ghost law of psi, q, the derived fields and (periodic) the
+    tracers."""
+    return BC.PERIODIC if cfg.sbc == -1 else BC.DIRICHLET
 
 
 def _check_slice(cfg: QGConfig, inputs: dict) -> None:
@@ -115,9 +131,10 @@ def _check_slice(cfg: QGConfig, inputs: dict) -> None:
             raise NotImplementedError(
                 f"input field {name!r} is not ported yet (ROADMAP.md queue "
                 f"1, item {_UNPORTED_INPUTS[name]})")
+    if cfg.sbc < 0 and cfg.sbc != -1:
+        raise ValueError(f"sbc = {cfg.sbc}: -1 (doubly periodic) or >= 0 "
+                         "(walls)")
     unported = [
-        (cfg.sbc < 0, "the doubly periodic case, sbc = -1 (item 7b)"),
-        (cfg.stochastic, "stochastic forcing (item 8)"),
         (cfg.dtflt > 0, "the wavelet filter, dtflt > 0 (item 9)"),
         (cfg.varRo > 0, "varRo (item 10)"),
     ]
@@ -129,18 +146,20 @@ def _check_slice(cfg: QGConfig, inputs: dict) -> None:
 
 def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
                     psipg=None, topo=None, qforc=None, dh=None,
-                    ptr_relax=None, **unported) -> QGConstants:
+                    ptr_relax=None, s_stoch=None,
+                    **unported) -> QGConstants:
     """Derive the static model fields on `device`. The optional arrays
     override the defaults as the reference's input files do (psipg_*.bas
     etc., msqg/qg.h:950-985): `psipg` (nl, N, N) large-scale streamfunction
     (else vpg*x - upg*y from the config), `topo` (N, N), `qforc` (nl, N, N),
-    `dh` (nl,) layer thicknesses, `ptr_relax` (nl, nptr, N, N). `fused_mm`
+    `dh` (nl,) layer thicknesses, `ptr_relax` (nl, nptr, N, N), `s_stoch`
+    (nl, N, N) the stochastic noise amplitude (else 1). `fused_mm`
     routes the inversion through the fused basis-matmul solve (the matmul
     transform; 128 <= N <= 1024, N % 128 == 0; the spectral solver only).
     With solver="mg" the multigrid levels are built here instead of the
     spectral data, and with mode_pv_invert the vertical modes and the
     levels of the modal Helmholtz solves. The JAX package's other inputs
-    (s_stoch, rdpg, frpg) raise NotImplementedError when given."""
+    (rdpg, frpg) raise NotImplementedError when given."""
     _check_slice(cfg, unported)
     if fused_mm and cfg.solver != "spectral":
         raise ValueError("fused_mm is an option of solver='spectral'")
@@ -159,7 +178,7 @@ def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
     upg, vpg = np.zeros(nl), np.zeros(nl)
     upg[:len(cfg.upg[:nl])] = cfg.upg[:nl]
     vpg[:len(cfg.vpg[:nl])] = cfg.vpg[:nl]
-    pp_pad = zetap_pad = pp = umax_pp = None
+    pp_pad = zetap_pad = pp = umax_pp = pp_t = zetap_t = None
     if psipg is not None or np.any(upg) or np.any(vpg):
         if psipg is not None:
             pp_np = np.asarray(psipg, np.float64)
@@ -170,14 +189,22 @@ def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
             raise ValueError(f"psipg has shape {pp_np.shape}, the config "
                              f"needs {(nl, N, N)}")
         pp = dev(pp_np)
-        pp_pad = pad(pp, BC.DIRICHLET)
-        # large-scale relative vorticity (_LS_RV, msqg/qg.h:1094-1096)
+        if cfg.sbc == -1:
+            pp_pad = dev(_periodic_pp_pad(cfg, pp_np, upg, vpg, y))
+        else:
+            pp_pad = pad(pp, BC.DIRICHLET)
+        # large-scale relative vorticity (_LS_RV, msqg/qg.h:1094-1096); its
+        # ghosts wrap in the periodic run, unlike pp's
         if cfg.flsrv == 1:
-            zetap_pad = pad(laplacian(pp_pad, cfg.delta), BC.DIRICHLET)
+            zetap_pad = pad(laplacian(pp_pad, cfg.delta), _bc_psi(cfg))
         # pp is constant in time: its part of the CFL chain
         # (msqg/qg.h:387-390) is computed once here
         umax_pp = max_face_speed_layers(ghosted_from_padded(pp_pad),
                                         cfg.delta)
+        if cfg.sbc == -1:
+            pp_t = F.pad(pp_pad, (3, 3)).contiguous()
+            if zetap_pad is not None:
+                zetap_t = F.pad(zetap_pad, (3, 3)).contiguous()
 
     Ro = dev(np.full((N, 1), cfg.Rom))     # uniform: varRo is item 10
     strl = s_prof = None
@@ -214,7 +241,8 @@ def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
     spec = levels = iBu = l2m = m2l = mlevels = None
     if cfg.solver == "spectral":
         spec = spectral.build_spectral(
-            nl=nl, N=N, L0=cfg.L0, dh=dh, s_profile=s_prof, periodic=False,
+            nl=nl, N=N, L0=cfg.L0, dh=dh, s_profile=s_prof,
+            periodic=cfg.sbc == -1,
             dtype=dtype, transform="matmul" if fused_mm else cfg.transform,
             fused_mm=fused_mm, device=device)
     elif cfg.mode_pv_invert and nl > 1:
@@ -235,13 +263,33 @@ def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
         pp_pad=pp_pad, zetap_pad=zetap_pad, topo_pad=topo_pad,
         qforc=field(qforc, "qforc", (nl, N, N)),
         ptr_relax=field(ptr_relax, "ptr_relax", (nl, cfg.nptr, N, N)),
-        umax_pp=umax_pp, pp=pp, topo=topo_in, iro=iro, levels=levels,
+        s_stoch=field(s_stoch, "s_stoch", (nl, N, N)),
+        umax_pp=umax_pp, pp=pp, pp_t=pp_t, zetap_t=zetap_t, topo=topo_in,
+        iro=iro, levels=levels,
         iBu=iBu, l2m=l2m, m2l=m2l, mlevels=mlevels)
+
+
+def _periodic_pp_pad(cfg: QGConfig, pp: np.ndarray, upg: np.ndarray,
+                     vpg: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """pp padded for the periodic run (msqg/qg.h:1105-1114): the ghosts do
+    not wrap; each is 2 (vpg x - upg y) at the boundary face minus the
+    interior cell beside it, x first, then y on the x-padded rows (the
+    JAX package's `build_constants`, qg.py:143-157)."""
+    nl, N = pp.shape[0], cfg.N
+    out = np.zeros((nl, N + 2, N + 2))
+    out[:, 1:-1, 1:-1] = pp
+    u, v = upg[:, None], vpg[:, None]
+    out[:, 1:-1, 0] = -2 * u * y - pp[:, :, 0]                  # x = 0
+    out[:, 1:-1, -1] = 2 * (v * cfg.L0 - u * y) - pp[:, :, -1]  # x = L0
+    xpad = np.concatenate([[y[0] - cfg.delta], y, [y[-1] + cfg.delta]])
+    out[:, 0, :] = 2 * v * xpad - out[:, 1, :]                   # y = 0
+    out[:, -1, :] = 2 * (v * xpad - u * cfg.L0) - out[:, -2, :]  # y = L0
+    return out
 
 
 def comp_q(cfg: QGConfig, const: QGConstants, psi: torch.Tensor):
     """q = lap(psi) + Gamma(psi) (comp_q, msqg/qg.h:396-403)."""
-    q = laplacian_g(ghosted(psi, BC.DIRICHLET), cfg.delta)
+    q = laplacian_g(ghosted(psi, _bc_psi(cfg)), cfg.delta)
     if cfg.nl > 1:
         q = q + stretch(psi, const.strl, const.idh0, const.idh1)
     return q
@@ -265,12 +313,12 @@ def invert_q(cfg: QGConfig, const: QGConstants,
         qm = torch.einsum("ml,lyx->myx", const.l2m, q)
         pm_guess = torch.einsum("ml,lyx->myx", const.l2m, psi_guess)
         pm, st = mg.solve_layered(pm_guess, qm, L0=cfg.L0, s=None,
-                                  lam=const.iBu, bc=BC.DIRICHLET,
+                                  lam=const.iBu, bc=_bc_psi(cfg),
                                   tolerance=cfg.tol, levels=const.mlevels)
         return torch.einsum("lm,myx->lyx", const.m2l, pm), st
     return mg.solve_layered(psi_guess, q, L0=cfg.L0, s=const.strl,
                             idh0=const.idh0, idh1=const.idh1,
-                            bc=BC.DIRICHLET, tolerance=cfg.tol,
+                            bc=_bc_psi(cfg), tolerance=cfg.tol,
                             levels=const.levels)
 
 
@@ -321,23 +369,27 @@ def init_state(cfg: QGConfig, const: QGConstants, *, psi0=None, seed=0,
 
 def _ghost_deriv(cfg: QGConfig, field: torch.Tensor,
                  parent_g: Ghosted) -> Ghosted:
-    """Ghosts of a Laplacian-derived field at a wall (comp_del2,
-    msqg/qg.h:183-198): the Dirichlet rule applied to the derived field's
-    own interior, not recomputed from its parent's ghosts, with the
-    partial-slip overwrite of the edge ghosts relative to the parent when
-    sbc > 0."""
+    """Ghosts of a Laplacian-derived field (comp_del2, msqg/qg.h:183-198):
+    a wrap in the periodic run; at a wall the Dirichlet rule applied to the
+    derived field's own interior, not recomputed from its parent's ghosts,
+    with the partial-slip overwrite of the edge ghosts relative to the
+    parent when sbc > 0."""
+    if cfg.sbc == -1:
+        return ghosted(field, BC.PERIODIC)
     return ghosted_slip(field, parent_g, cfg.sbc, cfg.delta)
 
 
 def rhs(cfg: QGConfig, const: QGConstants, q: torch.Tensor | None,
         psi_g: Ghosted, zeta: torch.Tensor, zeta_g: Ghosted,
         tracers: torch.Tensor | None = None):
-    """Tendencies (dq, dtracers) (update_qg, msqg/qg.h:609-650) for the
-    walled configurations. The advected vorticity is zeta, with the
-    stretching-Jacobian cascade supplying the rest of J(psi, q); every
-    J(., pp) term is pruned when there is no large-scale streamfunction.
-    `q` is read by ENERGY_CONSERV advection only; dtracers is None without
-    tracers."""
+    """Tendencies (dq, dtracers) (update_qg, msqg/qg.h:609-650). The
+    advected vorticity is zeta, with the stretching-Jacobian cascade
+    supplying the rest of J(psi, q); every J(., pp) term is pruned when
+    there is no large-scale streamfunction. The stochastic variant
+    (msqg/qg_stochastic.h:17-111) drops the top layer's self-advection and
+    the cascade's J(psi_l, psi_l+1), and damps with -q/tr_stoch. `q` is
+    read by ENERGY_CONSERV advection and the stochastic damping only;
+    dtracers is None without tracers."""
     d = cfg.delta
     nl = cfg.nl
     mj = arakawa_mjac_g
@@ -352,9 +404,11 @@ def rhs(cfg: QGConfig, const: QGConstants, q: torch.Tensor | None,
             # ENERGY_CONSERV split (msqg/qg.h:310-340): the self-advection
             # carries the full PV q under psi's ghost law, so J(psi_l,
             # psi_l+1) drops out of the cascade
-            self_jac = mj(psi_g, ghosted(q, BC.DIRICHLET), d)
+            self_jac = mj(psi_g, ghosted(q, _bc_psi(cfg)), d)
         else:
             self_jac = mj(psi_g, zeta_g, d)
+        if cfg.stochastic:
+            self_jac[0] = 0.0
         dq = dq + self_jac + beta_effect_g(psi_g, cfg.beta, d)
         if have_pg:
             dq = dq + mj(pp, zeta_g, d)
@@ -362,7 +416,7 @@ def rhs(cfg: QGConfig, const: QGConstants, q: torch.Tensor | None,
         J = None
         if have_pg:
             J = mj(pp[:-1], psi_g[1:], d) + mj(psi_g[:-1], pp[1:], d)
-        if not cfg.energy_conserv:
+        if not cfg.energy_conserv and not cfg.stochastic:
             Jself = mj(psi_g[:-1], psi_g[1:], d)
             J = Jself if J is None else J + Jself
         if J is not None:
@@ -373,6 +427,8 @@ def rhs(cfg: QGConfig, const: QGConstants, q: torch.Tensor | None,
                 dq[l] += -sJ[l - 1] * idh0[l]
         if const.zetap_pad is not None:
             dq = dq + mj(psi_g, ghosted_from_padded(const.zetap_pad), d)
+        if cfg.stochastic:
+            dq = dq - q * cfg.itr_stoch
 
     # dissipation (dissip, msqg/qg.h:406-422), skipped where the
     # coefficient is zero
@@ -415,9 +471,9 @@ def tracer_rhs(cfg: QGConfig, const: QGConstants, psi_g: Ghosted,
                tracers: torch.Tensor) -> torch.Tensor:
     """Passive-tracer tendencies (ptr_rhs, msqg/qg.h:573-588) for the
     (nl, nptr, N, N) tracers: Arakawa advection by psi, diffusion /Pe and
-    relaxation, with Neumann walls."""
+    relaxation, with Neumann walls (wrapped in the periodic run)."""
     d = cfg.delta
-    tr_g = ghosted(tracers, BC.NEUMANN)
+    tr_g = ghosted(tracers, BC.PERIODIC if cfg.sbc == -1 else BC.NEUMANN)
     coef = dict(dtype=tracers.dtype, device=tracers.device)
     iPe = torch.tensor(cfg.iPe[:cfg.nptr], **coef).reshape(1, -1, 1, 1)
     ir = torch.tensor(cfg.ptr_ir[:cfg.nptr], **coef).reshape(1, -1, 1, 1)
@@ -474,7 +530,7 @@ def kinetic_energy(cfg: QGConfig, psi: torch.Tensor) -> torch.Tensor:
     """Surface-layer KE as logged every step: -sum 0.5*psi*lap(psi)*Delta^2
     (msqg/qg.c:101-109)."""
     p0 = psi[0]
-    lap = laplacian_g(ghosted(p0, BC.DIRICHLET), cfg.delta)
+    lap = laplacian_g(ghosted(p0, _bc_psi(cfg)), cfg.delta)
     return -torch.sum(0.5 * p0 * lap) * cfg.delta ** 2
 
 
@@ -486,8 +542,8 @@ def update(cfg: QGConfig, const: QGConstants, q: torch.Tensor,
     dtm, MGStats). Routes on q's device alone (fused_rhs.rhs_fused,
     fused_tracer.tracer_fused, the multigrid's fused_mg kernels)."""
     psi, st = invert_q(cfg, const, psi_guess, q)
-    dq, umax = fused_rhs.rhs_fused(cfg, const, psi,
-                                   q if cfg.energy_conserv else None)
+    need_q = cfg.energy_conserv or cfg.stochastic
+    dq, umax = fused_rhs.rhs_fused(cfg, const, psi, q if need_q else None)
     dtr = None
     if tracers is not None:
         dtr = fused_tracer.tracer_fused(cfg, const, psi, tracers)
@@ -495,7 +551,23 @@ def update(cfg: QGConfig, const: QGConstants, q: torch.Tensor,
     return dq, dtr, psi, prev, dtm, st
 
 
-def make_step(cfg: QGConfig):
+def draw_noise(cfg: QGConfig, const: QGConstants, q: torch.Tensor,
+               generator: torch.Generator) -> torch.Tensor:
+    """One step's stochastic forcing, amp_stoch * sigma * xi with xi
+    standard normal from `generator` (on q's device) and sigma = s_stoch,
+    else 1 (qg_stochastic.h:128-149). A different stream from the JAX
+    package's jax.random draw: the two agree in distribution only."""
+    g, d = generator.device, q.device
+    if g.type != d.type or (None not in (g.index, d.index)
+                            and g.index != d.index):
+        raise ValueError(f"the noise generator is on {g}, the state on {d}")
+    xi = torch.randn(q.shape, generator=generator, device=q.device,
+                     dtype=q.dtype)
+    sigma = 1.0 if const.s_stoch is None else const.s_stoch
+    return cfg.amp_stoch * sigma * xi
+
+
+def make_step(cfg: QGConfig, generator: torch.Generator | None = None):
     """step(state, const, tnext) -> (state, StepDiag): one predictor-
     corrector step (predictor-corrector.h semantics): dt from the
     CFL-limited first update clamped by dtnext, a half-step Euler predictor,
@@ -503,11 +575,21 @@ def make_step(cfg: QGConfig):
     with q. The first inversion starts from the last psi, or from
     2 psi - psi_old where the state carries psi_old; the second from the
     first's psi. StepDiag reports the first inversion's cycles and
-    residual."""
+    residual.
+
+    With cfg.stochastic the step adds the Euler-Maruyama kick: one draw of
+    `draw_noise` a step from `generator` (required, on the state's
+    device), shared by the predictor (x sqrt(dt)/2) and the corrector
+    (x sqrt(dt)) (qg_stochastic.h:128-149)."""
     DT = cfg.dt_clamped()
+    if cfg.stochastic and generator is None:
+        raise ValueError("a stochastic step needs a torch.Generator on the "
+                         "state's device")
 
     def step(state: QGState, const: QGConstants, tnext):
         q0, tr0 = state.q, state.tracers
+        noise = draw_noise(cfg, const, q0, generator) if cfg.stochastic \
+            else None
         guess = state.psi
         if state.psi_old is not None:
             guess = 2.0 * state.psi - state.psi_old
@@ -515,10 +597,14 @@ def make_step(cfg: QGConfig):
                                                state.dt_prev, DT)
         dt = dtnext(state.t, tnext, dtm)
         q1 = q0 + dq * (0.5 * dt)
+        if noise is not None:
+            q1 = q1 + noise * torch.sqrt(dt) * 0.5
         tr1 = None if tr0 is None else tr0 + dtr * (0.5 * dt)
         dq, dtr, psi2, prev, _, _ = update(cfg, const, q1, psi1, tr1, prev,
                                            DT)
         q_new = q0 + dq * (1.0 * dt)
+        if noise is not None:
+            q_new = q_new + noise * torch.sqrt(dt)
         tr_new = None if tr0 is None else tr0 + dtr * (1.0 * dt)
         new = QGState(q=q_new, psi=psi2, t=state.t + dt, dt_prev=prev,
                       i=state.i + 1, tracers=tr_new,

@@ -1,5 +1,4 @@
-"""Direct spectral PV inversion, Dirichlet walls (the port of the Dirichlet
-branch of `msom_tpu.solvers.spectral`).
+"""Direct spectral PV inversion (the port of `msom_tpu.solvers.spectral`).
 
 The msqg inversion solves lap(psi) + Gamma(psi) = q. With spatially uniform
 stretching the vertical modes diagonalise Gamma with constant nl x nl
@@ -9,23 +8,27 @@ lap(p_m) + iBu_m p_m = q_m is diagonalised by the DST-II basis of the
 -(4/h^2) sin^2(pi k / (2N)), k = 1..N). So the solve is: modal matmul ->
 2-D DST-II -> multiply by 1/(lam_y + lam_x + iBu) -> inverse -> matmul back.
 
-Transform selection is the JAX package's (`spectral.py:195-208`):
+Transform selection is the JAX package's (`spectral.py:195-219`):
   * "auto", f32, Dirichlet, 512 <= N <= 4096, N a power of 2: the folded
     matmul DST (solvers/ctdst.py), with inv_den permuted at build time;
-  * "auto", f32, N <= 4096 otherwise, or "matmul": the (N, N) basis matmul;
+  * "auto", f32, Dirichlet, N <= 4096 otherwise, or "matmul": the (N, N)
+    basis matmul (periodic: the real Fourier basis `fourier_matrix`);
   * "auto" in f64, or "fft": DST-II through a DCT-II computed with one FFT
     of the same length (Makhoul's reordering), since torch has no DCT;
-  * "factored": the folded DST at any power-of-2 N >= 16.
-With `fused_mm` the basis-matmul solve runs in the hand-written kernel K7
+  * "auto" or "fft", periodic, in every type: rfft2 / irfft2 (cuFFT on
+    the card; the JAX package's jnp.fft), inv_den of shape (nl, N, N//2+1);
+  * "factored": the folded DST at any power-of-2 N >= 16 (Dirichlet only).
+Periodic: where a denominator is 0 (the barotropic mean) its inverse is 0,
+which fixes the gauge (the solution's mean). With `fused_mm` the
+basis-matmul solve, on either basis, runs in the hand-written kernel K7
 (solvers/fused_spectral.py) instead of torch.matmul.
 
 `build_spectral_node` is the qg-node family's direct inversion: the
 (N-1)^2 interior vertices with a zero ring are diagonalised by the DST-I
 basis (`dst1_matrix`) times the vertical modes; in f32 at 512 <= N, N a
 power of 2, through the folded DST-I (ctdst.FoldedDST1), otherwise (f64
-among them) through the (N-1)^2 basis matmul. The periodic basis and
-the bf16 refinement pass are not ported yet (ROADMAP.md queue 1, items 7b
-and 3).
+among them) through the (N-1)^2 basis matmul. The bf16 refinement pass
+is not ported (ROADMAP.md queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -47,13 +50,15 @@ class SpectralData:
     the basis-matmul path runs (in kernel K7 when `fused_mm`); with
     neither, the FFT-based DST. `mm` holds the TF32 split of S and S^T
     that K7 reads in float32."""
-    inv_den: torch.Tensor         # (nl, N, N): 1/(lam_y + lam_x + iBu_m)
+    inv_den: torch.Tensor         # (nl, N, N or N//2+1): 1/(lam_y + lam_x
+    #                               + iBu_m), 0 where that is 0
     l2m: torch.Tensor | None      # (nl, nl) layer->mode (None when nl == 1)
     m2l: torch.Tensor | None      # (nl, nl) mode->layer
-    S: torch.Tensor | None        # (N, N) orthonormal DST-II basis
+    S: torch.Tensor | None        # (N, N) orthonormal DST-II or Fourier basis
     fac: ctdst.FoldedDST | ctdst.FoldedDST1 | None
     fused_mm: bool = False
     mm: fused_spectral.Basis | None = None   # K7's f32 split of S and S^T
+    periodic: bool = False        # with neither S nor fac: rfft2 / irfft2
 
 
 def dst_matrix(N: int, dtype=np.float64) -> np.ndarray:
@@ -65,6 +70,29 @@ def dst_matrix(N: int, dtype=np.float64) -> np.ndarray:
     c = np.full(N, np.sqrt(2.0 / N))
     c[-1] = np.sqrt(1.0 / N)
     return (c[:, None] * S).astype(dtype)
+
+
+def fourier_matrix(N: int, dtype=np.float64):
+    """(R, freq): the orthonormal real eigenbasis of the periodic 1-D
+    discrete Laplacian (N even) and each row's frequency. Row 0 is
+    1/sqrt(N); rows 2m-1, 2m are sqrt(2/N) cos and sin of frequency m for
+    m = 1 .. N/2-1; row N-1 is (-1)^i/sqrt(N), the Nyquist mode. R L R^T
+    is diagonal with eigenvalues -(4/h^2) sin^2(pi freq / N)."""
+    if N % 2:
+        raise ValueError(f"fourier_matrix needs an even N, got {N}")
+    i = np.arange(N)
+    R = np.empty((N, N))
+    freq = np.empty(N)
+    R[0] = 1.0 / np.sqrt(N)
+    freq[0] = 0
+    for m in range(1, N // 2):
+        ph = 2.0 * np.pi * m * i / N
+        R[2 * m - 1] = np.sqrt(2.0 / N) * np.cos(ph)
+        R[2 * m] = np.sqrt(2.0 / N) * np.sin(ph)
+        freq[2 * m - 1] = freq[2 * m] = m
+    R[N - 1] = ((-1.0) ** i) / np.sqrt(N)
+    freq[N - 1] = N // 2
+    return R.astype(dtype), freq
 
 
 def _dct2_last(x: torch.Tensor) -> torch.Tensor:
@@ -130,13 +158,10 @@ def build_spectral(*, nl: int, N: int, L0: float, dh=None, s_profile=None,
 
     s_profile holds the (nl-1,) uniform stretching values (Fr/Ro)^2 that
     the vertical modes diagonalise; nl = 1 is the plain Poisson case.
-    `fused_mm` sends the basis-matmul solve through kernel K7: it needs the
-    matmul transform and a size and type that fused_spectral.check_gate
-    takes."""
-    if periodic:
-        raise NotImplementedError(
-            "periodic spectral inversion is not ported yet "
-            "(ROADMAP.md queue 1, item 7b: doubly periodic case)")
+    `periodic` takes the doubly periodic basis (rfft2, or with the matmul
+    transform `fourier_matrix`). `fused_mm` sends the basis-matmul solve
+    through kernel K7: it needs the matmul transform and a size and type
+    that fused_spectral.check_gate takes."""
     if refine is True:
         raise NotImplementedError(
             "the bf16 + refinement solve is not ported (ROADMAP.md queue 1, "
@@ -159,20 +184,35 @@ def build_spectral(*, nl: int, N: int, L0: float, dh=None, s_profile=None,
 
     f32 = torch.finfo(dtype).bits == 32
     pow2 = N & (N - 1) == 0
+    if periodic and transform == "factored":
+        raise ValueError("transform='factored' covers the Dirichlet (DST) "
+                         "basis only; periodic keeps the rfft/matmul paths")
     use_fac = transform == "factored" or (
-        transform == "auto" and f32 and 512 <= N <= 4096 and pow2)
+        transform == "auto" and f32 and not periodic and 512 <= N <= 4096
+        and pow2)
     use_mm = transform == "matmul" or (transform == "auto" and f32
-                                       and N <= 4096)
+                                       and N <= 4096 and not periodic)
 
-    k = np.arange(1, N + 1, dtype=np.float64)
-    lam_d = -(4.0 / h ** 2) * np.sin(np.pi * k / (2 * N)) ** 2
-    den = lam_d[None, :, None] + lam_d[None, None, :] + iBu[:, None, None]
+    basis = None
+    if periodic and use_mm:
+        basis, freq = fourier_matrix(N)
+        lam_y = lam_x = -(4.0 / h ** 2) * np.sin(np.pi * freq / N) ** 2
+    elif periodic:
+        lam_y = -(4.0 / h ** 2) * np.sin(
+            np.pi * np.arange(N, dtype=np.float64) / N) ** 2
+        lam_x = lam_y[:N // 2 + 1]
+    else:
+        k = np.arange(1, N + 1, dtype=np.float64)
+        lam_y = lam_x = -(4.0 / h ** 2) * np.sin(np.pi * k / (2 * N)) ** 2
+        if use_mm:
+            basis = dst_matrix(N)
+    den = lam_y[None, :, None] + lam_x[None, None, :] + iBu[:, None, None]
     with np.errstate(divide="ignore"):
         inv = np.where(den != 0.0, 1.0 / np.where(den != 0.0, den, 1.0), 0.0)
 
     S = fac = mm = None
-    if use_mm and not use_fac:
-        S = torch.as_tensor(dst_matrix(N), dtype=dtype).to(device)
+    if basis is not None and not use_fac:
+        S = torch.as_tensor(basis, dtype=dtype).to(device)
         if fused_mm and dtype == torch.float32:
             mm = fused_spectral.basis(S)
     if use_fac:
@@ -185,7 +225,7 @@ def build_spectral(*, nl: int, N: int, L0: float, dh=None, s_profile=None,
         inv = inv[:, perm][:, :, perm]
     return SpectralData(inv_den=torch.as_tensor(inv, dtype=dtype).to(device),
                         l2m=l2m, m2l=m2l, S=S, fac=fac, fused_mm=fused_mm,
-                        mm=mm)
+                        mm=mm, periodic=periodic)
 
 
 def _mm_solve(S: torch.Tensor, inv_den: torch.Tensor,
@@ -210,6 +250,9 @@ def solve_spectral(data: SpectralData, q: torch.Tensor) -> torch.Tensor:
                                            qm.contiguous(), data.mm)
     elif data.S is not None:
         pm = _mm_solve(data.S, data.inv_den, qm)
+    elif data.periodic:
+        P = torch.fft.rfft2(qm) * data.inv_den
+        pm = torch.fft.irfft2(P, s=qm.shape[-2:])
     else:
         Q = dst2(dst2(qm, -1), -2)
         pm = idst2(idst2(Q * data.inv_den, -2), -1)

@@ -5,7 +5,10 @@ family's fused tendency (K5) and masked vertex sweep (K6) against their
 plain PyTorch versions, the wrappers' input checks and launch counts, a
 multigrid and a vertex-multigrid solve on the card against the CPU, and the
 CUDA step against the CPU step, uncoupled, coupled, with the multigrid and
-for the qg-node family. Every test needs a card
+for the qg-node family; and the doubly periodic and stochastic modes: K1's
+periodic (every option set) and stochastic (walled and periodic) modes,
+K2's periodic mode, K7 on the periodic Fourier basis, and the periodic and
+stochastic steps against the CPU. Every test needs a card
 and nvcc, is marked
 `cuda` and skips without a card. The file imports neither jax nor
 msom_tpu, so it runs on a machine without them:
@@ -831,3 +834,191 @@ def test_node_cuda_step_matches_cpu_step(cuda, solver):
         want = getattr(cpu, name)
         got = getattr(gpu, name).cpu()
         assert (got - want).abs().max() <= 1e-10 * want.abs().max(), name
+
+
+# ---------------------------------------------------------------------------
+# the doubly periodic and the stochastic msqg: K1's periodic and stochastic
+# modes, K2's periodic mode, the steps, K7 on the Fourier basis
+# ---------------------------------------------------------------------------
+
+FLOW = dict(upg=(0.02, 0.01, 0.0, 0.0), vpg=(0.01, -0.005, 0.0, 0.0))
+STOCH = dict(stochastic=True, tr_stoch=50.0)
+# (config overrides, rough input fields) of K1's option sets in the periodic
+# kernel (sbc = -1: pp's ghosts follow the flow's non-wrap law, also where
+# psipg sets the interior) and of the stochastic variant
+MODE_OPTIONS = {
+    "uncoupled": (dict(), ()),
+    "pg": (dict(**FLOW), ("psipg",)),
+    "pg_flsrv": (dict(flsrv=1, **FLOW), ("psipg",)),
+    "upg_vpg": (dict(flsrv=1, **FLOW), ()),
+    "topo": (dict(), ("topo",)),
+    "qforc": (dict(), ("qforc",)),
+    "energy_conserv": (dict(energy_conserv=True), ()),
+    "stochastic": (dict(**STOCH), ()),
+    "stochastic_all": (dict(flsrv=1, **FLOW, **STOCH),
+                       ("psipg", "topo", "qforc")),
+    "all": (dict(flsrv=1, energy_conserv=True, **FLOW),
+            ("psipg", "topo", "qforc")),
+}
+# nl = 1, 3, 4; partial strips with 16-byte (100) and one-element (130 in
+# f32, 257) copies; N = 48: one strip holds the whole width and height, so
+# the wrapped halo is the strip's own interior
+MODE_SIZES = [(dtype, N, nl) for dtype in ("float64", "float32")
+              for N, nl in ((256, 1), (256, 3), (256, 4), (100, 3), (130, 4),
+                            (257, 4), (48, 3))]
+
+
+@pytest.mark.parametrize("dtype,N,nl", MODE_SIZES)
+@pytest.mark.parametrize("periodic,option",
+                         [(True, o) for o in sorted(MODE_OPTIONS)]
+                         + [(False, "stochastic"), (False, "stochastic_all")])
+def test_kernel_mode_matches_plain_version(cuda, dtype, N, nl, periodic,
+                                           option):
+    kw, names = MODE_OPTIONS[option]
+    sbc = -1.0 if periodic else (0.5 if option == "stochastic_all" else 0.0)
+    cfg = _config(N, nl, dtype, 1000.0, sbc=sbc, **kw)
+    const = qg.build_constants(cfg, device=cuda, **_fields(cfg, N, *names))
+    psi = _psi(cfg, cuda, N + nl)
+    need_q = cfg.energy_conserv or cfg.stochastic
+    q = qg.comp_q(cfg, const, psi).contiguous() if need_q else None
+    before = fused_rhs.launches
+    dq, umax = fused_rhs.rhs_fused(cfg, const, psi, q)
+    torch.cuda.synchronize()
+    assert fused_rhs.launches == before + 1
+    dq_r, umax_r = fused_rhs.rhs_fused_reference(cfg, const, psi, q)
+    lim = LIMITS[psi.dtype]
+    assert (dq - dq_r).abs().max() <= lim * dq_r.abs().max()
+    assert ((umax - umax_r).abs() <= lim * umax_r).all()
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("relax", [False, True])
+@pytest.mark.parametrize("N,nl,nptr", [(256, 1, 1), (256, 3, 2), (256, 4, 3),
+                                       (100, 3, 2), (130, 4, 3), (257, 4, 2),
+                                       (48, 3, 1), (48, 3, 2), (64, 2, 5),
+                                       (96, 1, 16)])
+def test_periodic_tracer_kernel_matches_plain_version(cuda, dtype, relax, N,
+                                                      nl, nptr):
+    """As the walled test, periodic: nptr = 5 and 16 run the loop over a
+    run-time count."""
+    Pe = ((1e3, 2e3, 7e2) + tuple(1e3 + 90.0 * j for j in range(3, nptr)))
+    ptr_r = ((100.0, 0.0, 13.0) + tuple(5.0 + j for j in range(3, nptr)))
+    cfg = _config(N, nl, dtype, sbc=-1.0, nptr=nptr, Pe=Pe[:nptr],
+                  ptr_r=ptr_r[:nptr])
+    const = qg.build_constants(
+        cfg, device=cuda, **_fields(cfg, N, *(["ptr_relax"] if relax else [])))
+    psi = _psi(cfg, cuda, N)
+    tr = torch.as_tensor(np.random.default_rng(N + 1).uniform(
+        -1, 1, (nl, nptr, N, N)), dtype=psi.dtype, device=cuda)
+    before = fused_tracer.launches
+    dtr = fused_tracer.tracer_fused(cfg, const, psi, tr)
+    torch.cuda.synchronize()
+    assert fused_tracer.launches == before + 1
+    dtr_r = fused_tracer.tracer_fused_reference(cfg, const, psi, tr)
+    assert (dtr - dtr_r).abs().max() <= LIMITS[psi.dtype] * dtr_r.abs().max()
+
+
+def test_periodic_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    cfg = _config(2, 1, "float64", sbc=-1.0, nptr=1, Pe=(1e3,),
+                  ptr_r=(100.0,))
+    const = qg.build_constants(cfg, device=cuda)
+    psi = _psi(cfg, cuda, 0)
+    with pytest.raises(ValueError, match="N >= 4"):
+        fused_rhs.rhs_fused(cfg, const, psi)
+    with pytest.raises(ValueError, match="N >= 4"):
+        fused_tracer.tracer_fused(cfg, const, psi, psi[:, None].clone())
+    # the periodic kernel reads pp padded and widened (const.pp_t)
+    cfg = _config(64, 3, "float32", sbc=-1.0, **FLOW)
+    const = qg.build_constants(cfg, device=cuda)
+    bad = dataclasses.replace(const, pp_t=const.pp_pad)
+    with pytest.raises(ValueError, match="const.pp_t"):
+        fused_rhs.rhs_fused(cfg, bad, _psi(cfg, cuda, 1))
+    stoch = _config(64, 3, "float32", **STOCH)
+    with pytest.raises(ValueError, match="needs q"):
+        fused_rhs.rhs_fused(stoch, qg.build_constants(stoch, device=cuda),
+                            _psi(stoch, cuda, 2))
+
+
+def _verron128(**kw):
+    base = dict(N=128, nl=3, L0=80, Rom=0.025, Ekb=0.002, tau0=1e-4,
+                Re4=1563, beta=0.5, Fr=(0.0023669, 0.0076173),
+                dh=(0.06, 0.14, 0.8), DT=5e-2, tend=500., dtout=1., CFL=0.6,
+                dtype="float64", solver="spectral")
+    return QGConfig(**{**base, **kw}).validate()
+
+
+@pytest.mark.parametrize("variant", ["periodic", "periodic_coupled",
+                                     "periodic_mg", "stochastic"])
+def test_mode_cuda_step_matches_cpu_step(cuda, variant):
+    """20 f64 steps at 128^2 x 3 from one numpy IC: periodic (spectral
+    rfft2), periodic with upg/vpg, _LS_RV, topography, a 3-D forcing and
+    two tracers, periodic with the multigrid (the same V-cycles; a
+    periodic solve launches no K3 or K4), and stochastic at amp_stoch = 0
+    (each side draws from its own generator, and adds none of it)."""
+    kw = dict(periodic=dict(sbc=-1.0),
+              periodic_coupled=dict(sbc=-1.0, flsrv=1, nptr=2,
+                                    Pe=(1e3, 2e3), ptr_r=(100.0, 0.0),
+                                    upg=FLOW["upg"][:3], vpg=FLOW["vpg"][:3]),
+              periodic_mg=dict(sbc=-1.0, solver="mg"),
+              stochastic=dict(amp_stoch=0.0, **STOCH))[variant]
+    cfg = _verron128(**kw)
+    rng = np.random.default_rng(42)
+    psi0 = 1e-3 * rng.uniform(-1, 1, (3, 128, 128))
+    fields, tr0 = {}, None
+    if variant == "periodic_coupled":
+        fields = dict(topo=0.05 * np.sin(np.linspace(0, 2 * np.pi, 128))
+                      [:, None] * np.ones((128, 128)),
+                      qforc=1e-5 * rng.standard_normal((3, 128, 128)))
+        tr0 = 1e-3 * rng.uniform(-1, 1, (3, 2, 128, 128))
+    out = {}
+    for dev in ("cpu", cuda):
+        const = qg.build_constants(cfg, device=dev, **fields)
+        state = qg.init_state(cfg, const, psi0=psi0, tracers0=tr0)
+        gen = torch.Generator(device=dev).manual_seed(1) \
+            if cfg.stochastic else None
+        step = qg.make_step(cfg, gen)
+        before = (fused_rhs.launches, fused_tracer.launches,
+                  fused_mg.sweep_launches)
+        cycles = []
+        for _ in range(20):
+            state, diag = step(state, const, 1e9)
+            cycles.append(diag.mg_iters)
+        out[str(dev)] = (state, cycles, fused_rhs.launches - before[0],
+                         fused_tracer.launches - before[1],
+                         fused_mg.sweep_launches - before[2])
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert cpu[2:] == (0, 0, 0)
+    assert gpu[2:] == (40, 40 if tr0 is not None else 0, 0)
+    assert gpu[1] == cpu[1]
+    for name in ("q", "psi") + (("tracers",) if tr0 is not None else ()):
+        want = getattr(cpu[0], name)
+        got = getattr(gpu[0], name).cpu()
+        assert (got - want).abs().max() <= 1e-10 * want.abs().max(), name
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("N", [128, 1024])
+def test_spectral_kernel_on_the_fourier_basis(cuda, dtype, N):
+    """K7 with the periodic Fourier basis and the naturally ordered inv_den
+    (build_spectral(periodic=True, transform="matmul", fused_mm=True))
+    against the cuBLAS chain; in f32 its error against the f64 chain within
+    4 times the FP32 chain's."""
+    nl = 4
+    spec = spectral.build_spectral(
+        nl=nl, N=N, L0=80.0, dh=np.full(nl, 1.0 / nl),
+        s_profile=np.full(nl - 1, (0.003 / 0.025) ** 2), periodic=True,
+        dtype=getattr(torch, dtype), transform="matmul", fused_mm=True,
+        device=cuda)
+    qm = torch.as_tensor(np.random.default_rng(N).standard_normal(
+        (nl, N, N)), dtype=getattr(torch, dtype), device=cuda)
+    pm = fused_spectral.fused_mm_solve(spec.S, spec.inv_den, qm, spec.mm)
+    want = spectral._mm_solve(spec.S, spec.inv_den, qm)
+    scale = want.abs().max()
+    limit = 1e-12 if dtype == "float64" else 1e-5
+    assert (pm - want).abs().max() <= limit * scale
+    if dtype == "float32":
+        exact = spectral._mm_solve(spec.S.double(), spec.inv_den.double(),
+                                   qm.double())
+        err = (pm.double() - exact).abs().max()
+        err32 = (want.double() - exact).abs().max()
+        assert err <= 4 * err32

@@ -155,8 +155,6 @@ def test_solve_spectral_residual_in_comp_q(transform):
 
 def test_unported_spectral_options_raise():
     kw = dict(nl=1, N=32, L0=1.0, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tspec.build_spectral(periodic=True, **kw)
     with pytest.raises(NotImplementedError, match="refine"):
         tspec.build_spectral(refine=True, **kw)
 

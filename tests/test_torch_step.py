@@ -214,8 +214,6 @@ def test_step_on_cpu_launches_no_kernel():
 
 
 @pytest.mark.parametrize("override,match", [
-    (dict(sbc=-1.0), "item 7b"),
-    (dict(stochastic=True, tr_stoch=10.0), "item 8"),
     (dict(dtflt=1.0), "item 9"),
     (dict(varRo=1), "item 10"),
 ])
@@ -225,7 +223,7 @@ def test_configs_outside_the_slice_raise(override, match):
         tqg.build_constants(tcfg, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["s_stoch", "frpg", "rdpg"])
+@pytest.mark.parametrize("name", ["frpg", "rdpg"])
 def test_input_fields_outside_the_slice_raise(name):
     _, tcfg = verron(16)
     with pytest.raises(NotImplementedError, match=name):

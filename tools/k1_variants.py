@@ -38,8 +38,9 @@ VARIANTS = {
     "no_walls": [("  const bool edge = xwall || y0 <= 3 || y1 + 3 >= N;",
                   "  const bool edge = false;")],
     "loads_only": [
-        ("if (s <= y1 + 1 && interior(s, N))", "if (s < -N)"),
-        ("if (t >= y0 - 1 && t <= y1 && interior(t, N)) {", "if (t < -N) {"),
+        ("if (s <= y1 + 1 && (PER || interior(s, N)))", "if (s < -N)"),
+        ("if (t >= y0 - 1 && t <= y1 && (PER || interior(t, N))) {",
+         "if (t < -N) {"),
         ("if (gy >= y0 && gy < y1 && gx < N) {", "if (gy < -N) {")],
 }
 

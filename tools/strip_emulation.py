@@ -13,8 +13,8 @@ A copy on the card lands somewhere between the two. Each build is the
 kernel's source with a few lines replaced (`ring` sets its ring rows R), and
 is called through the same C entry as on the card, with the wrapper's
 `launch_geometry`, on numpy arrays; each line gives the worst error over
-the cases, in f64 and f32, as a share of its limit (1e-11, 1e-4 of
-max|dtr|). The kernel's ring needs DEPTH + 3 = 6 rows: the script runs the
+the cases, walled and doubly periodic, in f64 and f32, as a share of its
+limit (1e-11, 1e-4 of max|dtr|). The kernel's ring needs DEPTH + 3 = 6 rows: the script runs the
 shipped ring, 6 and 5, and 5 must go wrong. `--tsan` also builds each ring
 with ThreadSanitizer, its copies landing early, into a program that runs
 the cases and prints how many races it reported (a copy into a slot that
@@ -64,7 +64,7 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local dim3 threadIdx, blockIdx, gridDim;
 inline thread_local std::barrier<>* emu_bar = nullptr;
 inline thread_local unsigned char* emu_smem = nullptr;
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
@@ -104,6 +104,7 @@ void emu_launch(K kernel, dim3 grid, dim3 block, size_t smem, A... args) {
           ts.emplace_back([&, t] {
             threadIdx = dim3(t);
             blockIdx = dim3(bx, by, bz);
+            gridDim = grid;
             emu_bar = &bar;
             emu_smem = sm.data();
             emu_groups.clear();
@@ -121,15 +122,16 @@ TSAN_MAIN = r"""
 #include <vector>
 extern "C" int fused_tracer_f32(const void*, const void*, const void*, void*,
     int, int, int, double, const double*, const double*, int, int, int,
-    long long, void*);
+    long long, int, void*);
 extern "C" int fused_tracer_f64(const void*, const void*, const void*, void*,
     int, int, int, double, const double*, const double*, int, int, int,
-    long long, void*);
+    long long, int, void*);
 template <class T>
 int run(int (*fn)(const void*, const void*, const void*, void*, int, int,
                   int, double, const double*, const double*, int, int, int,
-                  long long, void*),
-        int N, int nl, int nptr, int rows, int gx, int gy, long long smem) {
+                  long long, int, void*),
+        int N, int nl, int nptr, int rows, int gx, int gy, long long smem,
+        int periodic) {
   const size_t n = (size_t)nl * nptr * N * N;
   std::vector<T> psi((size_t)nl * N * N), tr(n), relax(n), out(n);
   for (size_t i = 0; i < psi.size(); ++i) psi[i] = T((i * 7919 % 101) - 50);
@@ -137,7 +139,7 @@ int run(int (*fn)(const void*, const void*, const void*, void*, int, int,
   double iPe[16], ir[16];
   for (int j = 0; j < 16; ++j) { iPe[j] = 1e-3 * (j + 1); ir[j] = 1e-2; }
   return fn(psi.data(), tr.data(), relax.data(), out.data(), N, nl, nptr,
-            0.1, iPe, ir, rows, gx, gy, smem, nullptr);
+            0.1, iPe, ir, rows, gx, gy, smem, periodic, nullptr);
 }
 int main() {
   int rc = 0;
@@ -154,14 +156,15 @@ def translate(src: str, patches=()) -> str:
         if a not in src:
             raise ValueError(f"strip_emulation: {a!r} is not in the source")
         src = src.replace(a, b)
-    subs = [("#include <cuda_runtime.h>", PRELUDE),
+    subs = [("#include <cuda_runtime.h>", PRELUDE + "#include <cmath>\n"),
             ("extern __shared__ __align__(16) unsigned char smem_raw[];",
-             "unsigned char* smem_raw = emu_smem;"),
-            ("__ldcs(", "emu_ldcs(")]
+             "unsigned char* smem_raw = emu_smem;")]
     for a, b in subs:
         if a not in src:
             raise ValueError(f"strip_emulation: {a!r} is not in the source")
         src = src.replace(a, b)
+    # the cached loads, where a kernel has them
+    src = src.replace("__ldcs(", "emu_ldcs(").replace("__ldg(", "emu_ldcs(")
     bodies = [
         (r"(void cp_async\(void\* dst, const void\* src\) \{).*?\n\}",
          r"\1\n  emu_cp_async(dst, src, BYTES);\n}"),
@@ -183,11 +186,13 @@ def ring_patch(ring: int):
             ("static_assert(R >= DEPTH + 3,", "static_assert(true,")]
 
 
-def build(name: str, patches=(), early=False, tsan=False, out=OUT) -> Path:
-    """Compile the translated kernel into out/<name>.so (or, with tsan, a
-    ThreadSanitizer program out/<name> that runs CASES)."""
+def build(name: str, patches=(), early=False, tsan=False, out=OUT,
+          source=fused_tracer.SOURCE) -> Path:
+    """Compile the translated kernel `source` (a path in the repo) into
+    out/<name>.so (or, with tsan, a ThreadSanitizer program out/<name> that
+    runs K2's CASES)."""
     out.mkdir(parents=True, exist_ok=True)
-    src = translate((ROOT / fused_tracer.SOURCE).read_text(), patches)
+    src = translate((ROOT / source).read_text(), patches)
     cpp = out / f"{name}.cpp"
     flags = ["g++", "-std=c++20", "-O1", "-pthread", "-w"]
     flags += ["-DEMU_EARLY"] if early else []
@@ -198,8 +203,10 @@ def build(name: str, patches=(), early=False, tsan=False, out=OUT) -> Path:
                 (gx, gy, _), _, smem = fused_tracer.launch_geometry(
                     N, nl, nptr, size)
                 fn = "fused_tracer_f32" if size == 4 else "fused_tracer_f64"
-                calls.append(f"rc |= run<{T}>({fn}, {N}, {nl}, {nptr}, "
-                             f"{fused_tracer.SY}, {gx}, {gy}, {smem});")
+                for periodic in (0, 1):
+                    calls.append(f"rc |= run<{T}>({fn}, {N}, {nl}, {nptr}, "
+                                 f"{fused_tracer.SY}, {gx}, {gy}, {smem}, "
+                                 f"{periodic});")
         main = TSAN_MAIN.replace("CASE_CALLS", "\n  ".join(calls))
         cpp.write_text(src + main)
         target = out / name
@@ -212,8 +219,9 @@ def build(name: str, patches=(), early=False, tsan=False, out=OUT) -> Path:
     return target
 
 
-def _config(N, nl, nptr, dtype):
+def _config(N, nl, nptr, dtype, periodic=False):
     return QGConfig(N=N, nl=nl, L0=80, Rom=0.025, Ekb=0.002, Eks=0.001,
+                    sbc=-1.0 if periodic else 0.0,
                     tau0=1e-4, Re4=391, beta=0.5, Fr=(0.003,) * (nl - 1),
                     dh=(1.0 / nl,) * nl, DT=5e-2, tend=1e9, dtout=1e9,
                     CFL=0.6, dtype=dtype, solver="spectral", nptr=nptr,
@@ -222,23 +230,25 @@ def _config(N, nl, nptr, dtype):
                                 for j in range(nptr))).validate()
 
 
-def worst_error(lib_path: Path, cases=CASES) -> float:
+def worst_error(lib_path: Path, cases=CASES, periodic=(False, True)) -> float:
     """The largest error of the emulated kernel against the plain version
-    over `cases`, f64 and f32, relaxation field on and off, as a share of
-    its limit (above 1: wrong)."""
+    over `cases`, walled and periodic, f64 and f32, relaxation field on and
+    off, as a share of its limit (above 1: wrong)."""
     lib = ctypes.CDLL(str(lib_path))
     ptr, dbl = ctypes.c_void_p, ctypes.POINTER(ctypes.c_double)
     for fn in (lib.fused_tracer_f32, lib.fused_tracer_f64):
         fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_double, dbl, dbl, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ptr]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_int, ptr]
         fn.restype = ctypes.c_int
     worst = 0.0
-    for dtype in ("float64", "float32"):
+    for dtype, per in ((d, p) for d in ("float64", "float32")
+                       for p in periodic):
         npt = np.dtype(dtype)
         for N, nl, nptr in cases:
             for relax_on in (False, True):
-                cfg = _config(N, nl, nptr, dtype)
+                cfg = _config(N, nl, nptr, dtype, per)
                 rng = np.random.default_rng(N * 7 + nl * 3 + nptr)
                 psi = (1e-3 * rng.uniform(-1, 1, (nl, N, N))).astype(npt)
                 tr = rng.uniform(-1, 1, (nl, nptr, N, N)).astype(npt)
@@ -259,12 +269,14 @@ def worst_error(lib_path: Path, cases=CASES) -> float:
                         None if relax is None else relax.ctypes.data,
                         out.ctypes.data, N, nl, nptr, cfg.delta,
                         arr(*cfg.iPe[:nptr]), arr(*cfg.ptr_ir[:nptr]),
-                        fused_tracer.SY, gx, gy, smem, None)
+                        fused_tracer.SY, gx, gy, smem, int(per), None)
                 if rc != 0:
                     raise RuntimeError(f"strip_emulation: launch refused "
                                        f"({rc}) at N = {N}")
-                err = np.abs(out - ref).max() / np.abs(ref).max()
-                worst = max(worst, float(err) / LIMITS[dtype])
+                err = float(np.abs(out - ref).max() / np.abs(ref).max())
+                # a NaN (a ring cell never written) is as wrong as can be
+                worst = max(worst, err / LIMITS[dtype]
+                            if np.isfinite(err) else np.inf)
     return worst
 
 
