@@ -5,9 +5,9 @@
 
 Needs one CUDA card, nvcc and the repository checkout; imports nothing of
 JAX or msom_tpu. With no argument every phase runs; with phase names
-(kernels, steps, paths, fused_mm, mg, node, periodic, stochastic) the build
-and those phases only (for work on one part: the kernels' record then lists
-what ran). Phases, in order; any failure exits non-zero:
+(kernels, steps, paths, fused_mm, mg, node, periodic, stochastic, driver)
+the build and those phases only (for work on one part: the kernels' record
+then lists what ran). Phases, in order; any failure exits non-zero:
 
 1. build every kernel from msom_tpu_torch/csrc (one nvcc per source, all
    started together);
@@ -108,6 +108,21 @@ what ran). Phases, in order; any failure exits non-zero:
    the card): 60 spin-up and 20 timed steps counting K1's launches, K1 on
    the final state against its plain version and bound, a four-step
    profile.
+11. the msqg driver and its events (phase name driver): driver.run_qg with
+   the wavelet filter (dtflt), the energy budget (ediag = 0) and an
+   OutputWriter on the card against the CPU, 128^2 x 3 f64 to tend = 0.75
+   (about 30 steps, two output and two filter events): walled, with
+   bench's coupling (psipg, topography, two tracers) and periodic; the
+   final q, psi, qof, nbar, the six energy fields and the KE log within
+   STEP_LIMIT, every .bas file within float32 rounding. Then bench's
+   coupled configuration at 2048^2 x 4 f32 through run_qg (dtflt = 0.25,
+   dtout = 0.5, tend = 0.9: about 40 steps, two output and three filter
+   events, the files into a temporary directory removed afterwards),
+   counting K1's and K2's launches: the driver's ms/step between events
+   beside the bare make_step loop's on the same state, energy_tend's ms a
+   step, the filter event's ms, the output event's seconds, the idle
+   share of the driver loop (a profile of four steps), K1 and K2 on the
+   final state against their plain versions and bounds.
 
 TF32 is switched off for matmuls and convolutions before anything runs:
 1-pass reduced-precision transforms give O(1) solution error at N = 2048.
@@ -139,7 +154,7 @@ MG_SWEEPS = 4
 MG_SOLVE_LIMIT = 1e-10                    # CUDA solve vs CPU solve, f64
 MG_MAX_CYCLES = 20      # a solve that needs more at tol 1e-3 is spinning
 PHASES = ("kernels", "steps", "paths", "fused_mm", "mg", "node", "periodic",
-          "stochastic")
+          "stochastic", "driver")
 K1_OPTIONS = ("pg", "pg_flsrv", "topo", "qforc", "energy_conserv", "slip",
               "all")
 # the periodic kernel's option sets (no slip: the domain has no wall), and
@@ -1501,6 +1516,250 @@ def stochastic_path(QGConfig, rows):
     return True
 
 
+def driver_check(QGConfig, label, cfg, coupled=False):
+    """run_qg on the card against the CPU, f64, from one numpy IC, with the
+    filter, the energy budget and an OutputWriter each (coupled: bench's
+    psipg and topography, numpy tracers): the final q, psi, qof, nbar,
+    tracers and the six energy fields and the KE log within STEP_LIMIT,
+    the same output files, each .bas within float32 rounding (2^-23 of its
+    max|value|). Returns False on any difference."""
+    import os
+    import tempfile
+    from msom_tpu_torch import driver
+    from msom_tpu_torch.io.bas import read_bas
+    from msom_tpu_torch.models import fused_rhs, qg, qg_energy
+    rng = np.random.default_rng(42)
+    psi0 = 1e-3 * rng.uniform(-1, 1, (cfg.nl, cfg.N, cfg.N))
+    fields, tr0 = {}, None
+    if coupled:
+        fields = coupled_fields(cfg)
+        tr0 = 1e-3 * rng.uniform(-1, 1, (cfg.nl, cfg.nptr, cfg.N, cfg.N))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for where in ("cpu", "cuda"):
+            const = qg.build_constants(cfg, device=where, **fields)
+            state = qg.init_state(cfg, const, psi0=psi0, tracers0=tr0)
+            logs = []
+            hooks = driver.RunHooks(
+                on_log=lambda *a: logs.append(a),
+                on_output=driver.OutputWriter(
+                    cfg, const, outdir=os.path.join(tmp, where)))
+            before = fused_rhs.launches
+            state, energy = driver.run_qg(cfg, const=const, state=state,
+                                          hooks=hooks)
+            out[where] = (state, energy, logs, fused_rhs.launches - before)
+        (cs, ce, clog, cn), (gs, ge, glog, gn) = out["cpu"], out["cuda"]
+        rels = {}
+        names = ["q", "psi", "qof"] + (["tracers"] if coupled else [])
+        pairs = [(n, getattr(gs, n), getattr(cs, n)) for n in names]
+        pairs += [(n, getattr(ge, n), getattr(ce, n))
+                  for n in qg_energy.FIELDS]
+        for name, got, want in pairs:
+            scale = want.abs().max().item()
+            err = (got.cpu() - want).abs().max().item()
+            rels[name] = err / scale if scale else err
+        ke_rel = max(abs(g[3] - c[3]) / abs(c[3]) for g, c in zip(glog, clog))
+        files = sorted(os.listdir(os.path.join(tmp, "cpu")))
+        same_files = files == sorted(os.listdir(os.path.join(tmp, "cuda")))
+        bas_rel = 0.0      # the worst file's max|diff| over its max|value|
+        for name in (n for n in files if same_files and n.endswith(".bas")):
+            got = read_bas(os.path.join(tmp, "cuda", name))[0]
+            want = read_bas(os.path.join(tmp, "cpu", name))[0]
+            err = np.abs(got.astype(np.float64) - want).max()
+            scale = np.abs(want.astype(np.float64)).max()
+            bas_rel = max(bas_rel, err / scale if scale else
+                          (np.inf if err else 0.0))
+    steps = int(gs.i)
+    good = (all(r <= STEP_LIMIT for r in rels.values())
+            and ke_rel <= STEP_LIMIT and same_files
+            and bas_rel <= 2.0 ** -23
+            and int(gs.nbar) == int(cs.nbar) == 2 and int(cs.i) == steps
+            and len(glog) == len(clog) == steps
+            and cn == 0 and gn == 2 * steps)
+    print(f"driver check {label} 128^2 x 3 f64, {steps} steps, "
+          f"{int(gs.nbar)} filter events, cuda vs cpu: "
+          + ", ".join(f"rel {k} = {v:.3e}" for k, v in rels.items())
+          + f", KE log {ke_rel:.3e} (limit {STEP_LIMIT:g}); {len(files)} "
+          f"files, same names {same_files}, .bas {bas_rel:.3e} of max "
+          f"(limit 2^-23); K1 launches cuda {gn} cpu {cn} "
+          f"{'ok' if good else 'FAIL'}")
+    return good
+
+
+def driver_path(QGConfig, rows):
+    """bench.py's coupled configuration (bench.py:58-74) at 2048^2 x 4 f32
+    through driver.run_qg with the filter (dtflt = 0.25, afilt = 10), the
+    energy budget (ediag = 0) and an OutputWriter into a temporary
+    directory: tend = 0.9 and dtout = 0.5 give about 40 steps with the
+    output event at t = 0 and 0.5 and the filter event at 0.25, 0.5 and
+    0.75. Prints the driver's ms/step between events (host clock: the loop
+    reads t and KE every step, so each step ends synchronised) beside the
+    bare make_step loop's (CUDA events, no host read) on the final state,
+    energy_tend's and the filter event's ms (CUDA events), the output
+    event's seconds (host clock, synchronised), the driver loop's idle
+    share (a profile of four steps) and K1 and K2 on the final state
+    against their plain versions. Appends their records to `rows`;
+    returns False if a check failed."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from msom_tpu_torch import driver
+    from msom_tpu_torch.io.bas import read_bas
+    from msom_tpu_torch.models import fused_rhs, fused_tracer, qg, qg_energy
+    from msom_tpu_torch.ops.wavelet import wavelet_filter_step
+    N, nl = 2048, 4
+    cfg = dataclasses.replace(
+        bench_config(QGConfig, N, nl, "float32", **TRACERS), dtflt=0.25,
+        dtout=0.5, tend=0.9, ediag=0).validate()
+    t0 = time.perf_counter()
+    const = qg.build_constants(cfg, device="cuda", **coupled_fields(cfg))
+    rng = np.random.default_rng(0)
+    psi0 = 1e-3 * rng.uniform(-1, 1, (nl, N, N))
+    tr0 = 1e-3 * rng.uniform(-1, 1, (nl, cfg.nptr, N, N))
+    state = qg.init_state(cfg, const, psi0=psi0, tracers0=tr0)
+    torch.cuda.synchronize()
+    print(f"driver path set-up: {time.perf_counter() - t0:.1f} s "
+          f"(sig_lev pyramid of {len(const.sig_lev)} levels)")
+    label = f"driver {N}^2 x {nl} f32"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_driver_")
+    try:
+        # the host clock at each logged step, the steps an event preceded
+        # and the output events' steps and seconds
+        clock, events, out_steps, out_s = [0.0], set(), [], []
+        writer = driver.OutputWriter(cfg, const, outdir=tmp)
+
+        def on_output(st, t):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            writer(st, t)
+            out_s.append(time.perf_counter() - t1)
+            out_steps.append(int(st.i))
+            events.add(int(st.i))
+
+        def on_filter(st, t):
+            events.add(int(st.i))
+
+        logs = []
+
+        def on_log(i, dt, t, ke):
+            clock.append(time.perf_counter())
+            logs.append((i, dt, t, ke))
+
+        # the energy window is flushed through the writer, as run_qg does
+        # with a hook that has write_energy
+        on_output.write_energy = writer.write_energy
+        hooks = driver.RunHooks(on_log=on_log, on_output=on_output,
+                                on_filter=on_filter)
+        fused_rhs.launches = fused_tracer.launches = 0
+        clock[0] = time.perf_counter()
+        state, energy = driver.run_qg(cfg, const=const, state=state,
+                                      hooks=hooks, max_steps=80)
+        n_rhs, n_tr = fused_rhs.launches, fused_tracer.launches
+        steps = int(state.i)
+        wall = np.diff(clock) * 1e3              # ms of step k = 1..steps
+        quiet = [wall[k] for k in range(steps) if k not in events]
+        ms_driver = float(np.median(quiet))
+        finite = all(bool(torch.isfinite(f).all()) for f in
+                     (state.q, state.psi, state.tracers, state.qof,
+                      *(getattr(energy, n) for n in qg_energy.FIELDS)))
+        # every file there with its blocks
+        want_files = {"sig_filt.bas": 1, f"rdpg_{nl}l_N{N}.bas": 1,
+                      f"psipg_{nl}l_N{N}.bas": nl,
+                      f"frpg_{nl}l_N{N}.bas": nl - 1, f"topo_N{N}.bas": 1}
+        for i in out_steps:
+            for kind, blocks in (("po", nl), ("qo", nl), ("pf", nl),
+                                 ("ptr", nl * cfg.nptr)) + tuple(
+                                     (n, nl) for n in qg_energy.FIELDS):
+                want_files[f"{kind}{i:09d}.bas"] = blocks
+        shapes_ok = True
+        for name, blocks in want_files.items():
+            path = os.path.join(tmp, name)
+            if not os.path.exists(path):
+                shapes_ok = False
+                print(f"  missing {name}")
+                continue
+            if os.path.getsize(path) != blocks * (N + 1) ** 2 * 4:
+                shapes_ok = False
+                print(f"  {name}: {os.path.getsize(path)} bytes")
+        if shapes_ok:
+            pf = read_bas(os.path.join(tmp, f"pf{out_steps[-1]:09d}.bas"))[0]
+            shapes_ok = pf.shape == (nl, N, N) and bool(np.isfinite(pf).all())
+        n_out = len(out_s)
+        ok = (finite and shapes_ok and n_rhs == 2 * steps
+              and n_tr == 2 * steps and n_out == 2 and int(state.nbar) >= 3
+              and len(logs) == steps)
+        print(f"{label}: {steps} steps to t {state.t.item():.6e}, "
+              f"{n_out} output events (files {len(want_files)}, sizes and "
+              f"blocks right {shapes_ok}), {int(state.nbar)} filter events, "
+              f"fused_rhs launches {n_rhs} (expected {2 * steps}), "
+              f"fused_tracer launches {n_tr} (expected {2 * steps}), "
+              f"finite {finite}, ke {logs[-1][3]:.6e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            return False
+        # the bare step loop on the same state, no host read a step
+        step = qg.make_step(cfg)
+        bare, _, _ = timed_steps(step, state, const, 10)
+        _, _, ms_bare = timed_steps(step, bare, const, 40)
+        del bare
+        print(f"{label}: driver {ms_driver:.4f} ms/step (median of "
+              f"{len(quiet)} steps between events; mean over all "
+              f"{steps} steps {wall.mean():.4f}), bare make_step loop "
+              f"{ms_bare:.4f} ms/step: the driver's per-step host reads "
+              f"and energy_tend cost {ms_driver - ms_bare:.4f} ms/step")
+        psi = state.psi.contiguous()
+        dt = torch.tensor(logs[-1][1], device="cuda")
+        ms_energy = cuda_ms(lambda: qg_energy.energy_tend(
+            cfg, const, energy, psi, dt), 20)
+        ms_fde = cuda_ms(lambda: qg_energy.filter_de(
+            cfg, const, energy, state.q, state.psi), 10)
+        ms_flt = cuda_ms(lambda: wavelet_filter_step(cfg, const, state), 10)
+        print(f"{label}: energy_tend {ms_energy:.4f} ms a step, filter "
+              f"event {ms_fde + ms_flt:.4f} ms (filter_de {ms_fde:.4f}, "
+              f"wavelet_filter_step {ms_flt:.4f}), output event "
+              + ", ".join(f"{s:.3f}" for s in out_s) + " s")
+        # where the filter event's device time goes (one wavelet_filter_step;
+        # filter_de adds the same inversion, pyramid and comp_q again)
+        kernel_profile("filter event (wavelet_filter_step)",
+                       lambda: wavelet_filter_step(cfg, const, state), 2,
+                       ms_flt)
+        # the driver loop's idle share: the device time of four steps of
+        # run_qg without events against the driver's ms/step between events
+        quiet_cfg = dataclasses.replace(cfg, dtflt=-1.0, dtout=1e9,
+                                        tend=1e9)
+        box = [state]
+
+        def driver_step():
+            box[0], _ = driver.run_qg(quiet_cfg, const=const, state=box[0],
+                                      max_steps=int(box[0].i) + 1)
+
+        driver_step()
+        kernel_profile("driver", driver_step, 4, ms_driver)
+        for rec in (
+                _kernel_row(label, "fused_rhs",
+                            lambda: fused_rhs.rhs_fused(cfg, const, psi)[0],
+                            lambda: fused_rhs.rhs_fused_reference(
+                                cfg, const, psi)[0],
+                            fused_rhs.bound_work(cfg, const, 4), n_rhs,
+                            fused_rhs.SOURCE,
+                            "msom_tpu/models/pallas_rhs.py:441", "coupled"),
+                _kernel_row(label, "fused_tracer",
+                            lambda: fused_tracer.tracer_fused(
+                                cfg, const, psi, state.tracers),
+                            lambda: fused_tracer.tracer_fused_reference(
+                                cfg, const, psi, state.tracers),
+                            fused_tracer.bound_work(cfg, const, 4), n_tr,
+                            fused_tracer.SOURCE,
+                            "msom_tpu/models/pallas_rhs.py:778", "walled")):
+            if rec is None:
+                return False
+            rows.append(rec)
+        return True
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def k7_checks(periodic, shapes):
     """K7 against its plain version, the cuBLAS chain, f64 and f32, at each
     (N, nl) of `shapes`, on the DST-II basis or (periodic) the Fourier
@@ -1802,6 +2061,22 @@ def main() -> int:
             return 10
         print(f"stochastic path done at {time.perf_counter() - t_start:.0f} "
               "s")
+
+    # 11. the msqg driver and its events: card against CPU, then bench's
+    # coupled configuration through run_qg at full width
+    if wanted("driver"):
+        ev = dict(dtflt=0.25, dtout=0.5, tend=0.75, ediag=0, afilt=7.0)
+        if not (driver_check(QGConfig, "walled", verron(QGConfig, 128, **ev))
+                and driver_check(QGConfig, "coupled",
+                                 verron(QGConfig, 128, **ev, **TRACERS),
+                                 coupled=True)
+                and driver_check(QGConfig, "periodic",
+                                 verron(QGConfig, 128, sbc=-1.0, **ev))):
+            return 11
+        print(f"driver checks done at {time.perf_counter() - t_start:.0f} s")
+        if not driver_path(QGConfig, rows):
+            return 11
+        print(f"driver path done at {time.perf_counter() - t_start:.0f} s")
 
     print(f"total {time.perf_counter() - t_start:.0f} s")
     print("kernels: " + json.dumps(sorted({r["name"] for r in rows})))

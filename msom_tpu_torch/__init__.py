@@ -13,7 +13,10 @@ mode_pv_invert), uncoupled or coupled to a large-scale streamfunction,
 bottom topography, a 3-D forcing and passive tracers, with or without
 stochastic forcing (a torch.Generator given to make_step); and the qg-node family's walled step (models/qg_node.py: any
 interior mask, partial-slip rings, the nodal spectral inversion or the
-masked vertex multigrid solvers/vmg.py). Seven hand-written Hopper kernels:
+masked vertex multigrid solvers/vmg.py); the msqg driver with its events
+(driver.py: run_qg, OutputWriter, the command line; the wavelet filter
+ops/wavelet.py, the energy budget models/qg_energy.py, the .bas and deck
+readers and the checkpoint in io/). Seven hand-written Hopper kernels:
 the fused tendency (models/fused_rhs.py, csrc/fused_rhs.cu), the fused
 tracer tendency (models/fused_tracer.py, csrc/fused_tracer.cu), the fused
 basis-matmul spectral solve (solvers/fused_spectral.py,
@@ -34,6 +37,9 @@ solvers/fused_vmg.py, csrc/vmg_sweep.cu: five sweeps a launch).
     state = qg.init_state(cfg, const, seed=0)
     step = qg.make_step(cfg)
     state, diag = step(state, const, 1.0)
+    from msom_tpu_torch import driver
+    state, energy = driver.run_qg(cfg, const=const, state=state,
+                                  hooks=driver.stdout_hooks())
 
     from msom_tpu_torch.models import qg_node
     ncfg = qg_node.NodeQGConfig(N=256, nl=4, L0=100.0, f0=46.5, beta=0.5,

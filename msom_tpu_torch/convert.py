@@ -8,9 +8,11 @@ every constant is derived from the config by `build_constants`.
 
 The `key` leaf, the JAX PRNG key, is ignored: only stochastic forcing draws
 from it, and a jax.random stream cannot be continued in torch; the port's
-stochastic step draws from the torch.Generator given to `qg.make_step`. The `tracers` leaf (nl, nptr, N, N) and the multigrid warm
-start's `psi_old` leaf (nl, N, N) are carried when present. Leaves of
-unported features (the filter mean qof/nbar) raise NotImplementedError.
+stochastic step draws from the torch.Generator given to `qg.make_step`. The `tracers` leaf (nl, nptr, N, N), the multigrid warm
+start's `psi_old` leaf (nl, N, N) and, with the wavelet filter (dtflt >
+0), its mean PV flux `qof` (nl, N, N) and event count `nbar` are carried
+where the run has them, so a JAX run that has had filter events resumes in
+the port with the same running mean.
 
 `node_state_from_numpy` and `node_state_to_numpy` do the same for the
 qg-node family's `NodeQGState` (leaves q, psi, t, dt_prev, i, nbar and,
@@ -29,18 +31,10 @@ from msom_tpu_torch.models import qg_node
 from msom_tpu_torch.models.qg import QGState, _torch_dtype
 from msom_tpu_torch.params import QGConfig
 
-_UNPORTED = ("qof", "nbar")
-
-
 def state_from_numpy(cfg: QGConfig, leaves, device="cuda") -> QGState:
     """The port's QGState on `device` from a mapping of numpy arrays with
-    the leaves q, psi, t, dt_prev, i and, where the run has them, tracers
-    and psi_old (as `save_state` writes them)."""
-    for name in _UNPORTED:
-        if name in leaves:
-            raise NotImplementedError(
-                f"state leaf {name!r} belongs to a feature not ported yet "
-                "(ROADMAP.md queue 1)")
+    the leaves q, psi, t, dt_prev, i and, where the run has them, tracers,
+    psi_old, qof and nbar (as `save_state` writes them)."""
     dtype = _torch_dtype(cfg)
     shape = (cfg.nl, cfg.N, cfg.N)
 
@@ -66,16 +60,24 @@ def state_from_numpy(cfg: QGConfig, leaves, device="cuda") -> QGState:
                          f"warm-start extrapolation but the leaves "
                          f"{'hold' if 'psi_old' in leaves else 'lack'} "
                          "psi_old")
+    filt = cfg.dtflt > 0
+    if {"qof", "nbar"} & set(leaves) != ({"qof", "nbar"} if filt else set()):
+        raise ValueError(f"the config {'has' if filt else 'has no'} filter "
+                         f"(dtflt = {cfg.dtflt}) but the leaves hold "
+                         f"{sorted({'qof', 'nbar'} & set(leaves))} of qof "
+                         "and nbar")
     return QGState(q=field("q"), psi=field("psi"), t=scalar("t", dtype),
                    dt_prev=scalar("dt_prev", dtype),
                    i=scalar("i", torch.int32), tracers=tracers,
-                   psi_old=field("psi_old") if extrap else None)
+                   psi_old=field("psi_old") if extrap else None,
+                   qof=field("qof") if filt else None,
+                   nbar=scalar("nbar", torch.int32) if filt else None)
 
 
 def state_to_numpy(state: QGState) -> dict:
     """The leaves of `state` as host numpy arrays, in save_state's names."""
     names = ("q", "psi", "t", "dt_prev", "i") + tuple(
-        name for name in ("tracers", "psi_old")
+        name for name in ("tracers", "psi_old", "qof", "nbar")
         if getattr(state, name) is not None)
     return {name: getattr(state, name).cpu().numpy() for name in names}
 

@@ -1,0 +1,287 @@
+"""Run loop and events of the msqg model (the port of `msom_tpu.driver`'s
+msqg half), and its command line, the `./qg.e params.in` equivalent:
+
+    python -m msom_tpu_torch.driver --config params.in [--steps N]
+        [--deck DIR] [--outdir DIR] [--no-output] [--cpu]
+
+Basilisk's event system (run()/event blocks) becomes an explicit host loop
+around the step: output every dtout (and at t = 0), the wavelet filter
+every dtflt, and `dtnext` inside the step makes steps land exactly on the
+event times. The loop reads the model time and the KE back to the host
+once a step (for the events, the NaN guards and the log); everything else
+stays on the state's device.
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP.md
+queue-1 item): the mspg run (`--model pg`, item 13) and the sharded runs
+(`sharded=`, `--sharded`, item 15).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from msom_tpu_torch.io.bas import write_bas
+from msom_tpu_torch.io.deck import load_qg_deck
+from msom_tpu_torch.models import qg, qg_energy
+from msom_tpu_torch.ops.wavelet import wavelet_filter_step
+from msom_tpu_torch.params import QGConfig, load_qg_config
+
+
+SHARDED_UNPORTED = ("the sharded msqg run is not ported yet (ROADMAP.md "
+                    "queue 1, item 15)")
+
+
+@dataclasses.dataclass
+class RunHooks:
+    """Callbacks fired by the driver on the host."""
+    on_log: Callable | None = None      # (i, dt, t, ke) every step
+    on_output: Callable | None = None   # (state, t) every dtout
+    on_filter: Callable | None = None   # (state, t) every dtflt
+
+
+def _next_event(t, cadence, eps=1e-10):
+    """The first multiple of `cadence` strictly after t (within eps)."""
+    if cadence <= 0:
+        return np.inf
+    k = np.floor((t + eps) / cadence) + 1
+    return k * cadence
+
+
+def _time_eps(t: float, dtype: torch.dtype) -> float:
+    """How close the model time t must come to an event time for the event
+    to fire: 1e-10 (the JAX driver's), or 16 units in the last place of t
+    where the model time's type is coarser (float32). A float32 t cannot
+    reach an event time such as 0.9 within 1e-10, and would then take
+    steps of dt = 0 forever."""
+    return max(1e-10, 16 * torch.finfo(dtype).eps * max(1.0, abs(t)))
+
+
+def run_qg(cfg: QGConfig, *, const=None, state=None, hooks: RunHooks = None,
+           max_steps: int | None = None, log_every: int = 1,
+           generator: torch.Generator | None = None, seed: int = 0,
+           sharded=False, device="cuda"):
+    """Integrate the msqg model to cfg.tend; returns (state, energy), the
+    energy accumulator None when ediag = -1.
+
+    The reference driver loop (msqg/qg.c): the KE heartbeat each step
+    (writestdout), the output event at t = 0 and every dtout (the energy
+    window flushed through `hooks.on_output.write_energy` where the hook
+    has one, then reset), the filter event every dtflt (`filter_de` first
+    when ediag > -1, then `wavelet_filter_step`), and with ediag > -1 the
+    energy budget summed every step (comp_diag, qg_energy.h:286-288).
+    `const` and `state` default to `build_constants(cfg, device=device)`
+    and its `init_state`. A stochastic run draws from `generator` (on the
+    state's device), else from one made here and seeded with `seed`."""
+    if sharded:
+        raise NotImplementedError(SHARDED_UNPORTED)
+    hooks = hooks or RunHooks()
+    if const is None:
+        const = qg.build_constants(cfg, device=device)
+    if state is None:
+        state = qg.init_state(cfg, const)
+    if cfg.stochastic and generator is None:
+        generator = torch.Generator(device=state.q.device).manual_seed(seed)
+    step = qg.make_step(cfg, generator)
+    energy = None
+    if cfg.ediag > -1:
+        energy = qg_energy.init_energy(cfg, device=state.q.device)
+    write_energy = getattr(hooks.on_output, "write_energy", None)
+
+    t = float(state.t)
+    tend = cfg.tend
+    eps = _time_eps(t, state.t.dtype)
+    next_out = 0.0  # the output event also fires at t = 0 (qg.c:112)
+    next_flt = _next_event(0.0, cfg.dtflt, eps)
+    while t < tend - eps:
+        if t >= next_out - eps:
+            if hooks.on_output is not None:
+                hooks.on_output(state, t)
+            if energy is not None:
+                if write_energy is not None:
+                    write_energy(energy, int(state.i))
+                energy = qg_energy.reset_window(energy)
+            next_out = _next_event(t, cfg.dtout, eps)
+        if cfg.dtflt > 0 and t >= next_flt - eps:
+            if energy is not None:
+                energy = qg_energy.filter_de(cfg, const, energy, state.q,
+                                             state.psi)
+            state = wavelet_filter_step(cfg, const, state)
+            if hooks.on_filter is not None:
+                hooks.on_filter(state, t)
+            next_flt = _next_event(t, cfg.dtflt, eps)
+
+        tnext = min(next_out, next_flt, tend)
+        state, diag = step(state, const, tnext)
+        t = float(state.t)
+        i = int(state.i)
+        eps = _time_eps(t, state.t.dtype)
+        # a CFL or KE NaN reaches t within one step: stop instead of
+        # integrating garbage to tend
+        if t != t:
+            raise FloatingPointError(
+                f"non-finite model time after step {i}: blow-up or NaN in "
+                "the state (check DT/CFL; resume from the last checkpoint)")
+        if energy is not None:
+            energy = qg_energy.energy_tend(cfg, const, energy, state.psi,
+                                           diag.dt)
+        if hooks.on_log is not None and i % log_every == 0:
+            ke = float(diag.ke)
+            if ke != ke:
+                raise FloatingPointError(
+                    f"non-finite kinetic energy at step {i} (t={t:g})")
+            hooks.on_log(i, float(diag.dt), t, ke)
+        if max_steps is not None and i >= max_steps:
+            break
+
+    if hooks.on_output is not None and t >= next_out - eps:
+        hooks.on_output(state, t)
+    return state, energy
+
+
+class OutputWriter:
+    """Reference-compatible output: makes `outdir_%04d/` (the next free
+    one, or `outdir`), backs up the config and the derived fields, and
+    writes the po/qo/pf/ptr snapshots and the energy budget as `.bas` files
+    under the reference's names (msqg/qg.c:112-173, create_outdir
+    qg.h:766-780, backup_config qg.h:782-835). One process."""
+
+    def __init__(self, cfg: QGConfig, const, outdir=None, params_text=None):
+        if outdir is None:
+            for k in range(1, 10000):
+                cand = f"outdir_{k:04d}"
+                try:
+                    os.makedirs(cand)
+                    outdir = cand
+                    break
+                except FileExistsError:
+                    continue
+        else:
+            os.makedirs(outdir, exist_ok=True)
+        self.cfg = cfg
+        self.const = const
+        self.dir = outdir
+        if params_text is not None:
+            with open(f"{self.dir}/params.in", "w") as f:
+                f.write(params_text)
+        self._backup_config()
+
+    def _bas(self, name, field):
+        if isinstance(field, torch.Tensor):
+            field = field.cpu().numpy()
+        write_bas(f"{self.dir}/{name}.bas", field, self.cfg.L0)
+
+    def _backup_config(self):
+        """The derived fields the run used (backup_config,
+        msqg/qg.h:782-835): sig_filt = min(afilt Rd, Lfmax), Rd, psipg,
+        frpg (from strl = (Fr/Ro)^2), qforc, topo, dh."""
+        cfg, const = self.cfg, self.const
+        nl, N = cfg.nl, cfg.N
+        self._bas("sig_filt", const.sig_filt)
+        self._bas(f"rdpg_{nl}l_N{N}", const.Rd)
+        pp = np.zeros((nl, N, N), np.float32) if const.pp is None \
+            else const.pp
+        self._bas(f"psipg_{nl}l_N{N}", pp)
+        if const.strl is not None:
+            self._bas(f"frpg_{nl}l_N{N}",
+                      (torch.sqrt(const.strl) * const.Ro).expand(nl - 1, N, N))
+        if const.qforc is not None:
+            self._bas(f"qforc_{nl}l_N{N}", const.qforc)
+        if const.topo is not None:
+            self._bas(f"topo_N{N}", const.topo)
+        np.asarray(cfg.dh[:nl], np.float32).tofile(f"{self.dir}/dh_{nl}l.bin")
+
+    def __call__(self, state, t):
+        i = int(state.i)
+        cfg = self.cfg
+        self._bas(f"po{i:09d}", state.psi)
+        self._bas(f"qo{i:09d}", state.q)
+        if state.qof is not None and cfg.dtflt > 0:
+            # the filter's mean eddy flux as a streamfunction, inverted
+            # from a zero guess
+            pf, _ = qg.invert_q(cfg, self.const, torch.zeros_like(state.qof),
+                                state.qof)
+            self._bas(f"pf{i:09d}", pf)
+        if state.tracers is not None:
+            self._bas(f"ptr{i:09d}", state.tracers.reshape(-1, cfg.N, cfg.N))
+
+    def write_energy(self, energy, i):
+        """Flush the window's energy budget, scaled by 1/dtout
+        (msqg/qg.c:139-166)."""
+        s = 1.0 / self.cfg.dtout
+        for name in qg_energy.FIELDS:
+            self._bas(f"{name}{i:09d}", getattr(energy, name) * s)
+
+
+def stdout_hooks(stream=None) -> RunHooks:
+    """The KE heartbeat of msqg/qg.c:101-109. The stream is looked up when
+    a line is written, so a later redirection of sys.stdout is followed."""
+    def log(i, dt, t, ke):
+        print(f"i = {i}, dt = {dt:g}, t = {t:g}, ke_1 = {ke:g}",
+              file=stream if stream is not None else sys.stdout)
+    return RunHooks(on_log=log)
+
+
+def main(argv=None) -> dict:
+    """The command line; prints the KE log and, last, one JSON line with
+    the steps, the model time, the wall time and the grid points a second,
+    and returns that dict."""
+    p = argparse.ArgumentParser(
+        description="msom_tpu_torch msqg driver, the `./qg.e params.in` "
+                    "equivalent: deck-directory input files, outdir_%%04d "
+                    "output")
+    p.add_argument("--config", required=True, help="params.in path")
+    p.add_argument("--model", choices=["qg", "pg"], default="qg")
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--deck", default=None,
+                   help="deck directory with input files (p0.bas, psipg_*, "
+                        "...); defaults to the config's directory")
+    p.add_argument("--outdir", default=None,
+                   help="output directory (default: next free outdir_%%04d)")
+    p.add_argument("--no-output", action="store_true",
+                   help="skip file output (stdout KE log only)")
+    p.add_argument("--sharded", action="store_true",
+                   help="domain decomposition over the local devices")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU instead of the CUDA card")
+    args = p.parse_args(argv)
+    if args.model == "pg":
+        raise NotImplementedError(
+            "the mspg model is not ported yet (ROADMAP.md queue 1, item 13)")
+    if args.sharded:
+        raise NotImplementedError(SHARDED_UNPORTED)
+    device = "cpu" if args.cpu else "cuda"
+
+    with open(args.config) as f:
+        params_text = f.read()
+    deckdir = args.deck or os.path.dirname(os.path.abspath(args.config))
+    t0 = time.time()
+    cfg = load_qg_config(params_text)
+    deck = load_qg_deck(cfg, deckdir, log=print)
+    const = qg.build_constants(cfg, device=device, **deck["const"])
+    state = qg.init_state(cfg, const, **deck["init"])
+    hooks = stdout_hooks()
+    if not args.no_output:
+        hooks.on_output = OutputWriter(cfg, const, outdir=args.outdir,
+                                       params_text=params_text)
+    state, _ = run_qg(cfg, const=const, state=state, hooks=hooks,
+                      max_steps=args.steps)
+    wall = time.time() - t0
+    n_steps = int(state.i)
+    result = {"steps": n_steps, "t": float(state.t), "wall_s": wall,
+              "points_per_s": cfg.N * cfg.N * cfg.nl * n_steps
+              / max(wall, 1e-9)}
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()

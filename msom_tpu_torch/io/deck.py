@@ -1,0 +1,85 @@
+"""Reading an msqg experiment deck (the port's own copy of
+`msom_tpu.io.deck.load_qg_deck`).
+
+The reference driver reads a directory of input files beside params.in
+(msqg/qg.c:53-92, qg.h:931-985):
+    p0.bas                      initial streamfunction (else 1e-3 noise)
+    ptr0.bas / ptr_relax.bas    tracer ICs / relaxation targets
+    dh_<nl>l.bin                float32 layer thicknesses
+    psipg_<nl>l_N<N>.bas        large-scale (PG) streamfunction
+    frpg_<nl>l_N<N>.bas         Froude-number field (-> strl)
+    rdpg_<nl>l_N<N>.bas         deformation radius (filter scale)
+    topo.bas                    bottom topography
+    qforc_<nl>l_N<N>.bas        3-D PV forcing
+    s_stoch_<nl>l_N<N>.bas      stochastic sigma (qg_stochastic.h:163-171)
+
+`load_qg_deck` returns the keyword arguments of `models.qg.build_constants`
+and `init_state`, and reports each file it found (the reference prints
+"<name> .. ok", qg.h:937-985). A deck with frpg reaches build_constants,
+which refuses it (ROADMAP.md queue 1, item 10). The qg-node and mspg deck
+readers are not ported yet (items 12e and 13).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from msom_tpu_torch.io.bas import read_bas
+
+
+def _maybe_bas(path, nl=None):
+    if os.path.exists(path):
+        return read_bas(path, nl)[0]
+    return None
+
+
+def load_qg_deck(cfg, deckdir: str, *, log=None) -> dict:
+    """Ingest an msqg deck directory. Returns {"const": kwargs of
+    build_constants, "init": kwargs of init_state, "found": the file names
+    read}."""
+    nl, N = cfg.nl, cfg.N
+    found = []
+
+    def hit(name):
+        found.append(name)
+        if log is not None:
+            log(f"{name} .. ok")
+
+    const = {}
+    p = os.path.join(deckdir, f"dh_{nl}l.bin")
+    if os.path.exists(p):
+        const["dh"] = np.fromfile(p, np.float32, nl).astype(np.float64)
+        hit(os.path.basename(p))
+
+    for key, name, n_read in (
+            ("psipg", f"psipg_{nl}l_N{N}.bas", nl),
+            ("frpg", f"frpg_{nl}l_N{N}.bas", max(nl - 1, 1)),
+            ("rdpg", f"rdpg_{nl}l_N{N}.bas", 1),
+            ("topo", "topo.bas", 1),
+            ("qforc", f"qforc_{nl}l_N{N}.bas", nl),
+            ("s_stoch", f"s_stoch_{nl}l_N{N}.bas", nl)):
+        arr = _maybe_bas(os.path.join(deckdir, name), n_read)
+        if arr is not None:
+            const[key] = arr[0] if key in ("rdpg", "topo") else arr
+            hit(name)
+
+    init = {}
+    psi0 = _maybe_bas(os.path.join(deckdir, "p0.bas"), nl)
+    if psi0 is not None:
+        init["psi0"] = psi0
+        hit("p0.bas")
+    if cfg.nptr > 0:
+        tr = _maybe_bas(os.path.join(deckdir, "ptr0.bas"), nl * cfg.nptr)
+        if tr is not None:
+            # interleaved (l*nptr + nt) blocks
+            # (msqg/scripts/init_ptracer.py:22-28)
+            init["tracers0"] = tr.reshape(nl, cfg.nptr, N, N)
+            hit("ptr0.bas")
+        rel = _maybe_bas(os.path.join(deckdir, "ptr_relax.bas"),
+                         nl * cfg.nptr)
+        if rel is not None:
+            const["ptr_relax"] = rel.reshape(nl, cfg.nptr, N, N)
+            hit("ptr_relax.bas")
+    return {"const": const, "init": init, "found": found}

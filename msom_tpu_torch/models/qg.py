@@ -21,10 +21,14 @@ the topography its Neumann ghosts), the large-scale (PG) streamfunction
 coupling from `psipg` or `upg/vpg`, _LS_RV (flsrv = 1), bottom topography,
 the 3-D forcing `qforc`, ENERGY_CONSERV advection, passive tracers with an
 optional relaxation field, and stochastic forcing (Euler-Maruyama, noise
-from a `torch.Generator` that the caller gives `make_step`).
+from a `torch.Generator` that the caller gives `make_step`). The wavelet
+filter's constants (the cutoff scale sig_filt from `rdpg` or the modal
+deformation radius, and the sig_lev pyramid) and its state leaves (the
+filter-mean PV flux `qof` and its count `nbar`) are built here; the filter
+event itself is `ops/wavelet.wavelet_filter_step`, fired by `driver.run_qg`.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-queue-1 item): the wavelet filter (item 9); varRo and 2-D frpg (item 10).
+queue-1 item): varRo and 2-D frpg (item 10).
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from msom_tpu_torch.ops.ghost import (Ghosted, arakawa_mjac_g, beta_effect_g,
 from msom_tpu_torch.ops.modes import eigmod
 from msom_tpu_torch.ops.stencil import laplacian
 from msom_tpu_torch.ops.stretch import layer_metrics, stretch
+from msom_tpu_torch.ops.wavelet import sig_lev_pyramid
 from msom_tpu_torch.params import QGConfig
 from msom_tpu_torch.solvers import mg, spectral
 
@@ -86,6 +91,9 @@ class QGConstants:
     l2m: torch.Tensor | None = None         # (nl, nl) layers -> modes
     m2l: torch.Tensor | None = None         # (nl, nl) modes -> layers
     mlevels: tuple | None = None            # levels of the modal solves
+    sig_lev: tuple | None = None            # (2^l, 2^l) high-pass weights
+    sig_filt: torch.Tensor | None = None    # (N, N) min(afilt Rd, Lfmax)
+    Rd: torch.Tensor | None = None          # (N, N) its deformation radius
 
 
 @dataclasses.dataclass
@@ -97,6 +105,8 @@ class QGState:
     i: torch.Tensor               # 0-d int32 step counter
     tracers: torch.Tensor | None = None   # (nl, nptr, N, N)
     psi_old: torch.Tensor | None = None   # psi one step back (mg_extrap)
+    qof: torch.Tensor | None = None       # (nl, N, N) filter-mean PV flux
+    nbar: torch.Tensor | None = None      # 0-d int32 filter events in qof
 
 
 class StepDiag(NamedTuple):
@@ -108,7 +118,7 @@ class StepDiag(NamedTuple):
 
 # input fields that build_constants accepts in the JAX package and the port
 # does not yet, with the ROADMAP.md queue-1 item that will bring each
-_UNPORTED_INPUTS = {"rdpg": 9, "frpg": 10}
+_UNPORTED_INPUTS = {"frpg": 10}
 
 
 def _torch_dtype(cfg: QGConfig) -> torch.dtype:
@@ -134,32 +144,29 @@ def _check_slice(cfg: QGConfig, inputs: dict) -> None:
     if cfg.sbc < 0 and cfg.sbc != -1:
         raise ValueError(f"sbc = {cfg.sbc}: -1 (doubly periodic) or >= 0 "
                          "(walls)")
-    unported = [
-        (cfg.dtflt > 0, "the wavelet filter, dtflt > 0 (item 9)"),
-        (cfg.varRo > 0, "varRo (item 10)"),
-    ]
-    for bad, what in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md queue 1)")
+    if cfg.varRo > 0:
+        raise NotImplementedError(
+            "varRo (item 10) is not ported yet (ROADMAP.md queue 1)")
 
 
 def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
                     psipg=None, topo=None, qforc=None, dh=None,
-                    ptr_relax=None, s_stoch=None,
+                    ptr_relax=None, s_stoch=None, rdpg=None,
                     **unported) -> QGConstants:
     """Derive the static model fields on `device`. The optional arrays
     override the defaults as the reference's input files do (psipg_*.bas
     etc., msqg/qg.h:950-985): `psipg` (nl, N, N) large-scale streamfunction
     (else vpg*x - upg*y from the config), `topo` (N, N), `qforc` (nl, N, N),
     `dh` (nl,) layer thicknesses, `ptr_relax` (nl, nptr, N, N), `s_stoch`
-    (nl, N, N) the stochastic noise amplitude (else 1). `fused_mm`
+    (nl, N, N) the stochastic noise amplitude (else 1), `rdpg` (N, N) the
+    deformation radius that sets the filter scale (else 1; with
+    mode_pv_invert the first baroclinic mode's radius). `fused_mm`
     routes the inversion through the fused basis-matmul solve (the matmul
     transform; 128 <= N <= 1024, N % 128 == 0; the spectral solver only).
     With solver="mg" the multigrid levels are built here instead of the
     spectral data, and with mode_pv_invert the vertical modes and the
-    levels of the modal Helmholtz solves. The JAX package's other inputs
-    (rdpg, frpg) raise NotImplementedError when given."""
+    levels of the modal Helmholtz solves. The JAX package's frpg input
+    raises NotImplementedError when given."""
     _check_slice(cfg, unported)
     if fused_mm and cfg.solver != "spectral":
         raise ValueError("fused_mm is an option of solver='spectral'")
@@ -238,6 +245,27 @@ def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
                              f"config needs {shape}")
         return a.contiguous()
 
+    # the wavelet filter's scale sig_filt = min(afilt Rd, Lfmax) and, with
+    # the filter on, its per-level high-pass weights (msqg/qg.h:1052-1090):
+    # Rd is 1, or the rdpg input, or with mode_pv_invert the first
+    # baroclinic radius (strl is uniform here, so one eigensolve; JAX
+    # qg.py:202-209, 226-237, which builds the weights for every config)
+    vm = eigmod(dh, s_prof) if cfg.mode_pv_invert and nl > 1 else None
+    Rd = np.ones((N, N)) if rdpg is None else np.asarray(rdpg, np.float64)
+    if Rd.shape != (N, N):
+        raise ValueError(f"rdpg has shape {Rd.shape}, the config needs "
+                         f"{(N, N)}")
+    if vm is not None:
+        Rd = float(vm.Rd[1]) * np.ones((N, N))
+    sig_filt = np.minimum(cfg.afilt * Rd, cfg.Lfmax)
+    sig_lev = None
+    if cfg.dtflt > 0:
+        # the pyramid halves N down to one cell
+        if N & (N - 1):
+            raise ValueError(f"the wavelet filter (dtflt > 0) needs N a "
+                             f"power of 2, not {N}")
+        sig_lev = tuple(dev(s_) for s_ in sig_lev_pyramid(sig_filt, cfg.L0))
+
     spec = levels = iBu = l2m = m2l = mlevels = None
     if cfg.solver == "spectral":
         spec = spectral.build_spectral(
@@ -245,10 +273,9 @@ def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
             periodic=cfg.sbc == -1,
             dtype=dtype, transform="matmul" if fused_mm else cfg.transform,
             fused_mm=fused_mm, device=device)
-    elif cfg.mode_pv_invert and nl > 1:
+    elif vm is not None:
         # vertical modes (MODE_PV_INVERT, msqg/qg.h:109-157): strl is
         # uniform here, so one eigensolve serves every column
-        vm = eigmod(dh, s_prof)
         iBu = dev(vm.iBu)[:, None, None].expand(nl, N, 1).contiguous()
         l2m, m2l = dev(vm.l2m), dev(vm.m2l)
         mlevels = tuple(mg.build_layered_coeffs(
@@ -266,7 +293,8 @@ def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
         s_stoch=field(s_stoch, "s_stoch", (nl, N, N)),
         umax_pp=umax_pp, pp=pp, pp_t=pp_t, zetap_t=zetap_t, topo=topo_in,
         iro=iro, levels=levels,
-        iBu=iBu, l2m=l2m, m2l=m2l, mlevels=mlevels)
+        iBu=iBu, l2m=l2m, m2l=m2l, mlevels=mlevels, sig_lev=sig_lev,
+        sig_filt=dev(sig_filt), Rd=dev(Rd))
 
 
 def _periodic_pp_pad(cfg: QGConfig, pp: np.ndarray, upg: np.ndarray,
@@ -328,7 +356,8 @@ def init_state(cfg: QGConfig, const: QGConstants, *, psi0=None, seed=0,
     """Initial conditions: psi from `psi0` or 1e-3 uniform noise in
     [-1, 1], made zero-mean per layer, then q = comp_q(psi) (reference
     msqg/qg.c:53-92); with nptr > 0 the tracers from `tracers0` or the same
-    kind of noise. The noise comes from `generator` (default: a CPU
+    kind of noise; with dtflt > 0 a zero filter mean qof (nbar = 0). The
+    noise comes from `generator` (default: a CPU
     generator seeded with `seed`); it is a different stream from the JAX
     package's jax.random draw, so runs that must agree share `psi0` and
     `tracers0`."""
@@ -357,10 +386,14 @@ def init_state(cfg: QGConfig, const: QGConstants, *, psi0=None, seed=0,
     # the mg warm start extrapolates from two steps (guess = 2 psi -
     # psi_old); psi_old starts as psi, so the first guess is psi itself
     psi_old = psi if cfg.solver == "mg" and cfg.mg_extrap else None
-    return QGState(q=comp_q(cfg, const, psi), psi=psi, t=zero,
-                   dt_prev=zero.clone(),
+    q = comp_q(cfg, const, psi)
+    qof = nbar = None
+    if cfg.dtflt > 0:
+        qof = torch.zeros_like(q)
+        nbar = torch.zeros((), dtype=torch.int32, device=device)
+    return QGState(q=q, psi=psi, t=zero, dt_prev=zero.clone(),
                    i=torch.zeros((), dtype=torch.int32, device=device),
-                   tracers=tracers, psi_old=psi_old)
+                   tracers=tracers, psi_old=psi_old, qof=qof, nbar=nbar)
 
 
 # ---------------------------------------------------------------------------
@@ -516,6 +549,14 @@ def cfl_from_umax(cfg: QGConfig, umax_psi: torch.Tensor,
     return dtm, prev
 
 
+def time_filter(q, q_mean, dt, tau_f: float = 20.0):
+    """Exponential running mean of the PV (time_filter, msqg/qg.h:491-507;
+    tau_f = 20 there, and its subtraction line is commented out, so this
+    only keeps the mean): q_mean <- (1 - dt/tau_f) q_mean + (dt/tau_f) q."""
+    alpha = dt / tau_f
+    return (1.0 - alpha) * q_mean + alpha * q
+
+
 def dtnext(t, tnext, dt):
     """Basilisk event scheduling: shrink dt so an integer number of steps
     lands exactly on the next event time (events.h dtnext, TEPS=1e-9)."""
@@ -575,7 +616,8 @@ def make_step(cfg: QGConfig, generator: torch.Generator | None = None):
     with q. The first inversion starts from the last psi, or from
     2 psi - psi_old where the state carries psi_old; the second from the
     first's psi. StepDiag reports the first inversion's cycles and
-    residual.
+    residual. The filter mean (qof, nbar) passes through unchanged: only
+    the filter event updates it.
 
     With cfg.stochastic the step adds the Euler-Maruyama kick: one draw of
     `draw_noise` a step from `generator` (required, on the state's
@@ -608,7 +650,8 @@ def make_step(cfg: QGConfig, generator: torch.Generator | None = None):
         tr_new = None if tr0 is None else tr0 + dtr * (1.0 * dt)
         new = QGState(q=q_new, psi=psi2, t=state.t + dt, dt_prev=prev,
                       i=state.i + 1, tracers=tr_new,
-                      psi_old=None if state.psi_old is None else state.psi)
+                      psi_old=None if state.psi_old is None else state.psi,
+                      qof=state.qof, nbar=state.nbar)
         return new, StepDiag(dt=dt, ke=kinetic_energy(cfg, psi2),
                              mg_iters=st1.iters, mg_res=st1.resa)
 

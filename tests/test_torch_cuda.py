@@ -8,7 +8,9 @@ CUDA step against the CPU step, uncoupled, coupled, with the multigrid and
 for the qg-node family; and the doubly periodic and stochastic modes: K1's
 periodic (every option set) and stochastic (walled and periodic) modes,
 K2's periodic mode, K7 on the periodic Fourier basis, and the periodic and
-stochastic steps against the CPU. Every test needs a card
+stochastic steps against the CPU; and the msqg driver (run_qg with the
+wavelet filter, the energy budget and an OutputWriter) on the card
+against the CPU, walled, coupled and periodic. Every test needs a card
 and nvcc, is marked
 `cuda` and skips without a card. The file imports neither jax nor
 msom_tpu, so it runs on a machine without them:
@@ -1022,3 +1024,67 @@ def test_spectral_kernel_on_the_fourier_basis(cuda, dtype, N):
         err = (pm.double() - exact).abs().max()
         err32 = (want.double() - exact).abs().max()
         assert err <= 4 * err32
+
+
+DRIVER_RUNS = {
+    "walled": {},
+    "coupled": dict(nptr=2, Pe=(1e3, 2e3), ptr_r=(100.0, 0.0)),
+    "periodic": dict(sbc=-1.0),
+}
+
+
+@pytest.mark.parametrize("run", list(DRIVER_RUNS))
+def test_driver_on_the_card_matches_the_cpu(cuda, tmp_path, run):
+    """run_qg with the wavelet filter (dtflt = 0.25), the energy budget
+    (ediag = 0) and an OutputWriter, 128^2 x 3 f64 to tend = 0.75 (about
+    30 steps, two output and two filter events), on the card and on the
+    CPU from one numpy IC: walled, with bench's coupling (psipg, a sine
+    topography, two tracers) and periodic. The final q, psi, qof and the
+    six energy fields to 1e-10 of their maxima, the KE log to 1e-10; the
+    same files, each within float32 rounding (2^-23 of its max|value|)."""
+    import os
+
+    from msom_tpu_torch import driver
+    from msom_tpu_torch.io.bas import read_bas
+    from msom_tpu_torch.models import qg_energy
+    cfg = _verron128(dtflt=0.25, dtout=0.5, tend=0.75, ediag=0, afilt=7.0,
+                     **DRIVER_RUNS[run])
+    rng = np.random.default_rng(42)
+    psi0 = 1e-3 * rng.uniform(-1, 1, (3, 128, 128))
+    fields, tr0 = {}, None
+    if run == "coupled":
+        y = (np.arange(128) + 0.5) * cfg.delta
+        gyre = np.sin(np.pi * y / cfg.L0)
+        fields = dict(psipg=0.01 * gyre[None, :, None]
+                      * np.ones((3, 128, 128)),
+                      topo=0.05 * np.outer(gyre,
+                                           np.sin(2 * np.pi * y / cfg.L0)))
+        tr0 = 1e-3 * rng.uniform(-1, 1, (3, 2, 128, 128))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        const = qg.build_constants(cfg, device=dev, **fields)
+        state = qg.init_state(cfg, const, psi0=psi0, tracers0=tr0)
+        logs = []
+        hooks = driver.RunHooks(on_log=lambda *a: logs.append(a))
+        hooks.on_output = driver.OutputWriter(cfg, const,
+                                              outdir=str(tmp_path / dev))
+        before = fused_rhs.launches
+        state, energy = driver.run_qg(cfg, const=const, state=state,
+                                      hooks=hooks)
+        out[dev] = state, energy, logs, fused_rhs.launches - before
+    (cs, ce, clog, cn), (gs, ge, glog, gn) = out["cpu"], out["cuda"]
+    assert cn == 0 and gn == 2 * int(gs.i) and int(gs.i) == int(cs.i)
+    assert int(gs.nbar) == int(cs.nbar) == 2
+    pairs = [(getattr(gs, n), getattr(cs, n)) for n in ("q", "psi", "qof")]
+    pairs += [(getattr(ge, n), getattr(ce, n)) for n in qg_energy.FIELDS]
+    for got, want in pairs:
+        assert (got.cpu() - want).abs().max() <= 1e-10 * want.abs().max()
+    assert len(glog) == len(clog) == int(gs.i)
+    for g, c in zip(glog, clog):
+        assert g[0] == c[0] and abs(g[3] - c[3]) <= 1e-10 * abs(c[3])
+    names = sorted(os.listdir(tmp_path / "cpu"))
+    assert names == sorted(os.listdir(tmp_path / "cuda"))
+    for name in (n for n in names if n.endswith(".bas")):
+        got = read_bas(str(tmp_path / "cuda" / name))[0]
+        want = read_bas(str(tmp_path / "cpu" / name))[0]
+        assert np.abs(got - want).max() <= 2.0 ** -23 * np.abs(want).max()

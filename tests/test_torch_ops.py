@@ -305,13 +305,13 @@ def test_chip_smoke_fails_without_a_card():
 
 
 def test_entry_points_default_to_cuda():
-    from msom_tpu_torch import convert
-    from msom_tpu_torch.models import qg, qg_node
+    from msom_tpu_torch import convert, driver
+    from msom_tpu_torch.models import qg, qg_energy, qg_node
     from msom_tpu_torch.ops import vertex
     from msom_tpu_torch.solvers import mg, spectral, vmg
     for fn in (qg.build_constants, spectral.build_spectral,
                convert.state_from_numpy, qg_node.build_constants,
                spectral.build_spectral_node, convert.node_state_from_numpy,
                mg.build_layered_coeffs, vmg.build_vlevels,
-               vertex.default_mask):
+               vertex.default_mask, driver.run_qg, qg_energy.init_energy):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
