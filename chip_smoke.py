@@ -5,7 +5,8 @@
 
 Needs one CUDA card, nvcc and the repository checkout; imports nothing of
 JAX or msom_tpu. With no argument every phase runs; with phase names
-(kernels, steps, paths, fused_mm, mg, node, periodic, stochastic, driver)
+(kernels, steps, paths, fused_mm, mg, node, periodic, stochastic, driver,
+driver_node)
 the build and those phases only (for work on one part: the kernels' record
 then lists what ran). Phases, in order; any failure exits non-zero:
 
@@ -85,7 +86,8 @@ then lists what ran). Phases, in order; any failure exits non-zero:
    events, counting K5's and K6's launches and the V-cycles of every solve;
    K5 and K6 (a relaxation, and five one-sweep launches) alone on the final
    state against their plain versions and bounds, K6 by level; a four-step
-   profile of each.
+   profile of each; on the node row bench.py's filter timing (five chained
+   wavelet_filter calls, best of two).
 9. the doubly periodic msqg (phase name periodic): K1's periodic kernel
    with each option set (uncoupled, pg, pg + flsrv, topo, qforc,
    energy_conserv, all together; pp's ghosts from a uniform flow) and K2's
@@ -123,6 +125,23 @@ then lists what ran). Phases, in order; any failure exits non-zero:
    step, the filter event's ms, the output event's seconds, the idle
    share of the driver loop (a profile of four steps), K1 and K2 on the
    final state against their plain versions and bounds.
+12. the qg-node driver and its events (phase name driver_node):
+   driver_node.run_node with a NodeOutput (vars.nc, diag_1d.dat), the
+   masked wavelet filter and the node events on the card against the CPU,
+   bench's node physics at 128^2 x 3 f64 (33 steps, three records, four
+   diag rows, two filter events): walled, coastline-masked (vmg), periodic
+   (bc_fac = -1) and stochastic at amp_stoch = 0; the final state, the diag
+   rows and the KE log within STEP_LIMIT, every vars.nc record within
+   float32 rounding. The card's noise draw at 4 x 2049^2 in distribution.
+   Then bench's masked node configuration (the coastline, vmg) at
+   2048^2 x 4 f32 through run_node (about 53 steps, three 134 MB records,
+   eight diag rows, four filter events, into a temporary directory removed
+   afterwards), counting K5's and K6's launches: the driver's ms/step
+   between events beside the bare make_step loop's, the filter event's ms
+   and profile, each output event's seconds by record, the driver loop's
+   idle share and K5's and K6's device ms a step (a profile of four
+   steps), K5 and K6 on the final state against their plain versions and
+   bounds.
 
 TF32 is switched off for matmuls and convolutions before anything runs:
 1-pass reduced-precision transforms give O(1) solution error at N = 2048.
@@ -154,7 +173,7 @@ MG_SWEEPS = 4
 MG_SOLVE_LIMIT = 1e-10                    # CUDA solve vs CPU solve, f64
 MG_MAX_CYCLES = 20      # a solve that needs more at tol 1e-3 is spinning
 PHASES = ("kernels", "steps", "paths", "fused_mm", "mg", "node", "periodic",
-          "stochastic", "driver")
+          "stochastic", "driver", "driver_node")
 K1_OPTIONS = ("pg", "pg_flsrv", "topo", "qforc", "energy_conserv", "slip",
               "all")
 # the periodic kernel's option sets (no slip: the domain has no wall), and
@@ -770,12 +789,15 @@ VMG_SIZES = [3, 5, 9, 17, 65, 257, 2049]
 
 
 def node_config(NodeQGConfig, N, nl, dtype, **kw):
-    """bench.py's measure_node configuration (bench.py:178-185) at N."""
+    """bench.py's measure_node configuration (bench.py:178-185) at N; the
+    filter (dtflt = 1) where N is a power of 2, which its wavelet pyramid
+    needs (the kernel checks' other widths run without it)."""
     base = dict(N=N, nl=nl, L0=100.0, f0=46.5, beta=0.5, hEkb=1e-3,
                 tau0=1e-3, nu=5.0 / (N / 64), dh=tuple([1.0 / nl] * nl),
                 N2=tuple([1.0] * (nl - 1)), noise_init=1e-3, bc_fac=1.0,
                 DT=5e-2, tend=1e18, dtout=1e18, CFL=0.2, TOLERANCE=1e-5,
-                dtflt=1.0, Lfmax=30.0, Lfmin=10.0, dtype=dtype)
+                dtflt=-1.0 if N & (N - 1) else 1.0, Lfmax=30.0,
+                Lfmin=10.0, dtype=dtype)
     base.update(kw)
     return NodeQGConfig(**base)
 
@@ -1112,6 +1134,22 @@ def node_paths(NodeQGConfig, rows, k5_err, k6_err):
             "max_abs_err": k5_err["coast" if masked else "bench"],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None})
+        if not masked:
+            # bench.py's filter protocol (bench.py:218-240): five chained
+            # wavelet_filter calls, nbar held, the best of two rounds
+            def chain():
+                s = state
+                for _ in range(5):
+                    s = dataclasses.replace(
+                        qg_node.wavelet_filter(cfg, const, s), nbar=s.nbar)
+                return s
+
+            chain()
+            walls = [cuda_ms(chain, 1) / 5 for _ in range(2)]
+            print(f"node filter at {N}^2 x {nl} f32 (bench.py's protocol, "
+                  f"5 chained wavelet_filter calls, best of 2): "
+                  f"{min(walls):.4f} ms a filter (rounds "
+                  + ", ".join(f"{w:.4f}" for w in walls) + ")")
         if masked:
             lvl = const.vlevels[0]
             res, _ = vmg.residual_v(psi, q, lvl, const.idh0, const.idh1)
@@ -1380,11 +1418,11 @@ def _path_run(label, cfg, const, state, step, warm, steps, want):
 
 
 def _kernel_row(label, name, kernel, plain, bound_work, launches, source,
-                replaces, mode):
+                replaces, mode, limit=LIMITS[4]):
     """Hold one kernel against its plain version on the path's final state
-    (f32, LIMITS[4] of max|out|; `kernel` and `plain` return the tendency),
-    time both and print them beside the bound; returns the kernels' JSON
-    record, or None if they disagree."""
+    (f32, `limit` of max|out|; `kernel` and `plain` return the tendency or
+    the correction), time both and print them beside the bound; returns
+    the kernels' JSON record, or None if they disagree."""
     import torch
     out_k, out_r = kernel(), plain()
     torch.cuda.synchronize()
@@ -1394,9 +1432,9 @@ def _kernel_row(label, name, kernel, plain, bound_work, launches, source,
     k_ms, p_ms = kernel_times(kernel, plain)
     nbytes, nops = bound_work
     bound, by, t_b, t_o = roofline(nbytes, nops, 4)
-    good = rel <= LIMITS[4]
+    good = rel <= limit
     print(f"{name} ({mode}) on the {label} path's final state, f32: "
-          f"max|d out|/max|out| = {rel:.3e} (limit {LIMITS[4]:g}) "
+          f"max|d out|/max|out| = {rel:.3e} (limit {limit:g}) "
           f"{'ok' if good else 'FAIL'}; kernel {k_ms:.4f} ms, plain "
           f"{p_ms:.4f} ms, bound {bound:.4f} ms by {by} (bytes {nbytes} -> "
           f"{t_b:.4f} ms, operations {nops} -> {t_o:.4f} ms), "
@@ -1760,6 +1798,333 @@ def driver_path(QGConfig, rows):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the qg-node driver and its events (phase name driver_node)
+# ---------------------------------------------------------------------------
+
+# the card-against-CPU runs: 33 steps at 128^2 (dt <= 0.01, bench's beta
+# clamp), three vars.nc records, four diag rows, two filter events
+NODE_CHECK_EVENTS = dict(dtout=0.125, dtdiag=0.0625, dtflt=0.125, tend=0.25)
+# the full-width run: bench's node physics clamps dt to 1.9e-3 at N = 2048
+# (the viscous limit of nu = 5 / 32), so these give about 53 steps with
+# three vars.nc records (t = 0, 0.04, 0.08), eight diag rows and four
+# filter events
+NODE_PATH_EVENTS = dict(dtout=0.04, dtdiag=0.01, dtflt=0.02, tend=0.08)
+NODE_DRIVER_RUNS = {
+    "walled": ({}, False),
+    "coastline": (dict(solver="vmg"), True),
+    "periodic": (dict(bc_fac=-1.0), False),
+    "stochastic (amp_stoch = 0)": (dict(stochastic=True, amp_stoch=0.0,
+                                        L_filt_stoch=20.0), False),
+}
+
+
+class _NoOutput:
+    """An output that writes nothing, for the driver steps profiled."""
+
+    def write(self, t, **fields):
+        pass
+
+    def diag_header(self):
+        pass
+
+    def diag_row(self, *values):
+        pass
+
+    def close(self):
+        pass
+
+
+def node_driver_check(NodeQGConfig, label, over, masked):
+    """driver_node.run_node on the card against the CPU, f64, bench's node
+    physics at 128^2 x 3 (TOLERANCE 1e-8) with NODE_CHECK_EVENTS from one
+    numpy IC: the final q, psi and psi_f, the diag rows' values and the KE
+    log within STEP_LIMIT, every vars.nc record within float32 rounding
+    (2^-23 of the file's max|value|), the same record times; K5 launched
+    twice a step on the card on a walled grid and never on the CPU, K6
+    launched iff the inversion is vmg. Returns False on any difference."""
+    import os
+    import tempfile
+    import torch
+    from msom_tpu_torch import driver_node
+    from msom_tpu_torch.io.netcdf import read_nc
+    from msom_tpu_torch.models import fused_node_rhs, qg_node
+    from msom_tpu_torch.solvers import fused_vmg
+    cfg = node_config(NodeQGConfig, 128, 3, "float64", TOLERANCE=1e-8,
+                      **NODE_CHECK_EVENTS, **over)
+    inputs = dict(mask=qg_node.coastline_mask(128)) if masked else {}
+    psi0 = node_noise_ic(cfg, 42)
+    if cfg.periodic:
+        psi0 = psi0[..., :-1, :-1]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for where in ("cpu", "cuda"):
+            const = qg_node.build_constants(cfg, device=where, **inputs)
+            state = qg_node.init_state(cfg, const, psi0=psi0)
+            output = driver_node.NodeOutput(cfg, os.path.join(tmp, where))
+            rows, logs = [], []
+            write_row = output.diag_row
+
+            def diag_row(*values, rows=rows, write_row=write_row):
+                rows.append(values)
+                write_row(*values)
+
+            output.diag_row = diag_row
+            hooks = driver_node.RunHooks(
+                on_log=lambda *a, logs=logs: logs.append(a))
+            before = fused_node_rhs.launches, fused_vmg.launches
+            state, _ = driver_node.run_node(
+                cfg, const=const, state=state, hooks=hooks, output=output,
+                restart=None,
+                generator=torch.Generator(device=where).manual_seed(3))
+            nc = read_nc(os.path.join(tmp, where, "vars.nc"), ["psi", "q"],
+                         None)
+            out[where] = (state, rows, logs,
+                          fused_node_rhs.launches - before[0],
+                          fused_vmg.launches - before[1], nc)
+    (cs, crow, clog, c5, c6, cnc), (gs, grow, glog, g5, g6, gnc) = \
+        out["cpu"], out["cuda"]
+    rels = {}
+    for name in ("q", "psi", "psi_f"):
+        want = getattr(cs, name)
+        rels[name] = ((getattr(gs, name).cpu() - want).abs().max()
+                      / want.abs().max()).item()
+    g, c = np.array(grow), np.array(crow)
+    rels["diag"] = max(np.abs(g[:, k] - c[:, k]).max() / np.abs(c[:, k]).max()
+                       for k in range(1, 4)) if len(c) else np.inf
+    ke_rel = max(abs(a[3] - b[3]) / abs(b[3]) for a, b in zip(glog, clog))
+    nc_rel = max(np.abs(gnc[0][n] - cnc[0][n]).max()
+                 / np.abs(cnc[0][n]).max() for n in ("psi", "q"))
+    steps = int(gs.i)
+    walled = not cfg.periodic
+    good = (all(r <= STEP_LIMIT for r in rels.values())
+            and ke_rel <= STEP_LIMIT and nc_rel <= 2.0 ** -23
+            and np.array_equal(gnc[1], cnc[1]) and len(cnc[1]) == 3
+            and len(grow) == len(crow) == 4 and int(cs.i) == steps
+            and len(glog) == len(clog) == steps
+            and int(gs.nbar) == int(cs.nbar) == 1
+            and c5 == c6 == 0 and g5 == (2 * steps if walled else 0)
+            and (g6 > 0) == masked)
+    print(f"driver_node check {label} 128^2 x 3 f64, {steps} steps, "
+          f"{len(cnc[1])} records, {len(crow)} diag rows, cuda vs cpu: "
+          + ", ".join(f"rel {k} = {v:.3e}" for k, v in rels.items())
+          + f", KE log {ke_rel:.3e} (limit {STEP_LIMIT:g}); vars.nc "
+          f"{nc_rel:.3e} of max (limit 2^-23); K5/K6 launches cuda "
+          f"{g5}/{g6} cpu {c5}/{c6} {'ok' if good else 'FAIL'}")
+    return good
+
+
+def node_noise_check(NodeQGConfig):
+    """The card's stochastic draw at the full width (4 x 2049^2, f32, a
+    seeded CUDA generator) in distribution: the normalised white field's
+    mean and std within four standard errors of a standard normal
+    sample's; its high-pass filtered noise (bench's coastline) finite,
+    zero off the mask, and its ms (CUDA events)."""
+    import torch
+    from msom_tpu_torch.models import qg_node
+    cfg = node_config(NodeQGConfig, 2048, 4, "float32", solver="vmg",
+                      stochastic=True, amp_stoch=1e-6, L_filt_stoch=20.0)
+    const = qg_node.build_constants(cfg, mask=qg_node.coastline_mask(2048))
+    shape = (4, 2049, 2049)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    xi = qg_node.draw_white(cfg, const, gen, shape).double() / cfg.amp_stoch
+    m = xi.numel()
+    mean, std = xi.mean().item(), xi.std().item()
+    noise = qg_node.generate_noise(cfg, const, gen, shape)
+    ms = cuda_ms(lambda: qg_node.generate_noise(cfg, const, gen, shape), 5)
+    good = (abs(mean) < 4 / np.sqrt(m) and abs(std - 1) < 4 / np.sqrt(2 * m)
+            and bool(torch.isfinite(noise).all())
+            and not (noise * (1 - const.mask)).any()
+            and noise.abs().max().item() > 0)
+    print(f"node noise check 4 x 2049^2 f32 on the card: mean {mean:.3e} "
+          f"(limit {4 / np.sqrt(m):.3e}), std - 1 {std - 1:.3e} (limit "
+          f"{4 / np.sqrt(2 * m):.3e}); generate_noise {ms:.4f} ms "
+          f"(12-level high-pass pyramid) {'ok' if good else 'FAIL'}")
+    return good
+
+
+def driver_node_path(NodeQGConfig, rows):
+    """bench.py's masked node configuration (bench.py:178-195: the
+    coastline, solver="vmg") at 2048^2 x 4 f32 through driver_node.run_node
+    as a user runs it, with a NodeOutput into a temporary directory removed
+    afterwards, the filter (Lfmax = 30, Lfmin = 10) and NODE_PATH_EVENTS,
+    from a numpy-seeded IC. Prints the driver's ms/step between events
+    (host clock: the loop reads t every step) beside the bare make_step
+    loop's (CUDA events) on the final state, the filter event's ms (CUDA
+    events) and its profile, each output event's seconds by record (host
+    clock, synchronised), the driver loop's idle share and K5's and K6's
+    launches and device ms a step (a profile of four driver steps), and K5
+    and K6 on the final state against their plain versions and bounds.
+    Appends their records to `rows`; returns False if a check failed."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from msom_tpu_torch import driver_node
+    from msom_tpu_torch.io.netcdf import read_nc
+    from msom_tpu_torch.models import fused_node_rhs, qg_node
+    from msom_tpu_torch.solvers import fused_vmg, vmg
+    N, nl = 2048, 4
+    cfg = node_config(NodeQGConfig, N, nl, "float32", solver="vmg",
+                      **NODE_PATH_EVENTS)
+    t0 = time.perf_counter()
+    const = qg_node.build_constants(cfg, mask=qg_node.coastline_mask(N))
+    state = qg_node.init_state(cfg, const, psi0=node_noise_ic(cfg))
+    start = dataclasses.replace(state)
+    nlev = len(const.vlevels)
+    torch.cuda.synchronize()
+    print(f"driver_node path set-up: {time.perf_counter() - t0:.1f} s "
+          f"({len(const.vlevels)} vmg levels, filter pyramids of "
+          f"{len(const.sig_lev_c)} levels)")
+    label = f"driver_node {N}^2 x {nl} f32"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_driver_node_")
+    try:
+        output = driver_node.NodeOutput(cfg, tmp)
+        clock, events, logs, out_s = [0.0], set(), [], []
+        write, diag_row = output.write, output.diag_row
+
+        def timed_write(t, **fields):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            write(t, **fields)
+            out_s.append(time.perf_counter() - t1)
+
+        def marked_diag_row(*values):
+            events.add(len(logs))
+            diag_row(*values)
+
+        output.write, output.diag_row = timed_write, marked_diag_row
+
+        def on_log(i, dt, t, ke):
+            clock.append(time.perf_counter())
+            logs.append((i, dt, t, ke))
+
+        hooks = driver_node.RunHooks(
+            on_log=on_log,
+            on_output=lambda st, t: events.add(int(st.i)),
+            on_filter=lambda st, t: events.add(int(st.i)))
+        fused_node_rhs.launches = fused_vmg.launches = 0
+        clock[0] = time.perf_counter()
+        state, _ = driver_node.run_node(cfg, const=const, state=state,
+                                        hooks=hooks, output=output,
+                                        restart=None, max_steps=200)
+        n_k5, n_k6 = fused_node_rhs.launches, fused_vmg.launches
+        steps = int(state.i)
+        wall = np.diff(clock) * 1e3
+        quiet = [wall[k] for k in range(steps) if k not in events]
+        ms_driver = float(np.median(quiet))
+        finite = all(bool(torch.isfinite(f).all())
+                     for f in (state.q, state.psi, state.psi_f))
+        nc, times = read_nc(os.path.join(tmp, "vars.nc"), ["psi"], None)
+        diag = open(os.path.join(tmp, "diag_1d.dat")).read().splitlines()
+        files_ok = (nc["psi"].shape == (3, nl, N + 1, N + 1)
+                    and bool(np.isfinite(nc["psi"]).all())
+                    and np.allclose(times, [0.0, 0.04, 0.08])
+                    and len(diag) == 9 and diag[0].startswith("#"))
+        del nc
+        ok = (finite and files_ok and n_k5 == 2 * steps and n_k6 > 0
+              and int(state.nbar) == 1 and len(out_s) == 3
+              and abs(state.t.item() - cfg.tend) < 1e-6
+              and len(logs) == steps and min(l[1] for l in logs) > 0)
+        print(f"{label}: {steps} steps to t {state.t.item():.6e} "
+              f"(dt {logs[-1][1]:.6e}), {len(out_s)} output events, "
+              f"{len(diag) - 1} diag rows, vars.nc records and diag right "
+              f"{files_ok}, node_rhs launches {n_k5} (expected {2 * steps}),"
+              f" vmg_sweep launches {n_k6} ({n_k6 / steps:.1f} a step), "
+              f"finite {finite}, ke {logs[-1][3]:.6e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            return False
+        # the bare make_step loop over the same steps from the same IC (the
+        # V-cycles a solve fall from about 9 to 2 over them), and on the
+        # final state; the driver stepping on from the final state
+        step = qg_node.make_step(cfg)
+        n0 = fused_vmg.launches
+        _, _, ms_bare_ic = timed_steps(step, start, const, steps)
+        cyc_bare = (fused_vmg.launches - n0) / nlev / (2 * steps)
+        del start
+        bare, _, _ = timed_steps(step, state, const, 5)
+        n0 = fused_vmg.launches
+        _, _, ms_bare = timed_steps(step, bare, const, 20)
+        cyc_final = (fused_vmg.launches - n0) / nlev / 40
+        del bare
+        quiet_cfg = dataclasses.replace(cfg, dtflt=-1.0, dtdiag=-1.0,
+                                        dtout=1e9, tend=1e9)
+        box = [state]
+
+        def driver_step():
+            box[0], _ = driver_node.run_node(
+                quiet_cfg, const=const, state=box[0], output=_NoOutput(),
+                restart=None, max_steps=int(box[0].i) + 1)
+
+        driver_step()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(20):
+            driver_step()
+        torch.cuda.synchronize()
+        ms_final = (time.perf_counter() - t1) / 20 * 1e3
+        print(f"{label}: driver {ms_driver:.4f} ms/step from the IC (median "
+              f"of {len(quiet)} steps between events; mean over all {steps} "
+              f"steps {wall.mean():.4f}; {n_k6 / nlev / steps:.2f} V-cycles "
+              f"a step with the filter's re-inversions) beside the bare "
+              f"make_step loop over the same {steps} steps from the IC "
+              f"{ms_bare_ic:.4f} ms/step ({cyc_bare:.2f} V-cycles a "
+              f"solve); on the final state: driver {ms_final:.4f} ms/step "
+              f"(20 one-step run_node calls, host clock), bare loop "
+              f"{ms_bare:.4f} ms/step (20 steps, {cyc_final:.2f} V-cycles "
+              f"a solve)")
+        ms_flt = cuda_ms(lambda: qg_node.wavelet_filter(cfg, const, state),
+                         3)
+        print(f"{label}: filter event {ms_flt:.4f} ms (wavelet_filter: a "
+              f"vmg re-inversion and the masked {len(const.sig_lev_c)}-level "
+              f"pyramid), output "
+              f"event by record: " + ", ".join(
+                  f"record {k} {s:.3f} s" for k, s in enumerate(out_s))
+              + f" ({4 * 2 * nl * (N + 1) ** 2 / 1e6:.1f} MB a record)")
+        kernel_profile("driver_node filter event (wavelet_filter)",
+                       lambda: qg_node.wavelet_filter(cfg, const, state), 1,
+                       ms_flt)
+        prof = kernel_profile("driver_node", driver_step, 4, ms_final)
+        for kname, key in (("K5 node_rhs", "node_kernel"),
+                           ("K6 vmg_sweep", "vrelax_kernel")):
+            ms = sum(r[0] for r in prof if key in r[2])
+            n = sum(r[1] for r in prof if key in r[2])
+            print(f"{label}: {kname} {ms:.4f} device ms a step in "
+                  f"{n:.1f} launches a step (driver profile)")
+        psi, q = state.psi.contiguous(), state.q.contiguous()
+        qf = qg_node.q_forcing_profile(cfg, const.yv[:, 0], state.t)
+        lvl = const.vlevels[0]
+        res, _ = vmg.residual_v(psi, q, lvl, const.idh0, const.idh1)
+        da = fused_vmg.vrb_sweep(torch.zeros_like(res), res, lvl)
+        for rec in (
+                _kernel_row(label, "node_rhs",
+                            lambda: fused_node_rhs.rhs_fused_node(
+                                cfg, const, q, psi, qf),
+                            lambda: fused_node_rhs.rhs_node_reference(
+                                cfg, const, q, psi, qf),
+                            fused_node_rhs.bound_work(cfg, const, 4), n_k5,
+                            fused_node_rhs.SOURCE,
+                            "msom_tpu/models/pallas_node_rhs.py:126",
+                            "walled, coastline"),
+                _kernel_row(label, "vmg_sweep",
+                            lambda: fused_vmg.vrb_relax(da, res, lvl,
+                                                        vmg.NRELAX),
+                            lambda: fused_vmg.vrb_relax_reference(
+                                da, res, lvl, vmg.NRELAX),
+                            fused_vmg.bound_work(nl, N + 1, 4, vmg.NRELAX),
+                            n_k6, fused_vmg.SOURCE,
+                            "msom_tpu/solvers/pallas_vmg.py:105",
+                            f"coastline, a relaxation of {vmg.NRELAX} "
+                            "sweeps", limit=MG_LIMITS[4])):
+            if rec is None:
+                return False
+            rows.append(rec)
+        return True
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def k7_checks(periodic, shapes):
     """K7 against its plain version, the cuBLAS chain, f64 and f32, at each
     (N, nl) of `shapes`, on the DST-II basis or (periodic) the Fourier
@@ -2077,6 +2442,22 @@ def main() -> int:
         if not driver_path(QGConfig, rows):
             return 11
         print(f"driver path done at {time.perf_counter() - t_start:.0f} s")
+
+    # 12. the qg-node driver and its events: card against CPU, the card's
+    # noise draw, then bench's masked node configuration through run_node
+    # at full width
+    if wanted("driver_node"):
+        for label, (over, masked) in NODE_DRIVER_RUNS.items():
+            if not node_driver_check(NodeQGConfig, label, over, masked):
+                return 12
+        if not node_noise_check(NodeQGConfig):
+            return 12
+        print(f"driver_node checks done at "
+              f"{time.perf_counter() - t_start:.0f} s")
+        if not driver_node_path(NodeQGConfig, rows):
+            return 12
+        print(f"driver_node path done at "
+              f"{time.perf_counter() - t_start:.0f} s")
 
     print(f"total {time.perf_counter() - t_start:.0f} s")
     print("kernels: " + json.dumps(sorted({r["name"] for r in rows})))

@@ -16,7 +16,8 @@ the port with the same running mean.
 
 `node_state_from_numpy` and `node_state_to_numpy` do the same for the
 qg-node family's `NodeQGState` (leaves q, psi, t, dt_prev, i, nbar and,
-with dtflt > 0, the filter mean psi_f, on the (nl, N+1, N+1) vertex grid).
+with dtflt > 0, the filter mean psi_f, on the (nl, N+1, N+1) vertex grid,
+or the (nl, N, N) owned nodes of the periodic grid, bc_fac = -1).
 The node model has no learned weights either: its constants come from the
 config and the numpy mask, psi_pg, topo, q_forcing_3d and N2 arrays given
 to `qg_node.build_constants`.
@@ -86,9 +87,11 @@ def node_state_from_numpy(cfg: qg_node.NodeQGConfig, leaves,
                           device="cuda") -> qg_node.NodeQGState:
     """The port's NodeQGState on `device` from a mapping of numpy arrays
     with the leaves q, psi, t, dt_prev, i, nbar and, where the run has a
-    filter (dtflt > 0), psi_f; the `key` leaf is ignored."""
+    filter (dtflt > 0), psi_f; the `key` leaf is ignored. The fields are
+    (nl, N+1, N+1), or (nl, N, N) on the periodic grid."""
     dtype = qg_node._torch_dtype(cfg)
-    shape = (cfg.nl, cfg.N + 1, cfg.N + 1)
+    n = cfg.N if cfg.periodic else cfg.N + 1
+    shape = (cfg.nl, n, n)
 
     def field(name):
         a = np.asarray(leaves[name])

@@ -1,5 +1,5 @@
-"""Reading an msqg experiment deck (the port's own copy of
-`msom_tpu.io.deck.load_qg_deck`).
+"""Reading an msqg or a qg-node experiment deck (the port's own copy of
+`msom_tpu.io.deck.load_qg_deck` and `load_node_deck`).
 
 The reference driver reads a directory of input files beside params.in
 (msqg/qg.c:53-92, qg.h:931-985):
@@ -16,8 +16,15 @@ The reference driver reads a directory of input files beside params.in
 `load_qg_deck` returns the keyword arguments of `models.qg.build_constants`
 and `init_state`, and reports each file it found (the reference prints
 "<name> .. ok", qg.h:937-985). A deck with frpg reaches build_constants,
-which refuses it (ROADMAP.md queue 1, item 10). The qg-node and mspg deck
-readers are not ported yet (items 12e and 13).
+which refuses it (ROADMAP.md queue 1, item 10).
+
+A qg-node deck (qg-node/qg_baroclinic_ms.h:478-495) is one NetCDF file,
+input_vars_<nl>l_N<N>.nc, with N2, psi_pg, mask, topo and q_forcing_3d on
+the (N+1)^2 vertex grid (a static `q_forcing` there is read by the
+reference too, but the wind event overwrites it before it is used,
+qg-node/qg.c:136-145); `load_node_deck` returns the keyword arguments of
+`models.qg_node.build_constants`. restart.nc is the node driver's
+(driver_node.run_node). The mspg deck reader is not ported yet (item 13).
 """
 
 from __future__ import annotations
@@ -83,3 +90,31 @@ def load_qg_deck(cfg, deckdir: str, *, log=None) -> dict:
             const["ptr_relax"] = rel.reshape(nl, cfg.nptr, N, N)
             hit("ptr_relax.bas")
     return {"const": const, "init": init, "found": found}
+
+
+def _read_nc_static(path, names):
+    """Whole variables of a NetCDF file without a time axis, as float64;
+    names the file lacks are skipped."""
+    from scipy.io import netcdf_file
+    out = {}
+    with netcdf_file(path, "r", mmap=False) as f:
+        for name in names:
+            if name in f.variables:
+                out[name] = np.array(f.variables[name][:], np.float64)
+    return out
+
+
+def load_node_deck(cfg, deckdir: str, *, log=None) -> dict:
+    """Ingest a qg-node deck: input_vars_<nl>l_N<N>.nc. Returns {"const":
+    kwargs of build_constants, "found": the file names read, "path": the
+    file's path or None}."""
+    nl, N = cfg.nl, cfg.N
+    name = f"input_vars_{nl}l_N{N}.nc"
+    path = os.path.join(deckdir, name)
+    if not os.path.exists(path):
+        return {"const": {}, "found": [], "path": None}
+    const = _read_nc_static(path, ["N2", "psi_pg", "mask", "topo",
+                                   "q_forcing_3d"])
+    if log is not None:
+        log(f"{name} .. ok ({', '.join(sorted(const))})")
+    return {"const": const, "found": [name], "path": path}

@@ -147,8 +147,13 @@ def rhs_fused_node(cfg, const, q: torch.Tensor, psi: torch.Tensor,
                    qf_profile: torch.Tensor) -> torch.Tensor:
     """dq: the kernel on a CUDA tensor, the plain version on a CPU tensor.
     `q` is read at nl = 1 only. The kernel takes S2 as a y-profile
-    (const.S2_prof); a CUDA call without one raises."""
+    (const.S2_prof); a CUDA call without one raises, and so does a call
+    with a periodic config (bc_fac = -1), whose tendency is
+    qg_node._rhs_pv_periodic on either device."""
     global launches
+    if cfg.periodic:
+        raise ValueError("rhs_fused_node: the walled tendency; the periodic "
+                         "node grid (bc_fac = -1) has no kernel mode")
     if psi.device.type == "cpu":
         return rhs_node_reference(cfg, const, q, psi, qf_profile)
     if psi.device.type != "cuda":

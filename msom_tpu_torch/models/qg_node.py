@@ -1,5 +1,5 @@
 """Nodal (vertex-grid) multi-layer QG model, the qg-node family (the port of
-the walled part of `msom_tpu.models.qg_node`).
+`msom_tpu.models.qg_node`).
 
 Fields live on the (N+1)^2 vertices with an interior mask; the barotropic
 (nl = 1, qg_barotropic.h) and baroclinic multi-layer (qg_baroclinic_ms.h)
@@ -22,10 +22,15 @@ multigrid. The tendency is kernel K5 (models/fused_node_rhs.py) on a CUDA
 tensor whenever S2 varies in y only, its plain version on a CPU tensor, and
 the same torch ops on either device for an x-varying S2 (an N2 field).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md item):
-the periodic node grid, bc_fac = -1 (item 12b); stochastic forcing (item
-12c); the masked wavelet filter event (item 12d). A config with dtflt > 0
-builds and steps: only the filter event itself raises.
+bc_fac = -1 is the doubly periodic node grid (qg-node/qg.c:117-121): the
+state drops to the N independent nodes a side, every operator wraps, the
+inversion is the cell-grid periodic multigrid (solvers/mg.solve_layered)
+and the tendency is torch ops on either device (K5 has no periodic mode).
+With `stochastic` the step adds spatially correlated noise
+(qg_stochastic.h): a white normal draw from a torch.Generator, high-passed
+by the wavelet pyramid (`generate_noise`). `wavelet_filter` is the masked
+wavelet filter event with its eddy/mean split (qg_baroclinic_ms.h:345-400),
+torch ops on the field's device.
 """
 
 from __future__ import annotations
@@ -36,13 +41,18 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from msom_tpu_torch.models import fused_node_rhs
 from msom_tpu_torch.models.qg import dtnext
 from msom_tpu_torch.ops import vertex
+from msom_tpu_torch.ops.bc import BC, pad
+from msom_tpu_torch.ops.ghost import arakawa_mjac_g, ghosted, laplacian_g
 from msom_tpu_torch.ops.stretch import layer_metrics, stretch
+from msom_tpu_torch.ops.wavelet import (inverse_wavelet, sig_lev_pyramid,
+                                        wavelet)
 from msom_tpu_torch.params import _parse_kv
-from msom_tpu_torch.solvers import spectral, vmg
+from msom_tpu_torch.solvers import mg, spectral, vmg
 from msom_tpu_torch.solvers.mg import MGStats
 
 
@@ -106,7 +116,8 @@ class NodeQGConfig:
     @property
     def periodic(self):
         """bc_fac = -1: the doubly periodic node grid (qg-node/qg.c:
-        117-121); not ported yet."""
+        117-121), N independent nodes a side (node N is node 0), so the
+        state is (nl, N, N) and every operator wraps."""
         return self.bc_fac == -1
 
     def dt_clamped(self):
@@ -145,9 +156,14 @@ class NodeQGConstants:
     """Time-independent fields derived at set-up, on one device. `S2_prof`
     is the (nl-1, N+1) y-profile of S2 that kernel K5 reads, None where S2
     varies in x; `vlevels` the multigrid levels where the multigrid runs
-    (None with the spectral solve); `has_pg`/`has_topo` say whether psi_pg
-    and topo are nonzero, decided at build."""
-    mask: torch.Tensor               # (N+1, N+1)
+    (None with the spectral solve; the cell-grid periodic levels on the
+    periodic grid); `has_pg`/`has_topo` say whether psi_pg and topo are
+    nonzero, decided at build. With the filter (dtflt > 0) `sig_lev_c` is
+    the low-pass pyramid on the centred (N, N) grid and `mask_c` the
+    fractional centred-mask pyramid (walled only); with stochastic forcing
+    and L_filt_stoch > 0 `sig_noise` is the noise's high-pass pyramid. The
+    periodic grid has no mask (None) and its fields are (.., N, N)."""
+    mask: torch.Tensor | None        # (N+1, N+1)
     psi_pg: torch.Tensor             # (nl, N+1, N+1)
     S2: torch.Tensor | None          # (nl-1, N+1, N+1) f_var^2 / N^2
     S2_prof: torch.Tensor | None     # (nl-1, N+1)
@@ -160,11 +176,14 @@ class NodeQGConstants:
     nspec: spectral.SpectralData | None = None
     has_pg: bool = False
     has_topo: bool = False
+    sig_lev_c: tuple | None = None   # (2^l, 2^l), l = 0..log2 N
+    mask_c: tuple | None = None
+    sig_noise: tuple | None = None
 
 
 @dataclasses.dataclass
 class NodeQGState:
-    q: torch.Tensor                  # (nl, N+1, N+1)
+    q: torch.Tensor                  # (nl, N+1, N+1); periodic (nl, N, N)
     psi: torch.Tensor
     psi_f: torch.Tensor | None       # filter mean (dtflt > 0)
     t: torch.Tensor                  # 0-d model time
@@ -185,18 +204,6 @@ def _torch_dtype(cfg: NodeQGConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _check_slice(cfg: NodeQGConfig) -> None:
-    """Raise NotImplementedError for a configuration not ported yet."""
-    if cfg.periodic:
-        raise NotImplementedError(
-            "the periodic node grid, bc_fac = -1, is not ported yet "
-            "(ROADMAP.md queue 1, item 12b)")
-    if cfg.stochastic:
-        raise NotImplementedError(
-            "qg-node stochastic forcing is not ported yet (ROADMAP.md queue "
-            "1, item 12c)")
-
-
 def coastline_mask(N: int) -> np.ndarray:
     """The curved-coastline interior mask of the repo's masked node
     configuration (bench.py:187-195), a float64 (N+1, N+1) numpy array:
@@ -210,6 +217,69 @@ def coastline_mask(N: int) -> np.ndarray:
     return m
 
 
+def _stratification(cfg: NodeQGConfig, N2, npts: int, dtype):
+    """S2 = f_var^2 / N^2 (qg_baroclinic_ms.h:498-505) as a numpy array of
+    the working type, (nl-1, npts, npts), from the config's N2 or an N2
+    field; f_var = f0 + flag_ms beta (y - L0/2) (:48), y along the rows.
+    None at nl = 1."""
+    nl = cfg.nl
+    if nl == 1:
+        return None
+    if N2 is None:
+        N2a = np.asarray(cfg.N2[:nl - 1], np.float64)[:, None, None] \
+            * np.ones((nl - 1, npts, npts))
+    else:
+        N2a = np.asarray(N2, np.float64)[:nl - 1]
+    y = np.arange(npts) * cfg.delta
+    f_var = cfg.f0 + cfg.flag_ms * cfg.beta * (y[:, None] - 0.5 * cfg.L0)
+    return np.asarray(torch.as_tensor(f_var ** 2 / N2a, dtype=dtype))
+
+
+def _pyramids(cfg: NodeQGConfig, S2_np, mask_np, dev):
+    """(sig_lev_c, mask_c, sig_noise) on the centred (N, N) grid, each a
+    tuple of tensors by level or None. The filter's low-pass weights come
+    from the cutoff scale lf: min(fac_filt_Rd dh0 / sqrt(S2 averaged to
+    cells), Lfmax) where fac_filt_Rd > 0 (walled), else the y-ramp from
+    Lfmax at y = 0 to Lfmin at y = L0 (qg_baroclinic_ms.h:536-559). mask_c
+    (walled) is the 4-vertex average of the mask, then 4-cell restrictions
+    (:563-578): fractional, not 0/1. The noise's weights are the high-pass
+    complement at the scale L_filt_stoch (qg_stochastic.h)."""
+    N = cfg.N
+    sig_lev_c = mask_c = sig_noise = None
+    if (cfg.dtflt > 0 or (cfg.stochastic and cfg.L_filt_stoch > 0)) \
+            and N & (N - 1):
+        raise ValueError(f"N = {N}: the filter's and the noise's wavelet "
+                         "pyramids need N a power of 2")
+    if cfg.dtflt > 0:
+        xc = (np.arange(N) + 0.5) * cfg.delta
+        Yc = np.broadcast_to(xc[:, None], (N, N))
+        if cfg.fac_filt_Rd > 0 and mask_np is not None:
+            if S2_np is None:
+                raise ValueError("fac_filt_Rd > 0 takes the deformation "
+                                 "radius of the first interface: nl > 1")
+            s = S2_np[0]
+            S2c = 0.25 * (s[:-1, :-1] + s[1:, :-1] + s[:-1, 1:] + s[1:, 1:])
+            lf = np.minimum(cfg.fac_filt_Rd * cfg.dh[0] / np.sqrt(S2c),
+                            cfg.Lfmax)
+        else:
+            lf = cfg.Lfmax + (Yc / cfg.L0) * (cfg.Lfmin - cfg.Lfmax)
+        sig_lev_c = tuple(dev(s) for s in
+                          sig_lev_pyramid(lf, cfg.L0, highpass=False))
+        if mask_np is not None:
+            m = mask_np
+            pyr = [0.25 * (m[:-1, :-1] + m[1:, :-1] + m[:-1, 1:]
+                           + m[1:, 1:])]
+            for _ in range(int(round(np.log2(N)))):
+                m = pyr[-1]
+                pyr.append(0.25 * (m[::2, ::2] + m[1::2, ::2] + m[::2, 1::2]
+                                   + m[1::2, 1::2]))
+            mask_c = tuple(dev(m) for m in reversed(pyr))
+    if cfg.stochastic and cfg.L_filt_stoch > 0:
+        sig_noise = tuple(dev(s) for s in sig_lev_pyramid(
+            np.full((N, N), cfg.L_filt_stoch), cfg.L0, highpass=True))
+    return sig_lev_c, mask_c, sig_noise
+
+
 def build_constants(cfg: NodeQGConfig, *, mask=None, psi_pg=None, N2=None,
                     topo=None, q_forcing_3d=None,
                     device="cuda") -> NodeQGConstants:
@@ -219,9 +289,16 @@ def build_constants(cfg: NodeQGConfig, *, mask=None, psi_pg=None, N2=None,
     `topo` (N+1, N+1), `q_forcing_3d` (nl, N+1, N+1). The inversion is the
     spectral solve iff solver is "auto" or "spectral", the mask is the
     default rectangle and S2 is horizontally uniform; else the vertex
-    multigrid levels are built. The wavelet filter's pyramids are not built
-    (its event is not ported)."""
-    _check_slice(cfg)
+    multigrid levels are built. The periodic grid (bc_fac = -1) goes to
+    `build_constants_periodic`."""
+    if cfg.periodic:
+        if mask is not None and not np.all(np.asarray(mask) == 1.0):
+            raise ValueError(
+                "periodic (bc_fac = -1) configs have no walls: a mask other "
+                "than all ones cannot be applied")
+        return build_constants_periodic(cfg, psi_pg=psi_pg, N2=N2,
+                                        topo=topo, q_forcing_3d=q_forcing_3d,
+                                        device=device)
     dtype = _torch_dtype(cfg)
     N, nl = cfg.N, cfg.nl
     M = N + 1
@@ -247,16 +324,8 @@ def build_constants(cfg: NodeQGConfig, *, mask=None, psi_pg=None, N2=None,
 
     S2 = S2_prof = None
     s_uniform = None
-    if nl > 1:
-        if N2 is None:
-            N2a = np.asarray(cfg.N2[:nl - 1], np.float64)[:, None, None] \
-                * np.ones((nl - 1, M, M))
-        else:
-            N2a = np.asarray(N2, np.float64)[:nl - 1]
-        # N^2 -> f_var^2 / N^2 (qg_baroclinic_ms.h:498-505), f_var =
-        # f0 + flag_ms beta (y - L0/2) (:48); y varies along the rows
-        f_var = cfg.f0 + cfg.flag_ms * cfg.beta * (yv[:, None] - 0.5 * cfg.L0)
-        S2_np = np.asarray(torch.as_tensor(f_var ** 2 / N2a, dtype=dtype))
+    S2_np = _stratification(cfg, N2, M, dtype)
+    if S2_np is not None:
         S2 = dev(S2_np)
         if np.array_equal(S2_np, np.broadcast_to(S2_np[..., :1],
                                                  S2_np.shape)):
@@ -294,33 +363,116 @@ def build_constants(cfg: NodeQGConfig, *, mask=None, psi_pg=None, N2=None,
             nl=nl, N=N, L0=cfg.L0, S2=S2, idh0=idh0, idh1=idh1,
             iRd2_low=cfg.iRd2_low, mask=mask_t, dtype=dtype))
 
+    sig_lev_c, mask_c, sig_noise = _pyramids(
+        cfg, S2_np, np.asarray(torch.as_tensor(mask_np, dtype=dtype)), dev)
     return NodeQGConstants(
         mask=mask_t, psi_pg=pp_t, S2=S2, S2_prof=S2_prof, topo=topo_t,
         q_forcing_3d=qf3, vlevels=vlevels,
         yv=dev(yv[:, None]), idh0=tuple(float(v) for v in idh0),
         idh1=tuple(float(v) for v in idh1), nspec=nspec,
         has_pg=bool(nl > 1 and np.any(np.asarray(psi_pg_np))),
-        has_topo=bool(np.any(topo_np)))
+        has_topo=bool(np.any(topo_np)), sig_lev_c=sig_lev_c, mask_c=mask_c,
+        sig_noise=sig_noise)
+
+
+def build_constants_periodic(cfg: NodeQGConfig, *, psi_pg=None, N2=None,
+                             topo=None, q_forcing_3d=None,
+                             device="cuda") -> NodeQGConstants:
+    """The periodic grid's constants (bc_fac = -1): fields on the N owned
+    nodes a side (psi_pg (nl, N, N); topo and q_forcing_3d may be given on
+    the (N+1)^2 vertex view, whose last row and column are dropped), no
+    mask, and the cell-grid periodic multigrid's levels
+    (mg.build_layered_coeffs) with the barotropic Helmholtz shift
+    -iRd2_low where gp_low is set (nl = 1 only: comp_q subtracts it only
+    there, so a layered shift would de-pair the inversion from comp_q)."""
+    dtype = _torch_dtype(cfg)
+    N, nl = cfg.N, cfg.nl
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(device) \
+            .contiguous()
+
+    _, idh0, idh1 = layer_metrics(np.asarray(cfg.dh[:nl]))
+    S2_np = _stratification(cfg, N2, N, dtype)
+    S2 = None if S2_np is None else dev(S2_np)
+    psi_pg_np = np.zeros((nl, N, N)) if psi_pg is None else psi_pg
+    topo_np = np.zeros((N, N)) if topo is None \
+        else np.asarray(topo)[..., :N, :N]
+    pp_t = dev(psi_pg_np)
+    if tuple(pp_t.shape) != (nl, N, N):
+        raise ValueError(f"psi_pg has shape {tuple(pp_t.shape)}, the "
+                         f"periodic config needs {(nl, N, N)}")
+    lam = None
+    if cfg.iRd2_low != 0.0:
+        if nl > 1:
+            raise ValueError(
+                "iRd2_low (gp_low) is only defined for the barotropic "
+                "nl == 1 module (qg_barotropic.h); got periodic nl > 1")
+        lam = torch.full((nl, N, N), -cfg.iRd2_low, dtype=dtype,
+                         device=device)
+    clevels = mg.build_layered_coeffs(nl=nl, N=N, L0=cfg.L0, s=S2,
+                                      idh0=idh0, idh1=idh1, lam=lam,
+                                      dtype=dtype, device=device)
+    sig_lev_c, _, sig_noise = _pyramids(cfg, S2_np, None, dev)
+    return NodeQGConstants(
+        mask=None, psi_pg=pp_t, S2=S2, S2_prof=None,
+        topo=dev(topo_np) * cfg.scale_topo,
+        q_forcing_3d=None if q_forcing_3d is None
+        else dev(np.asarray(q_forcing_3d)[..., :N, :N]),
+        vlevels=tuple(clevels), yv=dev((np.arange(N) * cfg.delta)[:, None]),
+        idh0=tuple(float(v) for v in idh0),
+        idh1=tuple(float(v) for v in idh1),
+        has_pg=bool(nl > 1 and np.any(np.asarray(psi_pg_np))),
+        has_topo=bool(np.any(topo_np)), sig_lev_c=sig_lev_c,
+        sig_noise=sig_noise)
+
+
+def _project_nullspace(cfg: NodeQGConfig, f: torch.Tensor) -> torch.Tensor:
+    """Remove the periodic operator's nullspace component, the global
+    constant across layers (left nullvector: the dh weights), the analogue
+    of zeroing the barotropic k = 0 mode; nothing with the Helmholtz
+    shift, which has no nullspace."""
+    if cfg.iRd2_low != 0.0:
+        return f
+    w = torch.as_tensor(cfg.dh[:cfg.nl], dtype=f.dtype, device=f.device)
+    wbar = torch.einsum("l,lyx->", w, f) / (w.sum() * f.shape[-1]
+                                            * f.shape[-2])
+    return f - wbar
+
+
+def _wrap_lap(f: torch.Tensor, delta: float) -> torch.Tensor:
+    return laplacian_g(ghosted(f, BC.PERIODIC), delta)
 
 
 def comp_q(cfg: NodeQGConfig, const: NodeQGConstants,
            psi: torch.Tensor) -> torch.Tensor:
     """q = lap(psi) + Gamma(psi) (- iRd2_low psi at nl = 1), the ring by
     the partial-slip rule (comp_q_baroclinic :200-211, comp_q_barotropic
-    :33-39)."""
-    q = vertex.vlap(psi, cfg.delta)
+    :33-39); periodic: wrapping, no ring."""
+    lap = _wrap_lap(psi, cfg.delta) if cfg.periodic \
+        else vertex.vlap(psi, cfg.delta)
     if cfg.nl > 1:
-        q = q + stretch(psi, const.S2, const.idh0, const.idh1)
+        q = lap + stretch(psi, const.S2, const.idh0, const.idh1)
     else:
-        q = q - cfg.iRd2_low * psi
+        q = lap - cfg.iRd2_low * psi
+    if cfg.periodic:
+        return q
     return vertex.bc_deriv(q, psi, cfg.bc_fac, cfg.delta)
 
 
 def invert_q(cfg: NodeQGConfig, const: NodeQGConstants,
              psi_guess: torch.Tensor, q: torch.Tensor):
-    """PV inversion psi = L^-1 q with a zero ring; returns (psi, MGStats).
-    The spectral solve is exact in one shot, reads no guess and reports
-    zero cycles; the vertex multigrid is warm-started from psi_guess."""
+    """PV inversion psi = L^-1 q; returns (psi, MGStats). Walled: a zero
+    ring; the spectral solve is exact in one shot, reads no guess and
+    reports zero cycles, the vertex multigrid is warm-started from
+    psi_guess. Periodic: the cell-grid periodic multigrid from psi_guess on
+    q and psi without their nullspace component."""
+    if cfg.periodic:
+        psi, st = mg.solve_layered(
+            psi_guess, _project_nullspace(cfg, q), L0=cfg.L0,
+            idh0=const.idh0, idh1=const.idh1, bc=BC.PERIODIC,
+            tolerance=cfg.TOLERANCE, levels=const.vlevels)
+        return _project_nullspace(cfg, psi), st
     if const.nspec is not None:
         psi = torch.zeros_like(q)
         psi[..., 1:-1, 1:-1] = spectral.solve_spectral(
@@ -346,9 +498,63 @@ def q_forcing_profile(cfg: NodeQGConfig, y: torch.Tensor,
 
 def q_forcing_field(cfg: NodeQGConfig, const: NodeQGConstants,
                     t: torch.Tensor) -> torch.Tensor:
-    """The wind as an (N+1, 1) column, which broadcasts against the
-    (N+1, N+1) vertex grid (it is constant in x)."""
+    """The wind as a (rows, 1) column, which broadcasts against the node
+    grid (it is constant in x)."""
     return q_forcing_profile(cfg, const.yv, t)
+
+
+def _rhs_pv_periodic(cfg: NodeQGConfig, const: NodeQGConstants,
+                     q: torch.Tensor, psi: torch.Tensor,
+                     t: torch.Tensor) -> torch.Tensor:
+    """rhs_pv on the N-node periodic grid: the walled terms with wrapping
+    ghosts and without any boundary rule (no mask, no bc_deriv)."""
+    d, nl = cfg.delta, cfg.nl
+
+    def G(f):
+        return ghosted(f, BC.PERIODIC)
+
+    def J(p, qq):
+        return arakawa_mjac_g(G(qq), G(p), d)
+
+    def betaterm(p):
+        return cfg.beta * (torch.roll(p, -1, -1) - torch.roll(p, 1, -1)) \
+            / (2 * d)
+
+    qf = q_forcing_field(cfg, const, t)
+    if nl == 1:
+        return (-J(psi, q) - betaterm(psi)
+                - cfg.hEkb * cfg.f0 / (2 * cfg.dh[nl - 1]) * q
+                + qf[None] + cfg.nu * laplacian_g(G(q), d))
+    zeta = laplacian_g(G(psi), d)
+    pp = const.psi_pg if const.has_pg else None
+    dq = -J(psi, zeta)
+    if pp is not None:
+        dq = dq - J(pp, zeta)
+    dq = dq - betaterm(psi)
+    Jd = J(psi[:-1], psi[1:])
+    if pp is not None:
+        Jd = Jd + J(pp[:-1], psi[1:]) + J(psi[:-1], pp[1:])
+    idh0 = torch.tensor(const.idh0, dtype=q.dtype,
+                        device=q.device).reshape(nl, 1, 1)
+    idh1 = torch.tensor(const.idh1, dtype=q.dtype,
+                        device=q.device).reshape(nl, 1, 1)
+    dq[:-1] += -const.S2 * Jd * idh1[:-1]
+    dq[1:] += const.S2 * Jd * idh0[1:]
+    bottom = -cfg.hEkb * cfg.f0 / (2 * cfg.dh[nl - 1]) * zeta[nl - 1]
+    if const.has_topo:
+        bottom = bottom - J(psi[nl - 1], const.topo) * cfg.f0 \
+            / cfg.dh[nl - 1]
+    dq[nl - 1] += bottom
+    dq = dq + cfg.nu * stretch(zeta, const.S2, const.idh0, const.idh1)
+    tmp = laplacian_g(G(zeta), d)
+    dq = dq + cfg.nu * tmp
+    if cfg.nu4 != 0.0:
+        dq = dq - cfg.nu4 * (stretch(tmp, const.S2, const.idh0, const.idh1)
+                             + laplacian_g(G(tmp), d))
+    dq[0] += qf
+    if const.q_forcing_3d is not None:
+        dq = dq + const.q_forcing_3d
+    return dq
 
 
 def rhs_pv(cfg: NodeQGConfig, const: NodeQGConstants, q: torch.Tensor,
@@ -356,7 +562,9 @@ def rhs_pv(cfg: NodeQGConfig, const: NodeQGConstants, q: torch.Tensor,
     """rhs_pv_baroclinic (qg_baroclinic_ms.h:103-196) / rhs_pv_barotropic
     (qg_barotropic.h:16-29): kernel K5 (fused_node_rhs.rhs_fused_node) when
     S2 varies in y only (always at nl = 1), else the same torch ops on
-    either device."""
+    either device; the periodic grid's torch ops on either device."""
+    if cfg.periodic:
+        return _rhs_pv_periodic(cfg, const, q, psi, t)
     qf = q_forcing_profile(cfg, const.yv[:, 0], t)
     if cfg.nl == 1 or const.S2_prof is not None:
         return fused_node_rhs.rhs_fused_node(cfg, const, q, psi, qf)
@@ -365,11 +573,16 @@ def rhs_pv(cfg: NodeQGConfig, const: NodeQGConstants, q: torch.Tensor,
 
 def adjust_dt(cfg: NodeQGConfig, psi: torch.Tensor, dtmax0: float,
               prev: torch.Tensor):
-    """adjust_dt (qg.h:258-284): the face speed from nodal psi differences,
-    the previous-dt smoothing; returns (dtm, new prev), 0-d tensors."""
+    """adjust_dt (qg.h:258-284): the face speed from nodal psi differences
+    (wrapping on the periodic grid), the previous-dt smoothing; returns
+    (dtm, new prev), 0-d tensors."""
     d = cfg.delta
-    u1 = torch.abs(psi[..., 1:, :] - psi[..., :-1, :]) / d
-    u2 = torch.abs(psi[..., :, 1:] - psi[..., :, :-1]) / d
+    if cfg.periodic:
+        u1 = torch.abs(torch.roll(psi, -1, -2) - psi) / d
+        u2 = torch.abs(torch.roll(psi, -1, -1) - psi) / d
+    else:
+        u1 = torch.abs(psi[..., 1:, :] - psi[..., :-1, :]) / d
+        u2 = torch.abs(psi[..., :, 1:] - psi[..., :, :-1]) / d
     umax = torch.maximum(u1.max(), u2.max())
     big = torch.finfo(psi.dtype).max / 4
     dtm = torch.clamp(torch.where(umax > 0, cfg.CFL * d / umax, big),
@@ -385,19 +598,21 @@ def init_state(cfg: NodeQGConfig, const: NodeQGConstants, *, psi0=None,
     in [-1, 1] + sin(2 pi y / L0)) from `generator` (default: a CPU
     generator seeded with `seed`, a different stream from the JAX
     package's jax.random draw, so runs that must agree share `psi0`); the
-    ring set to zero, then q = comp_q(psi)."""
-    dtype, device = const.mask.dtype, const.mask.device
-    M = cfg.N + 1
+    ring set to zero (periodic: the nullspace component removed), then
+    q = comp_q(psi)."""
+    dtype, device = const.yv.dtype, const.yv.device
+    n = cfg.N if cfg.periodic else cfg.N + 1
     if psi0 is None:
         g = generator if generator is not None \
             else torch.Generator().manual_seed(seed)
-        noise = 2.0 * torch.rand((cfg.nl, M, M), generator=g,
+        noise = 2.0 * torch.rand((cfg.nl, n, n), generator=g,
                                  device=g.device, dtype=dtype) - 1.0
         psi = cfg.noise_init * (noise.to(device) + torch.sin(
             2 * math.pi * const.yv / cfg.L0))
     else:
         psi = torch.as_tensor(psi0, dtype=dtype).to(device)
-    psi = vertex.bc_psi(psi)
+    psi = _project_nullspace(cfg, psi) if cfg.periodic \
+        else vertex.bc_psi(psi)
     zero = torch.zeros((), dtype=dtype, device=device)
     izero = torch.zeros((), dtype=torch.int32, device=device)
     return NodeQGState(
@@ -412,8 +627,9 @@ def diag_1d(cfg: NodeQGConfig, const: NodeQGConstants, psi: torch.Tensor,
     computes them; 0-d tensors."""
     d2 = cfg.delta ** 2
     p0 = psi[0]
-    lap_psi = vertex.vlap(p0, cfg.delta)
-    lap_q = vertex.vlap(q[0], cfg.delta)
+    lap = _wrap_lap if cfg.periodic else vertex.vlap
+    lap_psi = lap(p0, cfg.delta)
+    lap_q = lap(q[0], cfg.delta)
     qf = q_forcing_field(cfg, const, t)
     ke = -torch.sum(0.5 * p0 * lap_psi) * d2
     d_ke = -cfg.nu * torch.sum(p0 * lap_q) * d2
@@ -421,14 +637,84 @@ def diag_1d(cfg: NodeQGConfig, const: NodeQGConstants, psi: torch.Tensor,
     return ke, d_ke, f_ke
 
 
-def make_step(cfg: NodeQGConfig):
+def to_vertex_full(cfg: NodeQGConfig, a: torch.Tensor) -> torch.Tensor:
+    """Periodic (.., N, N) owned nodes -> the (.., N+1, N+1) vertex view
+    that the reference's NetCDF layout stores (node N is node 0); the
+    field itself on a walled grid."""
+    if not cfg.periodic:
+        return a
+    a = torch.cat([a, a[..., :1, :]], dim=-2)
+    return torch.cat([a, a[..., :, :1]], dim=-1)
+
+
+def draw_white(cfg: NodeQGConfig, const: NodeQGConstants,
+               generator: torch.Generator, shape) -> torch.Tensor:
+    """The white part of the stochastic forcing: a standard normal draw of
+    `shape` from `generator` (on the constants' device) times amp_stoch. A
+    different stream from the JAX package's jax.random draw: the two agree
+    in distribution only."""
+    g, d = generator.device, const.yv.device
+    if g.type != d.type or (None not in (g.index, d.index)
+                            and g.index != d.index):
+        raise ValueError(f"the noise generator is on {g}, the model on {d}")
+    return torch.randn(shape, generator=generator, device=d,
+                       dtype=const.yv.dtype) * cfg.amp_stoch
+
+
+def filter_noise(cfg: NodeQGConfig, const: NodeQGConstants,
+                 white: torch.Tensor) -> torch.Tensor:
+    """Spatial correlation of a white field (qg-node/qg_stochastic.h):
+    average to the centred grid, transform, damp the large scales with the
+    high-pass weights of L_filt_stoch (BC.NEUMANN walled, BC.PERIODIC),
+    rebuild and average back to the nodes (edge-padded, then times the
+    mask, on walls). With L_filt_stoch <= 0 the white field itself."""
+    if const.sig_noise is None:
+        return white
+
+    def high_pass(c, bc):
+        w = wavelet(c, bc)
+        return inverse_wavelet(tuple(wl * sl for wl, sl in
+                                     zip(w, const.sig_noise)), bc)
+
+    if cfg.periodic:
+        def r(a, k, ax):
+            return torch.roll(a, k, ax)
+        wc = 0.25 * (white + r(white, -1, -2) + r(white, -1, -1)
+                     + r(r(white, -1, -2), -1, -1))
+        filt = high_pass(wc, BC.PERIODIC)
+        return 0.25 * (filt + r(filt, 1, -2) + r(filt, 1, -1)
+                       + r(r(filt, 1, -2), 1, -1))
+    wc = 0.25 * (white[..., :-1, :-1] + white[..., 1:, :-1]
+                 + white[..., :-1, 1:] + white[..., 1:, 1:])
+    fc = pad(high_pass(wc, BC.NEUMANN), BC.NEUMANN)    # edge padding
+    vtx = 0.25 * (fc[..., :-1, :-1] + fc[..., 1:, :-1]
+                  + fc[..., :-1, 1:] + fc[..., 1:, 1:])
+    return vtx * const.mask
+
+
+def generate_noise(cfg: NodeQGConfig, const: NodeQGConstants,
+                   generator: torch.Generator, shape) -> torch.Tensor:
+    """One step's spatially correlated stochastic forcing
+    (qg-node/qg_stochastic.h): `filter_noise` of a `draw_white`."""
+    return filter_noise(cfg, const, draw_white(cfg, const, generator, shape))
+
+
+def make_step(cfg: NodeQGConfig, generator: torch.Generator | None = None):
     """step(state, const, tnext) -> (state, NodeStepDiag): one predictor-
     corrector step: dt from the CFL-limited first update clamped by
     dtnext, a half-step Euler predictor, the corrector's update at the
     midpoint (with the model time of the step's start, as the reference
     evaluates the wind), and the full step. The first inversion starts
-    from the last psi, the second from the first's psi."""
+    from the last psi, the second from the first's psi.
+
+    With cfg.stochastic the step adds the Euler-Maruyama kick: one
+    `generate_noise` a step from `generator` (required, on the state's
+    device), shared by the predictor (x sqrt(dt)/2) and the corrector
+    (x sqrt(dt))."""
     DT = cfg.dt_clamped()
+    if cfg.stochastic and generator is None:
+        raise ValueError("a stochastic step needs a torch.Generator on the "
+                         "state's device")
 
     def update(const, q, psi_guess, prev, t):
         psi, st = invert_q(cfg, const, psi_guess, q)
@@ -440,9 +726,15 @@ def make_step(cfg: NodeQGConfig):
         dq, psi1, prev, dtm, st = update(const, state.q, state.psi,
                                          state.dt_prev, state.t)
         dt = dtnext(state.t, tnext, dtm)
+        noise = generate_noise(cfg, const, generator, state.q.shape) \
+            if cfg.stochastic else None
         q_half = state.q + dq * (dt / 2)
+        if noise is not None:
+            q_half = q_half + noise * torch.sqrt(dt) / 2.0
         dq2, psi2, prev, _, _ = update(const, q_half, psi1, prev, state.t)
         q_new = state.q + dq2 * dt
+        if noise is not None:
+            q_new = q_new + noise * torch.sqrt(dt)
         ke, d_ke, f_ke = diag_1d(cfg, const, psi2, q_new, state.t)
         new = NodeQGState(q=q_new, psi=psi2, psi_f=state.psi_f,
                           t=state.t + dt, dt_prev=prev, i=state.i + 1,
@@ -453,17 +745,41 @@ def make_step(cfg: NodeQGConfig):
     return step
 
 
-def generate_noise(cfg, const, generator, shape):
-    """Spatially correlated stochastic forcing (qg-node/qg_stochastic.h):
-    not ported yet."""
-    raise NotImplementedError(
-        "qg-node stochastic forcing is not ported yet (ROADMAP.md queue 1, "
-        "item 12c)")
-
-
-def wavelet_filter(cfg, const, state):
+def wavelet_filter(cfg: NodeQGConfig, const: NodeQGConstants,
+                   state: NodeQGState) -> NodeQGState:
     """The masked wavelet filter event with its eddy/mean split
-    (qg_baroclinic_ms.h:345-400): not ported yet."""
-    raise NotImplementedError(
-        "the masked wavelet filter event is not ported yet (ROADMAP.md "
-        "queue 1, item 12d)")
+    (wavelet_filter, qg_baroclinic_ms.h:345-400): re-invert psi, average
+    it to the centred grid, transform (BC.DIRICHLET with the mask pyramid
+    mask_c; periodic: BC.PERIODIC), keep the large scales with the
+    low-pass sig_lev_c, rebuild and average back to the nodes: psi_loc.
+    psi_f accumulates psi_loc / dtflt as a running mean over the events
+    (nbar so far); psi <- (psi - psi_loc) mask and q = comp_q(psi)."""
+    psi, _ = invert_q(cfg, const, state.psi, state.q)
+
+    def low_pass(c, bc, mask_c):
+        w = wavelet(c, bc, mask_c)
+        return inverse_wavelet(tuple(wl * sl for wl, sl in
+                                     zip(w, const.sig_lev_c)), bc, mask_c)
+
+    if cfg.periodic:
+        def r(a, k, ax):
+            return torch.roll(a, k, ax)
+        pc = 0.25 * (psi + r(psi, -1, -2) + r(psi, -1, -1)
+                     + r(r(psi, -1, -2), -1, -1))
+        pl = low_pass(pc, BC.PERIODIC, None)
+        psi_loc = 0.25 * (r(r(pl, 1, -2), 1, -1) + r(pl, 1, -1)
+                          + r(pl, 1, -2) + pl)
+        psi_new = psi - psi_loc
+    else:
+        # vertices -> cells (:369-371), cells -> vertices (:385)
+        pc = 0.25 * (psi[..., :-1, :-1] + psi[..., 1:, :-1]
+                     + psi[..., :-1, 1:] + psi[..., 1:, 1:])
+        plp = F.pad(low_pass(pc, BC.DIRICHLET, const.mask_c), (1, 1, 1, 1))
+        psi_loc = 0.25 * (plp[..., :-1, :-1] + plp[..., 1:, :-1]
+                          + plp[..., :-1, 1:] + plp[..., 1:, 1:])
+        psi_new = (psi - psi_loc) * const.mask
+    psi_f = (state.psi_f * state.nbar + psi_loc / cfg.dtflt) \
+        / (state.nbar + 1)
+    return dataclasses.replace(state, psi=psi_new,
+                               q=comp_q(cfg, const, psi_new), psi_f=psi_f,
+                               nbar=state.nbar + 1)

@@ -10,7 +10,11 @@ periodic (every option set) and stochastic (walled and periodic) modes,
 K2's periodic mode, K7 on the periodic Fourier basis, and the periodic and
 stochastic steps against the CPU; and the msqg driver (run_qg with the
 wavelet filter, the energy budget and an OutputWriter) on the card
-against the CPU, walled, coupled and periodic. Every test needs a card
+against the CPU, walled, coupled and periodic; and the qg-node driver
+(run_node with the masked wavelet filter and a NodeOutput) on the card
+against the CPU, walled, coastline-masked, periodic and stochastic at
+amp_stoch = 0, and the card's node noise draw in distribution. Every test
+needs a card
 and nvcc, is marked
 `cuda` and skips without a card. The file imports neither jax nor
 msom_tpu, so it runs on a machine without them:
@@ -1088,3 +1092,118 @@ def test_driver_on_the_card_matches_the_cpu(cuda, tmp_path, run):
         got = read_bas(str(tmp_path / "cuda" / name))[0]
         want = read_bas(str(tmp_path / "cpu" / name))[0]
         assert np.abs(got - want).max() <= 2.0 ** -23 * np.abs(want).max()
+
+
+NODE_DRIVER_RUNS = {
+    "walled": ({}, False),
+    "coastline": (dict(solver="vmg"), True),
+    "periodic": (dict(bc_fac=-1.0), False),
+    "stochastic": (dict(stochastic=True, amp_stoch=0.0, L_filt_stoch=20.0),
+                   False),
+}
+
+
+def _node128(**kw):
+    """bench.py's node physics (bench.py:178-185) at 128^2 x 3 in f64, with
+    the events of 33 steps: three vars.nc records, four diag rows, two
+    filter events."""
+    from msom_tpu_torch.models.qg_node import NodeQGConfig
+    base = dict(N=128, nl=3, L0=100.0, f0=46.5, beta=0.5, hEkb=1e-3,
+                tau0=1e-3, nu=2.5, dh=(1 / 3, 1 / 3, 1 / 3), N2=(1.0, 1.0),
+                noise_init=1e-3, bc_fac=1.0, DT=5e-2, CFL=0.2,
+                TOLERANCE=1e-8, dtflt=0.125, dtout=0.125, dtdiag=0.0625,
+                tend=0.25, Lfmax=30.0, Lfmin=10.0, dtype="float64")
+    base.update(kw)
+    return NodeQGConfig(**base)
+
+
+@pytest.mark.parametrize("run", list(NODE_DRIVER_RUNS))
+def test_node_driver_on_the_card_matches_the_cpu(cuda, tmp_path, run):
+    """run_node on the card and on the CPU from one numpy IC: the final q,
+    psi and psi_f, the diag rows' values and the KE log to 1e-10 of their
+    maxima; every vars.nc record within float32 rounding (2^-23 of its
+    max|value|); K5 twice a step on the card on a walled grid, never on
+    the CPU; K6 on the card iff the inversion is vmg."""
+    from msom_tpu_torch import driver_node
+    from msom_tpu_torch.io.netcdf import read_nc
+    from msom_tpu_torch.models import fused_node_rhs, qg_node
+    from msom_tpu_torch.solvers import fused_vmg
+    over, masked = NODE_DRIVER_RUNS[run]
+    cfg = _node128(**over)
+    inputs = dict(mask=coastline_mask(128)) if masked else {}
+    n = 128 if cfg.periodic else 129
+    rng = np.random.default_rng(42)
+    psi0 = 1e-3 * rng.uniform(-1, 1, (3, n, n))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        const = qg_node.build_constants(cfg, device=dev, **inputs)
+        state = qg_node.init_state(cfg, const, psi0=psi0)
+        output = driver_node.NodeOutput(cfg, str(tmp_path / dev))
+        rows, logs = [], []
+        write_row = output.diag_row
+
+        def diag_row(*v, rows=rows, write_row=write_row):
+            rows.append(v)
+            write_row(*v)
+
+        output.diag_row = diag_row
+        before = fused_node_rhs.launches, fused_vmg.launches
+        state, _ = driver_node.run_node(
+            cfg, const=const, state=state, output=output, restart=None,
+            hooks=driver_node.RunHooks(
+                on_log=lambda *a, logs=logs: logs.append(a)),
+            generator=torch.Generator(device=dev).manual_seed(3))
+        out[dev] = (state, np.array(rows), logs,
+                    fused_node_rhs.launches - before[0],
+                    fused_vmg.launches - before[1],
+                    read_nc(str(tmp_path / dev / "vars.nc"), ["psi", "q"],
+                            None))
+    (cs, crow, clog, c5, c6, cnc), (gs, grow, glog, g5, g6, gnc) = \
+        out["cpu"], out["cuda"]
+    steps = int(gs.i)
+    assert int(cs.i) == steps and 20 <= steps <= 40
+    assert c5 == c6 == 0
+    assert g5 == (0 if cfg.periodic else 2 * steps) and (g6 > 0) == masked
+    for name in ("q", "psi", "psi_f"):
+        want = getattr(cs, name)
+        got = getattr(gs, name).cpu()
+        assert (got - want).abs().max() <= 1e-10 * want.abs().max(), name
+    assert crow.shape == grow.shape == (4, 4)
+    for k in range(1, 4):
+        assert np.abs(grow[:, k] - crow[:, k]).max() \
+            <= 1e-10 * np.abs(crow[:, k]).max()
+    assert len(glog) == len(clog) == steps
+    for g, c in zip(glog, clog):
+        assert g[0] == c[0] and abs(g[3] - c[3]) <= 1e-10 * abs(c[3])
+    np.testing.assert_array_equal(gnc[1], cnc[1])
+    assert len(cnc[1]) == 3
+    for name in ("psi", "q"):
+        got, want = gnc[0][name], cnc[0][name]
+        assert got.shape == want.shape == (3, 3, 129, 129)
+        assert np.abs(got - want).max() <= 2.0 ** -23 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_node_noise_draw_on_the_card(cuda, periodic):
+    """The card's white draw (a seeded CUDA generator, 4 x 1025^2 f32) has
+    its normalised mean and std within four standard errors of a standard
+    normal sample's; the filtered noise is finite and, walled, zero off the
+    mask; a draw from a CPU generator is refused."""
+    from msom_tpu_torch.models import qg_node
+    cfg = _node128(N=1024, nl=4, dh=(0.25,) * 4, N2=(1.0,) * 3,
+                   dtype="float32", stochastic=True, amp_stoch=1e-6,
+                   L_filt_stoch=20.0, bc_fac=-1.0 if periodic else 1.0)
+    const = qg_node.build_constants(cfg, device="cuda")
+    n = 1024 if periodic else 1025
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    xi = qg_node.draw_white(cfg, const, gen, (4, n, n)).double() \
+        / cfg.amp_stoch
+    m = xi.numel()
+    assert abs(xi.mean().item()) < 4 / np.sqrt(m)
+    assert abs(xi.std().item() - 1) < 4 / np.sqrt(2 * m)
+    noise = qg_node.generate_noise(cfg, const, gen, (4, n, n))
+    assert bool(torch.isfinite(noise).all()) and noise.abs().max() > 0
+    if not periodic:
+        assert not (noise * (1 - const.mask)).any()
+    with pytest.raises(ValueError, match="generator"):
+        qg_node.draw_white(cfg, const, torch.Generator(), (4, n, n))

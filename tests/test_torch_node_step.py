@@ -4,7 +4,7 @@ the JAX package's jitted step on the CPU in float64 from one numpy IC: the
 with the coastline-masked vertex multigrid (solver="vmg", 10 steps, the same
 V-cycles every step) and the barotropic module with its Helmholtz shift;
 a JAX state carried into the port through `convert`; the configuration
-parser; and what raises NotImplementedError.
+parser; and that the periodic, stochastic and filter configurations run.
 
 Tolerances: q at 1e-11 relative and dt at 1e-12 every step, as the msqg
 lockstep holds them: the two sides compute the same formulas and only
@@ -198,20 +198,33 @@ def test_noise_ic_from_a_torch_generator():
     (dict(stochastic=True, amp_stoch=0.1), "item 12c"),
 ])
 def test_configs_outside_the_slice_raise(override, match):
+    """The periodic grid (ROADMAP.md item 12b) and stochastic forcing
+    (item 12c), once outside the port, build and step on the CPU:
+    tests/test_torch_node_periodic.py and test_torch_node_stochastic.py
+    hold them against the JAX package."""
     cfg = tqn.NodeQGConfig(**_kw(N=16, **override))
-    with pytest.raises(NotImplementedError, match=match):
-        tqn.build_constants(cfg, device="cpu")
+    const = tqn.build_constants(cfg, device="cpu")
+    state = tqn.init_state(cfg, const, seed=0)
+    state, diag = tqn.make_step(cfg, torch.Generator().manual_seed(0))(
+        state, const, 1e18)
+    n = 16 if cfg.periodic else 17
+    assert state.q.shape == (3, n, n) and bool(torch.isfinite(state.q).all())
+    assert float(diag.dt) > 0 and match in ("item 12b", "item 12c")
 
 
 def test_filter_and_noise_raise_but_dtflt_builds():
+    """A config with dtflt > 0 builds and steps, and its filter event and
+    the noise run (ROADMAP.md items 12d and 12c; held against the JAX
+    package in tests/test_torch_node_filter.py and
+    test_torch_node_stochastic.py)."""
     cfg = tqn.NodeQGConfig(**_kw(N=16, dtflt=1.0))
     const = tqn.build_constants(cfg, device="cpu")
     state = tqn.init_state(cfg, const, seed=0)
     state, _ = tqn.make_step(cfg)(state, const, 1e18)
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        tqn.wavelet_filter(cfg, const, state)
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        tqn.generate_noise(cfg, const, torch.Generator(), state.q.shape)
+    filtered = tqn.wavelet_filter(cfg, const, state)
+    assert int(filtered.nbar) == 1 and filtered.psi.shape == state.psi.shape
+    noise = tqn.generate_noise(cfg, const, torch.Generator(), state.q.shape)
+    assert noise.shape == state.q.shape
 
 
 def test_solver_selection_matches_jax():

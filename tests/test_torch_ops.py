@@ -304,8 +304,8 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok"' not in out.stdout
 
 
-def test_entry_points_default_to_cuda():
-    from msom_tpu_torch import convert, driver
+def test_entry_points_default_to_cuda(monkeypatch):
+    from msom_tpu_torch import convert, driver, driver_node
     from msom_tpu_torch.models import qg, qg_energy, qg_node
     from msom_tpu_torch.ops import vertex
     from msom_tpu_torch.solvers import mg, spectral, vmg
@@ -313,5 +313,14 @@ def test_entry_points_default_to_cuda():
                convert.state_from_numpy, qg_node.build_constants,
                spectral.build_spectral_node, convert.node_state_from_numpy,
                mg.build_layered_coeffs, vmg.build_vlevels,
-               vertex.default_mask, driver.run_qg, qg_energy.init_energy):
+               vertex.default_mask, driver.run_qg, qg_energy.init_energy,
+               qg_node.build_constants_periodic, driver_node.run_node):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    # the node command line hands run_node the card unless --cpu is given
+    seen = []
+    monkeypatch.setattr(driver_node, "run_node",
+                        lambda cfg, **kw: seen.append(kw["device"]))
+    cfg = _ROOT / "msom_tpu" / "configs" / "double_gyre_small.in"
+    for extra in ([], ["--cpu"]):
+        driver_node.main(["--config", str(cfg)] + extra)
+    assert seen == ["cuda", "cpu"]
