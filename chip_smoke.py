@@ -6,7 +6,7 @@
 Needs one CUDA card, nvcc and the repository checkout; imports nothing of
 JAX or msom_tpu. With no argument every phase runs; with phase names
 (kernels, steps, paths, fused_mm, mg, node, periodic, stochastic, driver,
-driver_node)
+driver_node, mspg, coupling)
 the build and those phases only (for work on one part: the kernels' record
 then lists what ran). Phases, in order; any failure exits non-zero:
 
@@ -142,6 +142,28 @@ then lists what ran). Phases, in order; any failure exits non-zero:
    idle share and K5's and K6's device ms a step (a profile of four
    steps), K5 and K6 on the final state against their plain versions and
    bounds.
+13. mspg (phase name mspg; it has no kernel): build_constants (the
+   barotropic solve) and 20 steps on the card against the CPU, f64,
+   32^2 x 8 from a numpy stratified IC: plain, with Gent-McWilliams
+   (k_gm > 0) and with a numpy-seeded b_forc, psibt and the state within
+   STEP_LIMIT with the same bt-solve cycles; driver.run_pg with a
+   PGOutputWriter on both (four output events), the state, the means and
+   every .bas within float32 rounding. Then bench.py's mspg row (64^2 x 30
+   f32): the bt solve's seconds and cycles, 120 spin-up and 60 timed
+   steps, a ten-step profile (launches a step, idle share), the host's
+   queue time a step, and run_pg with five output events, each event's
+   seconds.
+14. the PG <-> QG coupling loop (phase name coupling): the five stages of
+   tests/test_coupling_workflow.py (PG 32^2 x 8 -> QG 64^2 x 3, f64) on
+   the card against the CPU stage by stage (the PG state; psipg, frpg,
+   rdpg, dh, Rom; the QG state, pf and the V-cycles; b_forc; the two
+   continuations) within STEP_LIMIT, with the workflow's checks; then
+   README.md's workflow at full width: PG 64^2 x 30 f32 spun up 150 steps,
+   msqg at 2048^2 x 3 f32 (solver="mg", the 2-D frpg) for 20 steps with a
+   filter event every 5, the feedback regridded to 64^2 and 30 PG steps
+   with and without it: each stage's seconds, the QG stage's ms/step and
+   V-cycles, and K1, K3 and K4 at 0 launches in the QG stage (a 2-D frpg
+   is no mode of theirs, in either package).
 
 TF32 is switched off for matmuls and convolutions before anything runs:
 1-pass reduced-precision transforms give O(1) solution error at N = 2048.
@@ -173,7 +195,7 @@ MG_SWEEPS = 4
 MG_SOLVE_LIMIT = 1e-10                    # CUDA solve vs CPU solve, f64
 MG_MAX_CYCLES = 20      # a solve that needs more at tol 1e-3 is spinning
 PHASES = ("kernels", "steps", "paths", "fused_mm", "mg", "node", "periodic",
-          "stochastic", "driver", "driver_node")
+          "stochastic", "driver", "driver_node", "mspg", "coupling")
 K1_OPTIONS = ("pg", "pg_flsrv", "topo", "qforc", "energy_conserv", "slip",
               "all")
 # the periodic kernel's option sets (no slip: the domain has no wall), and
@@ -2125,6 +2147,494 @@ def driver_node_path(NodeQGConfig, rows):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# mspg and the PG <-> QG coupling loop (phase names mspg, coupling)
+# ---------------------------------------------------------------------------
+
+# bench.py's mspg physics (bench.py:247-249, the reference's params.in);
+# the checks' size is tests/test_coupling_workflow.py:30-34's, the path's
+# bench's 64^2 x 30 row
+PG_PHYSICS = dict(ys=0.3, r=0.02, tau_s=3e-2, tau0=0.12, kv=1e-4, kh=1e-4,
+                  omega=0.2, DT=1e-2, CFL=0.4, tend=1e18, dtout=1e18)
+PG_CHECK = dict(N=32, nl=8, dtype="float64")
+PG_PATH = dict(N=64, nl=30, dtype="float32")
+PG_GM = 0.05                       # k_gm of the GM check
+COUPLING_IL = [0, 2, 4, 8]         # sigma bands -> 3 QG layers
+COUPLING_RE4 = 50.0                # the workflow's Re4 at N = 64
+COUPLING_N_QG, COUPLING_STEPS = 2048, 20   # the full-width QG stage
+
+
+def pg_ic(cfg, seed=9):
+    """A numpy-seeded stratified buoyancy with noise, so that the
+    convective sweep has unstable pairs to mix."""
+    rng = np.random.default_rng(seed)
+    return (np.linspace(1.0, 0.0, cfg.nl)[:, None, None]
+            + 0.2 * rng.standard_normal((cfg.nl, cfg.N, cfg.N)))
+
+
+def _rel(got, want):
+    """max|got - want| over max|want| (NaN where either holds a NaN)."""
+    import torch
+    got, want = (np.asarray(a.double().cpu().numpy()
+                            if isinstance(a, torch.Tensor) else a,
+                            np.float64) for a in (got, want))
+    err, scale = np.abs(got - want).max(), np.abs(want).max()
+    return err / scale if scale else err
+
+
+def kernel_counts():
+    """The launch counters of the seven kernels' wrappers."""
+    from msom_tpu_torch.models import fused_node_rhs, fused_rhs, fused_tracer
+    from msom_tpu_torch.solvers import fused_mg, fused_spectral, fused_vmg
+    return {"K1": fused_rhs.launches, "K2": fused_tracer.launches,
+            "K3": fused_mg.sweep_launches, "K4": fused_mg.residual_launches,
+            "K5": fused_node_rhs.launches, "K6": fused_vmg.launches,
+            "K7": fused_spectral.launches}
+
+
+def mspg_check(PGConfig, label, over, b_forc=False):
+    """build_constants and 20 steps of mspg on the card against the CPU,
+    f64, 32^2 x 8, from one numpy stratified IC: psibt and the stepped b,
+    ux, uy within STEP_LIMIT, the same bt-solve cycles, dt to 1e-12."""
+    import torch
+    from msom_tpu_torch.models import mspg
+    cfg = PGConfig(**PG_PHYSICS, **PG_CHECK, **over)
+    bf = 1e-2 * np.random.default_rng(8).standard_normal(
+        (cfg.nl, cfg.N, cfg.N)) if b_forc else None
+    out = {}
+    for where in ("cpu", "cuda"):
+        const = mspg.build_constants(cfg, device=where, b_forc=bf)
+        state = mspg.init_state(cfg, const, b0=pg_ic(cfg))
+        step = mspg.make_step(cfg)
+        dts = []
+        for _ in range(20):
+            state, diag = step(state, const, 1e18)
+            dts.append(diag.dt.item())
+        out[where] = (const, state, dts)
+    (cc, cs, cdt), (gc, gs, gdt) = out["cpu"], out["cuda"]
+    rels = {"psibt": _rel(gc.psibt, cc.psibt)}
+    rels.update({n: _rel(getattr(gs, n), getattr(cs, n))
+                 for n in ("b", "ux", "uy")})
+    dt_rel = max(abs(g - c) / c for g, c in zip(gdt, cdt))
+    good = (all(r <= STEP_LIMIT for r in rels.values()) and dt_rel <= 1e-12
+            and gc.bt_stats.iters == cc.bt_stats.iters
+            and bool(torch.isfinite(gs.b).all()))
+    print(f"mspg check {label} {cfg.N}^2 x {cfg.nl} f64, 20 steps, cuda vs "
+          f"cpu: " + ", ".join(f"rel {k} = {v:.3e}" for k, v in rels.items())
+          + f", dt {dt_rel:.3e} (limit {STEP_LIMIT:g}); bt solve cycles cuda "
+          f"{gc.bt_stats.iters} cpu {cc.bt_stats.iters} "
+          f"{'ok' if good else 'FAIL'}")
+    return good
+
+
+def run_pg_check(PGConfig):
+    """driver.run_pg with a PGOutputWriter on the card against the CPU,
+    f64, 32^2 x 8, tend = 0.3, dtout = 0.1 (266 steps at the CFL limit,
+    four output events, the means every 10 steps): the final state and means within
+    STEP_LIMIT, the same steps and nme, the same files, each .bas within
+    float32 rounding."""
+    import os
+    import tempfile
+    from msom_tpu_torch import driver
+    from msom_tpu_torch.io.bas import read_bas
+    from msom_tpu_torch.models import mspg
+    cfg = PGConfig(**{**PG_PHYSICS, **PG_CHECK, "tend": 0.3, "dtout": 0.1})
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for where in ("cpu", "cuda"):
+            const = mspg.build_constants(cfg, device=where)
+            seen = []
+            writer = driver.PGOutputWriter(cfg, const,
+                                           outdir=os.path.join(tmp, where))
+
+            def on_output(st, t, writer=writer, seen=seen):
+                writer(st, t)
+                seen.append(t)
+
+            state = driver.run_pg(
+                cfg, const=const, state=mspg.init_state(cfg, const,
+                                                        b0=pg_ic(cfg)),
+                hooks=driver.RunHooks(on_output=on_output))
+            out[where] = (state, seen)
+        (cs, cseen), (gs, gseen) = out["cpu"], out["cuda"]
+        rels = {n: _rel(getattr(gs, n), getattr(cs, n))
+                for n in ("b", "ux", "uy", "b_me", "ux_me", "uy_me")}
+        files = sorted(os.listdir(os.path.join(tmp, "cpu")))
+        same = files == sorted(os.listdir(os.path.join(tmp, "cuda")))
+        bas_rel = 0.0
+        for name in (n for n in files if same and n.endswith(".bas")):
+            bas_rel = max(bas_rel, _rel(
+                read_bas(os.path.join(tmp, "cuda", name))[0],
+                read_bas(os.path.join(tmp, "cpu", name))[0]))
+    good = (all(r <= STEP_LIMIT for r in rels.values()) and same
+            and bas_rel <= 2.0 ** -23 and int(gs.i) == int(cs.i)
+            and int(gs.nme) == int(cs.nme) and len(gseen) == len(cseen) == 4
+            and len(files) == 9)
+    print(f"mspg run_pg check {cfg.N}^2 x {cfg.nl} f64, {int(gs.i)} steps, "
+          f"{len(gseen)} output events at t "
+          + ", ".join(f"{t:.4f}" for t in gseen) + ", cuda vs cpu: "
+          + ", ".join(f"rel {k} = {v:.3e}" for k, v in rels.items())
+          + f" (limit {STEP_LIMIT:g}); {len(files)} files, same names "
+          f"{same}, .bas {bas_rel:.3e} of max (limit 2^-23) "
+          f"{'ok' if good else 'FAIL'}")
+    return good
+
+
+def mspg_path(PGConfig):
+    """bench.py's mspg row (measure_mspg, bench.py:243-270): 64^2 x 30 f32
+    from rest, the barotropic solve at build (its seconds and cycles),
+    bench's 120 spin-up steps, 60 timed with CUDA events, a profile of ten
+    steps (device busy, idle share, launches a step), the host's time to
+    queue a step; then driver.run_pg with a PGOutputWriter into a
+    temporary directory (dtout = 0.05, tend = 0.2: five output events),
+    each output event's seconds. mspg runs none of the seven kernels.
+    Returns False if a check failed."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from msom_tpu_torch import driver
+    from msom_tpu_torch.models import mspg
+    cfg = PGConfig(**PG_PHYSICS, **PG_PATH)
+    N, nl = cfg.N, cfg.nl
+    label = f"mspg path {N}^2 x {nl} f32"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    const = mspg.build_constants(cfg, device="cuda")
+    torch.cuda.synchronize()
+    bt_s = time.perf_counter() - t0
+    st = const.bt_stats
+    print(f"{label}: build_constants with the bt solve {bt_s:.3f} s, "
+          f"{st.iters} V-cycles, residual {st.resb:.3e} -> {st.resa:.3e} "
+          f"(tol {cfg.tol:g}), final nrelax {st.nrelax}")
+    state = mspg.init_state(cfg, const)
+    step = mspg.make_step(cfg)
+    before = kernel_counts()
+    t0 = time.perf_counter()
+    for _ in range(120):
+        state, _ = step(state, const, 1e18)
+    torch.cuda.synchronize()
+    spin_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(60):
+        state, diag = step(state, const, 1e18)
+    end.record()
+    torch.cuda.synchronize()
+    ms_step = start.elapsed_time(end) / 60
+    box = [state]
+
+    def one_step():
+        box[0], _ = step(box[0], const, 1e18)
+
+    q_ms = host_ms(one_step, 20)
+    rows = kernel_profile("mspg", one_step, 10, ms_step)
+    busy = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows)
+    state = box[0]
+    launched = {k: v - before[k] for k, v in kernel_counts().items()}
+    finite = all(bool(torch.isfinite(f).all())
+                 for f in (state.b, state.ux, state.uy))
+    ok = (finite and not any(launched.values()) and diag.dt.item() > 0
+          and st.resa <= cfg.tol)
+    print(f"{label}: {ms_step:.4f} ms/step ({N * N * nl / (ms_step * 1e-3):.4e}"
+          f" grid-points/s) over 60 steps after 120 spin-up steps "
+          f"({spin_s:.2f} s), host queue time {q_ms:.4f} ms/step, device "
+          f"busy {busy:.4f} ms/step, idle share {1 - busy / ms_step:.4f}, "
+          f"{launches:.1f} launches/step; dt {diag.dt.item():.6e}, t "
+          f"{state.t.item():.6e}, max|b| {state.b.abs().max().item():.4e}, "
+          f"finite {finite}; kernel launches "
+          + ", ".join(f"{k} {v}" for k, v in launched.items())
+          + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        return False
+    # driver.run_pg from rest with its output events
+    ev_cfg = dataclasses.replace(cfg, dtout=0.05, tend=0.2)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mspg_")
+    try:
+        out_s, out_t = [], []
+        writer = driver.PGOutputWriter(ev_cfg, const, outdir=tmp)
+
+        def on_output(st, t):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            writer(st, t)
+            out_s.append(time.perf_counter() - t1)
+            out_t.append(t)
+
+        t0 = time.perf_counter()
+        state = driver.run_pg(ev_cfg, const=const,
+                              hooks=driver.RunHooks(on_output=on_output))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        steps = int(state.i)
+        sizes = {name: os.path.getsize(os.path.join(tmp, name))
+                 for name in os.listdir(tmp)}
+        block = (N + 1) ** 2 * 4
+        files_ok = sizes.get("psibt.bas") == block and all(
+            sizes.get(f"{k}{i:09d}.bas") == n * block
+            for i in (0,) for k, n in (("b", nl + 2), ("u", 2 * (nl + 2))))
+        ok = (len(out_s) == 5 and files_ok and len(sizes) == 11
+              and np.allclose(out_t, [0.0, 0.05, 0.1, 0.15, 0.2], atol=1e-6)
+              and bool(torch.isfinite(state.b_me).all()))
+        print(f"{label}: run_pg to t {state.t.item():.6e} in {steps} steps, "
+              f"{run_s:.2f} s ({run_s / steps * 1e3:.2f} ms/step with the "
+              f"events), {len(out_s)} output events at t "
+              + ", ".join(f"{t:.4f}" for t in out_t) + ", each "
+              + ", ".join(f"{s:.4f}" for s in out_s) + f" s; {len(sizes)} "
+              f"files, sizes right {files_ok} {'ok' if ok else 'FAIL'}")
+        return ok
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def coupling_loop(PGConfig, QGConfig, device, pg_over, N_qg, qg_dtype,
+                  qg_steps, Re4, pg_spinup=150, pg_cont=30):
+    """The workflow's five stages (tests/test_coupling_workflow.py) on
+    `device`, each fed the one before: mspg spun up from rest; the PG
+    state -> msqg inputs (psipg, frpg, rdpg, dh, Rom); msqg (solver="mg",
+    the coupling fields, a filter event after every 5th step) and the
+    filter mean inverted to pf; the feedback b_forc regridded to the PG
+    grid; pg_cont PG steps with and without it. Returns each stage's
+    outputs, seconds (host clock, synchronised), the kernels launched in
+    the QG stage and the V-cycles of its solves."""
+    import torch
+    from msom_tpu_torch import coupling
+    from msom_tpu_torch.analysis import regrid_bicubic
+    from msom_tpu_torch.models import mspg, qg
+    from msom_tpu_torch.ops.wavelet import wavelet_filter_step
+    from msom_tpu_torch.solvers import mg
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    secs, out = {}, {}
+    t0 = time.perf_counter()
+    pcfg = PGConfig(**PG_PHYSICS, **pg_over)
+    pconst = mspg.build_constants(pcfg, device=device)
+    pstep = mspg.make_step(pcfg)
+    s1 = mspg.init_state(pcfg, pconst)
+    for _ in range(pg_spinup):
+        s1, _ = pstep(s1, pconst, 1e18)
+    sync()
+    secs["1 PG spin-up"] = time.perf_counter() - t0
+    out["pg"] = s1
+
+    t0 = time.perf_counter()
+    b, ux, uy = (a.double().cpu().numpy() for a in (s1.b, s1.ux, s1.uy))
+    u_c = 0.5 * (ux[:, :, :-1] + ux[:, :, 1:])
+    v_c = 0.5 * (uy[:, :-1, :] + uy[:, 1:, :])
+    inp = coupling.pg_to_qg_inputs(pcfg, b, u_c, v_c, il=COUPLING_IL,
+                                   N_qg=N_qg, device=device)
+    secs["2 pg_to_qg_inputs"] = time.perf_counter() - t0
+    out["inp"] = inp
+
+    t0 = time.perf_counter()
+    nl = len(COUPLING_IL) - 1
+    qcfg = QGConfig(N=N_qg, nl=nl, L0=1.0, Rom=inp["Rom"], Ekb=0.002,
+                    tau0=1e-5, Re4=Re4, beta=0.5, Fr=(0.003,) * (nl - 1),
+                    dh=inp["dh"], DT=2e-2, tend=1e18, dtout=1e18, dtflt=0.1,
+                    afilt=10.0, Lfmax=0.5, CFL=0.5, solver="mg",
+                    dtype=qg_dtype).validate()
+    qconst = qg.build_constants(qcfg, device=device, psipg=inp["psipg"],
+                                frpg=inp["frpg"], rdpg=inp["rdpg"])
+    # the workflow's 1e-3 noise at N = 64, scaled by (64/N)^2 so that the
+    # PV noise keeps its size: at 2048^2 its |q| ~ 1e4 would put float32
+    # rounding above the multigrid's absolute tolerance 1e-3
+    psi0 = 1e-3 * (64 / N_qg) ** 2 * np.random.default_rng(0).uniform(
+        -1, 1, (nl, N_qg, N_qg))
+    qs = qg.init_state(qcfg, qconst, psi0=psi0)
+    qstep = qg.make_step(qcfg)
+    sync()
+    secs["3a QG set-up"] = time.perf_counter() - t0
+    cycles, solve = [], mg.solve_layered
+
+    def counted(*args, **kw):
+        res = solve(*args, **kw)
+        cycles.append(res[1].iters)
+        return res
+
+    before = kernel_counts()
+    mg.solve_layered = counted     # the stage's solves, steps and filters
+    try:
+        t0 = time.perf_counter()
+        for k in range(qg_steps):
+            qs, diag = qstep(qs, qconst, 1e18)
+            if k % 5 == 4:
+                qs = wavelet_filter_step(qcfg, qconst, qs)
+        sync()
+        secs["3b QG steps and filter events"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pf, _ = qg.invert_q(qcfg, qconst, torch.zeros_like(qs.qof),
+                            qs.qof / int(qs.nbar))
+        pf = pf.double().cpu().numpy()
+        secs["3c pf inversion"] = time.perf_counter() - t0
+    finally:
+        mg.solve_layered = solve
+    out["launched"] = {k: v - before[k] for k, v in kernel_counts().items()}
+    out.update(qcfg=qcfg, qconst=qconst, qg=qs, pf=pf, cycles=cycles,
+               qdiag=diag)
+
+    t0 = time.perf_counter()
+    Fr_prof = np.array([np.median(inp["frpg"][k]) for k in range(nl - 1)])
+    bf = coupling.qg_feedback_forcing(pf, np.asarray(inp["dh"]), Fr_prof,
+                                      inp["Rom"], pcfg.nl)
+    secs["4a qg_feedback_forcing"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bf_coarse = regrid_bicubic(bf, 1.0, pcfg.N)
+    secs["4b regrid_bicubic"] = time.perf_counter() - t0
+    out.update(bf=bf, bf_coarse=bf_coarse)
+
+    t0 = time.perf_counter()
+    amp = 1e-2 / max(np.abs(bf_coarse).max(), 1e-30)
+    b_forc = amp * bf_coarse
+    forced_const = dataclasses.replace(pconst, b_forc=torch.as_tensor(
+        b_forc, dtype=pconst.yc.dtype).to(pconst.yc.device))
+    forced = plain = s1
+    for _ in range(pg_cont):
+        forced, _ = pstep(forced, forced_const, 1e18)
+        plain, _ = pstep(plain, pconst, 1e18)
+    sync()
+    secs["5 PG continuations"] = time.perf_counter() - t0
+    out.update(b_forc=b_forc, forced=forced, plain=plain, secs=secs)
+    return out
+
+
+def workflow_checks(out, N_qg, nl_pg):
+    """tests/test_coupling_workflow.py's checks (:85-136) on one loop, by
+    name, the layer thicknesses summing to the share of the column that
+    COUPLING_IL spans (all of it at the workflow's nl = 8, the top 8 of 30
+    in README's call); returns ({name: passed}, the response's max|db|
+    over the integrated forcing)."""
+    import torch
+    inp = out["inp"]
+    nl = len(COUPLING_IL) - 1
+    db = (out["forced"].b - out["plain"].b).double().cpu().numpy()
+    elapsed = out["forced"].t.item() - out["pg"].t.item()
+    expect = np.abs(out["b_forc"]).max() * elapsed
+    ratio = np.abs(db).max() / expect if expect > 0 else np.nan
+    checks = {
+        "finite": bool(torch.isfinite(out["pg"].b).all()
+                       and np.isfinite(inp["psipg"]).all()
+                       and np.isfinite(inp["frpg"]).all()
+                       and np.isfinite(out["pf"]).all()
+                       and np.isfinite(out["bf"]).all()
+                       and np.isfinite(db).all()),
+        "shapes": (inp["psipg"].shape == inp["frpg"].shape
+                   == (nl, N_qg, N_qg) and inp["rdpg"].shape == (N_qg, N_qg)
+                   and out["bf"].shape == (nl_pg, N_qg, N_qg)),
+        "frpg > 0": bool((inp["frpg"][:-1] > 0).all()),
+        "rdpg > 0, median 0.05-50": bool((inp["rdpg"] > 0).all()
+                                         and 0.05 < np.median(inp["rdpg"])
+                                         < 50.0),
+        "dh spans il": abs(sum(inp["dh"]) - COUPLING_IL[-1] / nl_pg) < 1e-12,
+        "psipg nonzero": bool(np.abs(inp["psipg"]).max() > 0),
+        "nbar > 0": int(out["qg"].nbar) > 0,
+        "pf nonzero": bool(np.abs(out["pf"]).max() > 0),
+        "b_forc nonzero": bool(np.abs(out["bf"]).max() > 0),
+        "response 0.1-50": bool(0.1 < ratio < 50.0),
+    }
+    return checks, ratio
+
+
+def coupling_check(PGConfig, QGConfig):
+    """The whole loop at the workflow test's sizes (PG 32^2 x 8 -> QG
+    64^2 x 3) in f64 on the card against the CPU, stage by stage within
+    STEP_LIMIT: the PG state; psipg, frpg, rdpg, dh, Rom; the QG state
+    (q, psi, qof, nbar) and pf with the same V-cycles; b_forc; the two
+    continuations. The workflow's checks on the card's loop; no kernel
+    launched in its QG stage."""
+    loops = {where: coupling_loop(PGConfig, QGConfig, where, PG_CHECK, 64,
+                                  "float64", 40, COUPLING_RE4)
+             for where in ("cpu", "cuda")}
+    c, g = loops["cpu"], loops["cuda"]
+    rels = {}
+    for n in ("b", "ux", "uy"):
+        rels[f"1 {n}"] = _rel(getattr(g["pg"], n), getattr(c["pg"], n))
+    for n in ("psipg", "frpg", "rdpg"):
+        rels[f"2 {n}"] = _rel(g["inp"][n], c["inp"][n])
+    rels["2 dh"] = _rel(np.asarray(g["inp"]["dh"]), np.asarray(c["inp"]["dh"]))
+    rels["2 Rom"] = abs(g["inp"]["Rom"] - c["inp"]["Rom"]) / c["inp"]["Rom"]
+    for n in ("q", "psi", "qof"):
+        rels[f"3 {n}"] = _rel(getattr(g["qg"], n), getattr(c["qg"], n))
+    rels["3 pf"] = _rel(g["pf"], c["pf"])
+    rels["4 b_forc"] = _rel(g["b_forc"], c["b_forc"])
+    for run in ("forced", "plain"):
+        for n in ("b", "ux", "uy"):
+            rels[f"5 {run} {n}"] = _rel(getattr(g[run], n),
+                                        getattr(c[run], n))
+    flow, ratio = workflow_checks(g, 64, PG_CHECK["nl"])
+    flow_ok = all(flow.values())
+    good = (all(r <= STEP_LIMIT for r in rels.values())
+            and g["cycles"] == c["cycles"]
+            and int(g["qg"].nbar) == int(c["qg"].nbar) == 8
+            and not g["qconst"].rhs_kernel and flow_ok
+            and not any(g["launched"].values()))
+    print("coupling check PG 32^2 x 8 -> QG 64^2 x 3 f64, cuda vs cpu: "
+          + ", ".join(f"rel {k} = {v:.3e}" for k, v in rels.items())
+          + f" (limit {STEP_LIMIT:g}); V-cycles equal "
+          f"{g['cycles'] == c['cycles']} ({len(g['cycles'])} solves), nbar "
+          f"{int(g['qg'].nbar)}; workflow checks all pass {flow_ok} "
+          f"({', '.join(k for k, v in flow.items() if not v) or 'none'} "
+          f"failed; response "
+          f"{ratio:.3f} of the integrated forcing); QG-stage launches "
+          + ", ".join(f"{k} {v}" for k, v in g["launched"].items())
+          + f" {'ok' if good else 'FAIL'}")
+    return good
+
+
+def coupling_path(PGConfig, QGConfig):
+    """README.md's workflow at full width: PG 64^2 x 30 f32 spun up 150
+    steps, pg_to_qg_inputs(il=[0, 2, 4, 8], N_qg=2048), msqg at
+    2048^2 x 3 f32 (solver="mg", psipg/frpg/rdpg, the workflow's physics
+    with Re4 scaled by (N/64)^3 as bench.py:65 scales it) for 20 steps
+    with a filter event every 5, pf, the feedback regridded to 64^2 and
+    30 PG steps with and without it. Each stage's seconds, the QG stage's
+    ms/step and V-cycles a solve, the workflow's checks and the kernels'
+    launches in the QG stage (K1, K3, K4 must stay at 0: a 2-D frpg is no
+    mode of theirs). Returns False if a check failed."""
+    N_qg, steps = COUPLING_N_QG, COUPLING_STEPS
+    out = coupling_loop(PGConfig, QGConfig, "cuda", PG_PATH, N_qg, "float32",
+                        steps, COUPLING_RE4 * (N_qg / 64) ** 3)
+    secs = out["secs"]
+    qconst, cycles = out["qconst"], out["cycles"]
+    flow, ratio = workflow_checks(out, N_qg, PG_PATH["nl"])
+    # the checks the full-width loop is held to; at 64^2 x 30 the bicubic
+    # regrid overshoots below 0 where Fr jumps (the JAX package's
+    # coupling gives the same frpg), so "frpg > 0" is reported, not held
+    held = ("finite", "shapes", "dh spans il", "nbar > 0", "pf nonzero",
+            "b_forc nonzero", "response 0.1-50")
+    flow_ok = all(flow[k] for k in held)
+    fr = out["inp"]["frpg"][:-1]
+    launched = out["launched"]
+    ms_qg = secs["3b QG steps and filter events"] / steps * 1e3
+    full = all(lv.sw is None for lv in qconst.levels)
+    ok = (flow_ok and not qconst.rhs_kernel and full
+          and not any(launched.values()) and max(cycles) <= MG_MAX_CYCLES)
+    print(f"coupling path PG 64^2 x 30 -> QG {N_qg}^2 x 3 f32: stage seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+          + f"; QG {steps} steps and {steps // 5} filter events "
+          f"{ms_qg:.2f} ms/step with the events, dt "
+          f"{out['qdiag'].dt.item():.4e}, V-cycles a solve mean "
+          f"{np.mean(cycles):.3f} max {max(cycles)} over {len(cycles)} "
+          f"solves; rhs_kernel {qconst.rhs_kernel}, full-field levels "
+          f"{full}; QG-stage launches "
+          + ", ".join(f"{k} {v}" for k, v in launched.items())
+          + f" (K1, K3, K4 must be 0); workflow checks held "
+          + ", ".join(f"{k} {flow[k]}" for k in held)
+          + "; reported " + ", ".join(f"{k} {v}" for k, v in flow.items()
+                                      if k not in held)
+          + f" (frpg min {fr.min():.4e}, {int((fr <= 0).sum())} of "
+          f"{fr.size} values <= 0); response {ratio:.3f} of the integrated "
+          f"forcing, Rom "
+          f"{out['inp']['Rom']:.4f}, dh "
+          + ", ".join(f"{d:.4f}" for d in out["inp"]["dh"])
+          + f") {'ok' if ok else 'FAIL'}")
+    return ok
+
+
 def k7_checks(periodic, shapes):
     """K7 against its plain version, the cuBLAS chain, f64 and f32, at each
     (N, nl) of `shapes`, on the DST-II basis or (periodic) the Fourier
@@ -2190,7 +2700,7 @@ def main() -> int:
     from msom_tpu_torch import _build
     from msom_tpu_torch.models import fused_rhs, fused_tracer, qg
     from msom_tpu_torch.models.qg_node import NodeQGConfig
-    from msom_tpu_torch.params import QGConfig
+    from msom_tpu_torch.params import PGConfig, QGConfig
     from msom_tpu_torch.solvers import fused_mg, fused_spectral
 
     only = set(sys.argv[1:])
@@ -2458,6 +2968,32 @@ def main() -> int:
             return 12
         print(f"driver_node path done at "
               f"{time.perf_counter() - t_start:.0f} s")
+
+    # 13. mspg: card against CPU (build, 20 steps plain, GM, b_forc;
+    # run_pg with its files), then bench.py's 64^2 x 30 row and run_pg's
+    # output events
+    if wanted("mspg"):
+        if not (mspg_check(PGConfig, "plain", {})
+                and mspg_check(PGConfig, "gm", {"k_gm": PG_GM})
+                and mspg_check(PGConfig, "b_forc", {}, b_forc=True)
+                and run_pg_check(PGConfig)):
+            return 13
+        print(f"mspg checks done at {time.perf_counter() - t_start:.0f} s")
+        if not mspg_path(PGConfig):
+            return 13
+        print(f"mspg path done at {time.perf_counter() - t_start:.0f} s")
+
+    # 14. the PG <-> QG coupling loop: card against CPU stage by stage at
+    # the workflow's sizes, then README.md's workflow at full width
+    if wanted("coupling"):
+        if not coupling_check(PGConfig, QGConfig):
+            return 14
+        print(f"coupling check done at {time.perf_counter() - t_start:.0f} "
+              "s")
+        if not coupling_path(PGConfig, QGConfig):
+            return 14
+        print(f"coupling path done at {time.perf_counter() - t_start:.0f} "
+              "s")
 
     print(f"total {time.perf_counter() - t_start:.0f} s")
     print("kernels: " + json.dumps(sorted({r["name"] for r in rows})))

@@ -16,7 +16,11 @@ interior mask, partial-slip rings, the nodal spectral inversion or the
 masked vertex multigrid solvers/vmg.py); the msqg driver with its events
 (driver.py: run_qg, OutputWriter, the command line; the wavelet filter
 ops/wavelet.py, the energy budget models/qg_energy.py, the .bas and deck
-readers and the checkpoint in io/). Seven hand-written Hopper kernels:
+readers and the checkpoint in io/); the planetary-geostrophic model mspg
+(models/mspg.py, its barotropic solver mg.solve_bt, driver.run_pg and
+PGOutputWriter, `--model pg`); and the offline PG <-> QG coupling loop
+(coupling.py, analysis.py; msqg takes the 2-D Froude field frpg, whose
+tendency then runs as torch ops). Seven hand-written Hopper kernels:
 the fused tendency (models/fused_rhs.py, csrc/fused_rhs.cu), the fused
 tracer tendency (models/fused_tracer.py, csrc/fused_tracer.cu), the fused
 basis-matmul spectral solve (solvers/fused_spectral.py,
@@ -49,4 +53,13 @@ solvers/fused_vmg.py, csrc/vmg_sweep.cu: five sweeps a launch).
     nconst = qg_node.build_constants(ncfg)       # mask=, psi_pg=, topo=, ...
     nstate = qg_node.init_state(ncfg, nconst, seed=0)
     nstate, ndiag = qg_node.make_step(ncfg)(nstate, nconst, 1.0)
+
+    from msom_tpu_torch.models import mspg
+    from msom_tpu_torch.params import PGConfig
+    pcfg = PGConfig(N=64, nl=30, ys=0.3, r=0.02, tau_s=3e-2, tau0=0.12,
+                    kv=1e-4, kh=1e-4, omega=0.2, DT=1e-2, CFL=0.4)
+    pconst = mspg.build_constants(pcfg)          # the bt solve; b_forc=
+    pstate = mspg.init_state(pcfg, pconst)
+    pstate, pdiag = mspg.make_step(pcfg)(pstate, pconst, 1.0)
+    pstate = driver.run_pg(pcfg, const=pconst, state=pstate)
 """

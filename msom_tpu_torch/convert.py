@@ -21,6 +21,12 @@ or the (nl, N, N) owned nodes of the periodic grid, bc_fac = -1).
 The node model has no learned weights either: its constants come from the
 config and the numpy mask, psi_pg, topo, q_forcing_3d and N2 arrays given
 to `qg_node.build_constants`.
+
+`pg_state_from_numpy` and `pg_state_to_numpy` carry the mspg family's
+`PGState` (leaves b, ux, uy, t, dt_prev, i, b_me, ux_me, uy_me, nme), so a
+JAX mspg run resumes in the port and back. mspg has no learned weights:
+its constants come from the config and the numpy `b_forc` given to
+`mspg.build_constants`.
 """
 
 from __future__ import annotations
@@ -28,9 +34,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from msom_tpu_torch.models import qg_node
+from msom_tpu_torch.models import mspg, qg_node
 from msom_tpu_torch.models.qg import QGState, _torch_dtype
-from msom_tpu_torch.params import QGConfig
+from msom_tpu_torch.params import PGConfig, QGConfig
+
 
 def state_from_numpy(cfg: QGConfig, leaves, device="cuda") -> QGState:
     """The port's QGState on `device` from a mapping of numpy arrays with
@@ -121,3 +128,31 @@ def node_state_to_numpy(state: qg_node.NodeQGState) -> dict:
     names = ("q", "psi", "t", "dt_prev", "i", "nbar") \
         + (("psi_f",) if state.psi_f is not None else ())
     return {name: getattr(state, name).cpu().numpy() for name in names}
+
+
+PG_LEAVES = ("b", "ux", "uy", "t", "dt_prev", "i", "b_me", "ux_me", "uy_me",
+             "nme")
+
+
+def pg_state_from_numpy(cfg: PGConfig, leaves, device="cuda") -> mspg.PGState:
+    """The port's PGState on `device` from a mapping of numpy arrays with
+    the leaves of PG_LEAVES: b, b_me (nl, N, N); ux, ux_me (nl, N, N+1);
+    uy, uy_me (nl, N+1, N); the 0-d t, dt_prev, i and nme."""
+    dtype = _torch_dtype(cfg)
+    nl, N = cfg.nl, cfg.N
+    shapes = {"b": (nl, N, N), "ux": (nl, N, N + 1), "uy": (nl, N + 1, N)}
+    out = {}
+    for name in PG_LEAVES:
+        a = np.asarray(leaves[name])
+        want = shapes.get(name.removesuffix("_me"), ())
+        if a.shape != want:
+            raise ValueError(f"leaf {name!r} has shape {a.shape}, the "
+                             f"config needs {want}")
+        dt = torch.int32 if name in ("i", "nme") else dtype
+        out[name] = torch.tensor(a, dtype=dt, device=device)
+    return mspg.PGState(**out)
+
+
+def pg_state_to_numpy(state: mspg.PGState) -> dict:
+    """The leaves of a PGState as host numpy arrays."""
+    return {name: getattr(state, name).cpu().numpy() for name in PG_LEAVES}

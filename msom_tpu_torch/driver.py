@@ -1,19 +1,21 @@
-"""Run loop and events of the msqg model (the port of `msom_tpu.driver`'s
-msqg half), and its command line, the `./qg.e params.in` equivalent:
+"""Run loops and events of the msqg and mspg models (the port of
+`msom_tpu.driver`), and their command line, the `./qg.e params.in` and
+`./pg.e params.in` equivalent:
 
-    python -m msom_tpu_torch.driver --config params.in [--steps N]
-        [--deck DIR] [--outdir DIR] [--no-output] [--cpu]
+    python -m msom_tpu_torch.driver --config params.in [--model qg|pg]
+        [--steps N] [--deck DIR] [--outdir DIR] [--no-output] [--cpu]
 
 Basilisk's event system (run()/event blocks) becomes an explicit host loop
 around the step: output every dtout (and at t = 0), the wavelet filter
 every dtflt, and `dtnext` inside the step makes steps land exactly on the
 event times. The loop reads the model time and the KE back to the host
 once a step (for the events, the NaN guards and the log); everything else
-stays on the state's device.
+stays on the state's device. The mspg loop (`run_pg`) is the same with its
+own events: the running means every 10 steps, the state dump at t = 0 and
+every dtout (`PGOutputWriter`).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-queue-1 item): the mspg run (`--model pg`, item 13) and the sharded runs
-(`sharded=`, `--sharded`, item 15).
+Not ported yet (raises NotImplementedError naming its ROADMAP.md queue-1
+item): the sharded runs (`sharded=`, `--sharded`, item 15).
 """
 
 from __future__ import annotations
@@ -30,14 +32,15 @@ import numpy as np
 import torch
 
 from msom_tpu_torch.io.bas import write_bas
-from msom_tpu_torch.io.deck import load_qg_deck
-from msom_tpu_torch.models import qg, qg_energy
+from msom_tpu_torch.io.deck import load_pg_deck, load_qg_deck
+from msom_tpu_torch.models import mspg, qg, qg_energy
 from msom_tpu_torch.ops.wavelet import wavelet_filter_step
-from msom_tpu_torch.params import QGConfig, load_qg_config
+from msom_tpu_torch.params import (PGConfig, QGConfig, load_pg_config,
+                                   load_qg_config)
 
 
-SHARDED_UNPORTED = ("the sharded msqg run is not ported yet (ROADMAP.md "
-                    "queue 1, item 15)")
+SHARDED_UNPORTED = ("the sharded msqg and mspg runs are not ported yet "
+                    "(ROADMAP.md queue 1, item 15)")
 
 
 @dataclasses.dataclass
@@ -147,6 +150,70 @@ def run_qg(cfg: QGConfig, *, const=None, state=None, hooks: RunHooks = None,
     return state, energy
 
 
+def run_pg(cfg: PGConfig, *, const=None, state=None, hooks: RunHooks = None,
+           max_steps: int | None = None, sharded=False, device="cuda"):
+    """Integrate the mspg model to cfg.tend (the driver loop of
+    mspg/pg.c); returns the state. The running means are accumulated
+    every 10 steps (comp_output) and reset after each output event; the
+    output event (writestate, `hooks.on_output`) fires at t = 0 and every
+    dtout. Event times are compared within `_time_eps`. `const` and
+    `state` default to `mspg.build_constants(cfg, device=device)` and its
+    `init_state`; `hooks.on_log` gets (i, dt, t, 0.0) every step."""
+    if sharded:
+        raise NotImplementedError(SHARDED_UNPORTED)
+    hooks = hooks or RunHooks()
+    if const is None:
+        const = mspg.build_constants(cfg, device=device)
+    if state is None:
+        state = mspg.init_state(cfg, const)
+    step = mspg.make_step(cfg)
+    t = float(state.t)
+    eps = _time_eps(t, state.t.dtype)
+    next_out = _next_event(0.0, cfg.dtout, eps)
+    if hooks.on_output is not None:
+        hooks.on_output(state, t)   # writestate fires at t = 0 (pg.c:213)
+
+    while t < cfg.tend - eps:
+        tnext = min(next_out, cfg.tend)
+        state, diag = step(state, const, tnext)
+        t = float(state.t)
+        i = int(state.i)
+        eps = _time_eps(t, state.t.dtype)
+        if t != t:
+            raise FloatingPointError(
+                f"non-finite model time after step {i}: blow-up or NaN in "
+                "the state (check DT/CFL)")
+        if i % 10 == 0:
+            state = mspg.accumulate_means(state)
+        if hooks.on_log is not None:
+            hooks.on_log(i, float(diag.dt), t, 0.0)
+        if t >= next_out - eps:
+            if hooks.on_output is not None:
+                hooks.on_output(state, t)
+            state = dataclasses.replace(state,
+                                        nme=torch.zeros_like(state.nme))
+            next_out = _next_event(t, cfg.dtout, eps)
+        if max_steps is not None and i >= max_steps:
+            break
+    return state
+
+
+def create_outdir(outdir: str | None, prefix: str = "outdir") -> str:
+    """`outdir` (made if missing), or the first free `outdir_%04d/`
+    (create_outdir, msqg/qg.h:766-780, qg-node/extra.h:121-135)."""
+    if outdir is None:
+        for k in range(1, 10000):
+            cand = f"{prefix}_{k:04d}"
+            try:
+                os.makedirs(cand)
+                return cand
+            except FileExistsError:
+                continue
+        raise FileExistsError(f"{prefix}_0001 .. {prefix}_9999 all exist")
+    os.makedirs(outdir, exist_ok=True)
+    return outdir
+
+
 class OutputWriter:
     """Reference-compatible output: makes `outdir_%04d/` (the next free
     one, or `outdir`), backs up the config and the derived fields, and
@@ -155,20 +222,9 @@ class OutputWriter:
     qg.h:766-780, backup_config qg.h:782-835). One process."""
 
     def __init__(self, cfg: QGConfig, const, outdir=None, params_text=None):
-        if outdir is None:
-            for k in range(1, 10000):
-                cand = f"outdir_{k:04d}"
-                try:
-                    os.makedirs(cand)
-                    outdir = cand
-                    break
-                except FileExistsError:
-                    continue
-        else:
-            os.makedirs(outdir, exist_ok=True)
         self.cfg = cfg
         self.const = const
-        self.dir = outdir
+        self.dir = create_outdir(outdir)
         if params_text is not None:
             with open(f"{self.dir}/params.in", "w") as f:
                 f.write(params_text)
@@ -221,6 +277,40 @@ class OutputWriter:
             self._bas(f"{name}{i:09d}", getattr(energy, name) * s)
 
 
+class PGOutputWriter:
+    """mspg reference-compatible output (pg.c's events writeconst and
+    writestate): psibt.bas at t = 0, then the running means b%09d.bas and
+    u%09d.bas every dtout, with the two vertical ghost layers in the
+    blocks (the reference dumps the nl+2 lists, pg.c:213-228, vertbc
+    pg.h:374-387), so that the files round-trip through `load_pg_deck` and
+    the reference's own input_matrixl. One process."""
+
+    def __init__(self, cfg: PGConfig, const, outdir=None, params_text=None):
+        self.cfg = cfg
+        self.dir = create_outdir(outdir)
+        if params_text is not None:
+            with open(f"{self.dir}/params.in", "w") as f:
+                f.write(params_text)
+        write_bas(f"{self.dir}/psibt.bas", const.psibt.cpu().numpy(),
+                  cfg.L0, y0=cfg.ys)
+
+    def __call__(self, state, t):
+        i = int(state.i)
+        cfg = self.cfg
+        b = state.b_me.cpu().numpy()
+        ux = state.ux_me.cpu().numpy()
+        uy = state.uy_me.cpu().numpy()
+        bg = np.concatenate([b[:1], b, b[-1:]], axis=0)       # vertbc ghosts
+        write_bas(f"{self.dir}/b{i:09d}.bas", bg, cfg.L0, y0=cfg.ys)
+        # u_mel's (scalar *) flattening: [l.x, l.y] a sigma layer, ghosts
+        # included; each face at its cell (the trailing wall face dropped)
+        ux_c, uy_c = ux[:, :, :-1], uy[:, :-1, :]
+        uxg = np.concatenate([ux_c[:1], ux_c, ux_c[-1:]], axis=0)
+        uyg = np.concatenate([uy_c[:1], uy_c, uy_c[-1:]], axis=0)
+        inter = np.stack([uxg, uyg], axis=1).reshape(-1, cfg.N, cfg.N)
+        write_bas(f"{self.dir}/u{i:09d}.bas", inter, cfg.L0, y0=cfg.ys)
+
+
 def stdout_hooks(stream=None) -> RunHooks:
     """The KE heartbeat of msqg/qg.c:101-109. The stream is looked up when
     a line is written, so a later redirection of sys.stdout is followed."""
@@ -235,15 +325,15 @@ def main(argv=None) -> dict:
     the steps, the model time, the wall time and the grid points a second,
     and returns that dict."""
     p = argparse.ArgumentParser(
-        description="msom_tpu_torch msqg driver, the `./qg.e params.in` "
-                    "equivalent: deck-directory input files, outdir_%%04d "
-                    "output")
+        description="msom_tpu_torch msqg/mspg driver, the `./qg.e "
+                    "params.in` / `./pg.e params.in` equivalent: "
+                    "deck-directory input files, outdir_%%04d output")
     p.add_argument("--config", required=True, help="params.in path")
     p.add_argument("--model", choices=["qg", "pg"], default="qg")
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--deck", default=None,
                    help="deck directory with input files (p0.bas, psipg_*, "
-                        "...); defaults to the config's directory")
+                        "b0.bas, ...); defaults to the config's directory")
     p.add_argument("--outdir", default=None,
                    help="output directory (default: next free outdir_%%04d)")
     p.add_argument("--no-output", action="store_true",
@@ -253,9 +343,6 @@ def main(argv=None) -> dict:
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the CUDA card")
     args = p.parse_args(argv)
-    if args.model == "pg":
-        raise NotImplementedError(
-            "the mspg model is not ported yet (ROADMAP.md queue 1, item 13)")
     if args.sharded:
         raise NotImplementedError(SHARDED_UNPORTED)
     device = "cpu" if args.cpu else "cuda"
@@ -264,16 +351,27 @@ def main(argv=None) -> dict:
         params_text = f.read()
     deckdir = args.deck or os.path.dirname(os.path.abspath(args.config))
     t0 = time.time()
-    cfg = load_qg_config(params_text)
-    deck = load_qg_deck(cfg, deckdir, log=print)
-    const = qg.build_constants(cfg, device=device, **deck["const"])
-    state = qg.init_state(cfg, const, **deck["init"])
     hooks = stdout_hooks()
-    if not args.no_output:
-        hooks.on_output = OutputWriter(cfg, const, outdir=args.outdir,
-                                       params_text=params_text)
-    state, _ = run_qg(cfg, const=const, state=state, hooks=hooks,
-                      max_steps=args.steps)
+    if args.model == "pg":
+        cfg = load_pg_config(params_text)
+        deck = load_pg_deck(cfg, deckdir, log=print)
+        const = mspg.build_constants(cfg, device=device, **deck["const"])
+        state = mspg.init_state(cfg, const, **deck["init"])
+        if not args.no_output:
+            hooks.on_output = PGOutputWriter(cfg, const, outdir=args.outdir,
+                                             params_text=params_text)
+        state = run_pg(cfg, const=const, state=state, hooks=hooks,
+                       max_steps=args.steps)
+    else:
+        cfg = load_qg_config(params_text)
+        deck = load_qg_deck(cfg, deckdir, log=print)
+        const = qg.build_constants(cfg, device=device, **deck["const"])
+        state = qg.init_state(cfg, const, **deck["init"])
+        if not args.no_output:
+            hooks.on_output = OutputWriter(cfg, const, outdir=args.outdir,
+                                           params_text=params_text)
+        state, _ = run_qg(cfg, const=const, state=state, hooks=hooks,
+                          max_steps=args.steps)
     wall = time.time() - t0
     n_steps = int(state.i)
     result = {"steps": n_steps, "t": float(state.t), "wall_s": wall,

@@ -19,7 +19,7 @@ the model time to the host once a step; event times are compared within
 
 One process (the port has no multi-process run yet). Not ported yet (each
 raises NotImplementedError naming its ROADMAP.md queue-1 item): newqg
-(`--model newqg`, item 13), SQG (`--model sqg`, item 12f) and the sharded
+(`--model newqg`, item 13b), SQG (`--model sqg`, item 12f) and the sharded
 run (`sharded=`, `--sharded`, item 15).
 """
 
@@ -33,7 +33,7 @@ import shutil
 import torch
 
 from msom_tpu_torch.driver import (RunHooks, _next_event, _time_eps,
-                                   stdout_hooks)
+                                   create_outdir, stdout_hooks)
 from msom_tpu_torch.io.deck import load_node_deck
 from msom_tpu_torch.io.netcdf import NCWriter, read_nc
 from msom_tpu_torch.models import qg_node as node
@@ -41,27 +41,11 @@ from msom_tpu_torch.ops import vertex
 
 UNPORTED = {
     "newqg": "the newqg model is not ported yet (ROADMAP.md queue 1, "
-             "item 13)",
+             "item 13b)",
     "sqg": "the SQG model is not ported yet (ROADMAP.md queue 1, item 12f)",
     "sharded": "the sharded qg-node run is not ported yet (ROADMAP.md "
                "queue 1, item 15)",
 }
-
-
-def create_outdir(outdir: str | None, prefix: str = "outdir") -> str:
-    """`outdir` (made if missing), or the first free `outdir_%04d/`
-    (create_outdir, qg-node/extra.h:121-135)."""
-    if outdir is None:
-        for k in range(1, 10000):
-            cand = f"{prefix}_{k:04d}"
-            try:
-                os.makedirs(cand)
-                return cand
-            except FileExistsError:
-                continue
-        raise FileExistsError(f"{prefix}_0001 .. {prefix}_9999 all exist")
-    os.makedirs(outdir, exist_ok=True)
-    return outdir
 
 
 class NodeOutput:

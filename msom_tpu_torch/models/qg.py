@@ -20,15 +20,21 @@ the large-scale streamfunction keeps the reference's non-wrap ghost law and
 the topography its Neumann ghosts), the large-scale (PG) streamfunction
 coupling from `psipg` or `upg/vpg`, _LS_RV (flsrv = 1), bottom topography,
 the 3-D forcing `qforc`, ENERGY_CONSERV advection, passive tracers with an
-optional relaxation field, and stochastic forcing (Euler-Maruyama, noise
-from a `torch.Generator` that the caller gives `make_step`). The wavelet
+optional relaxation field, stochastic forcing (Euler-Maruyama, noise
+from a `torch.Generator` that the caller gives `make_step`), and the
+Froude-number field `frpg` of the PG coupling. A strl = (Fr/Ro)^2 that
+varies in x is no mode of the fused tendency (nor of the JAX package's
+kernel, pallas_rhs.strl_profile): such a configuration runs `rhs` as torch
+ops on either device, decided once at build (`QGConstants.rhs_kernel`),
+and its multigrid levels carry full fields (no K3 or K4). The wavelet
 filter's constants (the cutoff scale sig_filt from `rdpg` or the modal
 deformation radius, and the sig_lev pyramid) and its state leaves (the
 filter-mean PV flux `qof` and its count `nbar`) are built here; the filter
 event itself is `ops/wavelet.wavelet_filter_step`, fired by `driver.run_qg`.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-queue-1 item): varRo and 2-D frpg (item 10).
+queue-1 item): varRo, and solver="spectral" with a strl that varies in y
+only, which needs the y-profile direct solve (item 10).
 """
 
 from __future__ import annotations
@@ -58,9 +64,11 @@ from msom_tpu_torch.solvers import mg, spectral
 class QGConstants:
     """Time-independent fields derived at setup (set_const, reference
     msqg/qg.h:931-1116), on one device, under the JAX package's names.
-    strl, wind and Ro vary in y only here, so they are kept as contiguous
-    y-profiles with a unit x axis: they broadcast against (nl, N, N)
-    fields, and the fused RHS kernel reads them as they are. `pp`, `topo`
+    wind and Ro vary in y only here, and so does strl unless a frpg input
+    varies in x, so they are kept as contiguous y-profiles with a unit x
+    axis: they broadcast against (nl, N, N) fields, and the fused RHS
+    kernel reads them as they are. An x-varying strl is a full field, and
+    `rhs_kernel` is then False: the tendency runs as torch ops. `pp`, `topo`
     and `iro` are what the fused kernels read beside the padded fields: the
     contiguous interiors (the kernels apply the ghost rules themselves) and
     the y-profile 1/(Ro dh_bottom). In the periodic run, whose pp and
@@ -68,7 +76,7 @@ class QGConstants:
     pp_pad and zetap_pad with three zero columns on either side, so that
     its 16-byte copies of their rows stay aligned (the role of the JAX
     package's pre-tiled pp_t and zetap_t, pallas_rhs.py:234-243)."""
-    strl: torch.Tensor | None     # (nl-1, N, 1) stretching (Fr/Ro)^2
+    strl: torch.Tensor | None     # (nl-1, N, 1) or (nl-1, N, N) (Fr/Ro)^2
     wind: torch.Tensor            # (N, 1) surface forcing term for layer 0
     idh0: tuple                   # host floats (layer metrics)
     idh1: tuple
@@ -87,13 +95,16 @@ class QGConstants:
     iro: torch.Tensor | None = None         # (N, 1) 1/(Ro dh[nl-1]), topo
     s_stoch: torch.Tensor | None = None     # (nl, N, N) noise amplitude
     levels: tuple | None = None             # multigrid levels, solver="mg"
-    iBu: torch.Tensor | None = None         # (nl, N, 1) -1/Rd^2 per mode
-    l2m: torch.Tensor | None = None         # (nl, nl) layers -> modes
-    m2l: torch.Tensor | None = None         # (nl, nl) modes -> layers
+    iBu: torch.Tensor | None = None         # (nl, N, 1|N) -1/Rd^2 per mode
+    # layers -> modes and back: (nl, nl), or (N, nl, nl) a row, or
+    # (N, N, nl, nl) a column where strl varies in y, in x and y
+    l2m: torch.Tensor | None = None
+    m2l: torch.Tensor | None = None
     mlevels: tuple | None = None            # levels of the modal solves
     sig_lev: tuple | None = None            # (2^l, 2^l) high-pass weights
     sig_filt: torch.Tensor | None = None    # (N, N) min(afilt Rd, Lfmax)
     Rd: torch.Tensor | None = None          # (N, N) its deformation radius
+    rhs_kernel: bool = True                 # strl a y-profile: K1 runs
 
 
 @dataclasses.dataclass
@@ -116,11 +127,6 @@ class StepDiag(NamedTuple):
     mg_res: float                 # its final residual max-norm
 
 
-# input fields that build_constants accepts in the JAX package and the port
-# does not yet, with the ROADMAP.md queue-1 item that will bring each
-_UNPORTED_INPUTS = {"frpg": 10}
-
-
 def _torch_dtype(cfg: QGConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
@@ -131,16 +137,8 @@ def _bc_psi(cfg: QGConfig) -> BC:
     return BC.PERIODIC if cfg.sbc == -1 else BC.DIRICHLET
 
 
-def _check_slice(cfg: QGConfig, inputs: dict) -> None:
+def _check_slice(cfg: QGConfig) -> None:
     """Raise NotImplementedError for any configuration not ported yet."""
-    for name, value in inputs.items():
-        if name not in _UNPORTED_INPUTS:
-            raise TypeError(f"build_constants() got an unexpected keyword "
-                            f"argument {name!r}")
-        if value is not None:
-            raise NotImplementedError(
-                f"input field {name!r} is not ported yet (ROADMAP.md queue "
-                f"1, item {_UNPORTED_INPUTS[name]})")
     if cfg.sbc < 0 and cfg.sbc != -1:
         raise ValueError(f"sbc = {cfg.sbc}: -1 (doubly periodic) or >= 0 "
                          "(walls)")
@@ -152,7 +150,7 @@ def _check_slice(cfg: QGConfig, inputs: dict) -> None:
 def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
                     psipg=None, topo=None, qforc=None, dh=None,
                     ptr_relax=None, s_stoch=None, rdpg=None,
-                    **unported) -> QGConstants:
+                    frpg=None) -> QGConstants:
     """Derive the static model fields on `device`. The optional arrays
     override the defaults as the reference's input files do (psipg_*.bas
     etc., msqg/qg.h:950-985): `psipg` (nl, N, N) large-scale streamfunction
@@ -160,14 +158,16 @@ def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
     `dh` (nl,) layer thicknesses, `ptr_relax` (nl, nptr, N, N), `s_stoch`
     (nl, N, N) the stochastic noise amplitude (else 1), `rdpg` (N, N) the
     deformation radius that sets the filter scale (else 1; with
-    mode_pv_invert the first baroclinic mode's radius). `fused_mm`
+    mode_pv_invert the first baroclinic mode's radius), `frpg` (nl-1 or
+    more, N, N) the Froude numbers of the interfaces (else the config's
+    Fr; its first nl-1 blocks are read). `fused_mm`
     routes the inversion through the fused basis-matmul solve (the matmul
     transform; 128 <= N <= 1024, N % 128 == 0; the spectral solver only).
     With solver="mg" the multigrid levels are built here instead of the
     spectral data, and with mode_pv_invert the vertical modes and the
-    levels of the modal Helmholtz solves. The JAX package's frpg input
-    raises NotImplementedError when given."""
-    _check_slice(cfg, unported)
+    levels of the modal Helmholtz solves (one eigensolve a distinct
+    column: one, one a row of y, or one a cell)."""
+    _check_slice(cfg)
     if fused_mm and cfg.solver != "spectral":
         raise ValueError("fused_mm is an option of solver='spectral'")
     dtype = _torch_dtype(cfg)
@@ -214,14 +214,28 @@ def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
                 zetap_t = F.pad(zetap_pad, (3, 3)).contiguous()
 
     Ro = dev(np.full((N, 1), cfg.Rom))     # uniform: varRo is item 10
-    strl = s_prof = None
+    strl = s_np = None
+    rhs_kernel = True
     if nl > 1:
         # strl = (Fr/Ro)^2 at the nl-1 interfaces (msqg/qg.h:1043-1048)
-        s = torch.as_tensor((np.asarray(cfg.Fr[:nl - 1]) / cfg.Rom) ** 2,
-                            dtype=dtype)
-        strl = s[:, None, None].expand(nl - 1, N, 1).contiguous().to(device)
-        # the modal solve sees strl at the working precision, as in JAX
-        s_prof = s.double().numpy()
+        if frpg is not None:
+            Fr = np.asarray(frpg, np.float64)
+            if Fr.ndim != 3 or Fr.shape[0] < nl - 1 \
+                    or Fr.shape[1:] != (N, N):
+                raise ValueError(f"frpg has shape {Fr.shape}, the config "
+                                 f"needs {(nl - 1, N, N)} or more blocks")
+            Fr = Fr[:nl - 1]
+        else:
+            Fr = np.asarray(cfg.Fr[:nl - 1], np.float64)[:, None, None]
+        # at the working precision, as the JAX package's routing and modal
+        # solves read it
+        s_np = torch.as_tensor((Fr / cfg.Rom) ** 2, dtype=dtype) \
+            .double().numpy()
+        rhs_kernel = bool(np.array_equal(
+            s_np, np.broadcast_to(s_np[..., :1], s_np.shape)))
+        s_np = np.broadcast_to(s_np[..., :1] if rhs_kernel else s_np,
+                               (nl - 1, N, 1 if rhs_kernel else N))
+        strl = dev(np.array(s_np)).contiguous()
 
     # surface forcing (msqg/qg.h:446-459): dq0 -= wind; wind varies in y
     wind = dev(cfg.tau0 / (cfg.Rom * dh[0]) * np.sin(2 * np.pi * y / cfg.L0)
@@ -245,18 +259,36 @@ def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
                              f"config needs {shape}")
         return a.contiguous()
 
+    # vertical modes (MODE_PV_INVERT, msqg/qg.h:109-157): one eigensolve
+    # a distinct column, as the JAX package decides (qg.py:198-219): one
+    # for a uniform strl, one a row of y, or one a cell
+    vm = iBu_np = Rd_modal = None
+    if cfg.mode_pv_invert and nl > 1:
+        s3 = np.broadcast_to(s_np, (nl - 1, N, N))
+        if np.allclose(s3, s3[:, :1, :1]):
+            vm = eigmod(dh, s3[:, 0, 0])
+            iBu_np = vm.iBu[:, None, None] * np.ones((1, N, 1))
+            Rd_modal = float(vm.Rd[1]) * np.ones((N, N))
+        elif np.allclose(s3, s3[..., :1]):
+            vm = eigmod(dh, np.moveaxis(s3[..., 0], 0, -1))
+            iBu_np = np.moveaxis(vm.iBu, -1, 0)[..., None]
+            Rd_modal = np.repeat(vm.Rd[:, 1][:, None], N, axis=1)
+        else:
+            vm = eigmod(dh, np.moveaxis(s3, 0, -1))
+            iBu_np = np.moveaxis(vm.iBu, -1, 0)
+            Rd_modal = vm.Rd[..., 1]
+
     # the wavelet filter's scale sig_filt = min(afilt Rd, Lfmax) and, with
     # the filter on, its per-level high-pass weights (msqg/qg.h:1052-1090):
     # Rd is 1, or the rdpg input, or with mode_pv_invert the first
-    # baroclinic radius (strl is uniform here, so one eigensolve; JAX
-    # qg.py:202-209, 226-237, which builds the weights for every config)
-    vm = eigmod(dh, s_prof) if cfg.mode_pv_invert and nl > 1 else None
+    # baroclinic radius (JAX qg.py:226-237, which builds the weights for
+    # every config)
     Rd = np.ones((N, N)) if rdpg is None else np.asarray(rdpg, np.float64)
     if Rd.shape != (N, N):
         raise ValueError(f"rdpg has shape {Rd.shape}, the config needs "
                          f"{(N, N)}")
-    if vm is not None:
-        Rd = float(vm.Rd[1]) * np.ones((N, N))
+    if Rd_modal is not None:
+        Rd = Rd_modal
     sig_filt = np.minimum(cfg.afilt * Rd, cfg.Lfmax)
     sig_lev = None
     if cfg.dtflt > 0:
@@ -268,15 +300,24 @@ def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
 
     spec = levels = iBu = l2m = m2l = mlevels = None
     if cfg.solver == "spectral":
+        if s_np is not None and not np.all(s_np == s_np[:, :1, :1]):
+            if rhs_kernel and cfg.sbc != -1:
+                raise NotImplementedError(
+                    "solver='spectral' with a stretching that varies in y "
+                    "only needs the y-profile direct solve (solvers/vary.py"
+                    "), not ported yet (ROADMAP.md queue 1, item 10)")
+            raise ValueError(
+                "solver='spectral' requires stretching uniform or varying "
+                "in y only, walled BCs (x-varying frpg or periodic varRo: "
+                "use solver='mg')")
         spec = spectral.build_spectral(
-            nl=nl, N=N, L0=cfg.L0, dh=dh, s_profile=s_prof,
+            nl=nl, N=N, L0=cfg.L0, dh=dh,
+            s_profile=None if s_np is None else s_np[:, 0, 0],
             periodic=cfg.sbc == -1,
             dtype=dtype, transform="matmul" if fused_mm else cfg.transform,
             fused_mm=fused_mm, device=device)
     elif vm is not None:
-        # vertical modes (MODE_PV_INVERT, msqg/qg.h:109-157): strl is
-        # uniform here, so one eigensolve serves every column
-        iBu = dev(vm.iBu)[:, None, None].expand(nl, N, 1).contiguous()
+        iBu = dev(iBu_np).contiguous()
         l2m, m2l = dev(vm.l2m), dev(vm.m2l)
         mlevels = tuple(mg.build_layered_coeffs(
             nl=nl, N=N, L0=cfg.L0, s=None, lam=iBu, dtype=dtype))
@@ -294,7 +335,7 @@ def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
         umax_pp=umax_pp, pp=pp, pp_t=pp_t, zetap_t=zetap_t, topo=topo_in,
         iro=iro, levels=levels,
         iBu=iBu, l2m=l2m, m2l=m2l, mlevels=mlevels, sig_lev=sig_lev,
-        sig_filt=dev(sig_filt), Rd=dev(Rd))
+        sig_filt=dev(sig_filt), Rd=dev(Rd), rhs_kernel=rhs_kernel)
 
 
 def _periodic_pp_pad(cfg: QGConfig, pp: np.ndarray, upg: np.ndarray,
@@ -338,12 +379,13 @@ def invert_q(cfg: QGConfig, const: QGConstants,
         return (spectral.solve_spectral(const.spec, q),
                 mg.MGStats(iters=0, resb=0.0, resa=0.0, nrelax=0))
     if const.mlevels is not None:
-        qm = torch.einsum("ml,lyx->myx", const.l2m, q)
-        pm_guess = torch.einsum("ml,lyx->myx", const.l2m, psi_guess)
+        cols = {2: "", 3: "y", 4: "yx"}[const.l2m.ndim]
+        qm = torch.einsum(f"{cols}ml,lyx->myx", const.l2m, q)
+        pm_guess = torch.einsum(f"{cols}ml,lyx->myx", const.l2m, psi_guess)
         pm, st = mg.solve_layered(pm_guess, qm, L0=cfg.L0, s=None,
                                   lam=const.iBu, bc=_bc_psi(cfg),
                                   tolerance=cfg.tol, levels=const.mlevels)
-        return torch.einsum("lm,myx->lyx", const.m2l, pm), st
+        return torch.einsum(f"{cols}lm,myx->lyx", const.m2l, pm), st
     return mg.solve_layered(psi_guess, q, L0=cfg.L0, s=const.strl,
                             idh0=const.idh0, idh1=const.idh1,
                             bc=_bc_psi(cfg), tolerance=cfg.tol,
@@ -580,11 +622,15 @@ def update(cfg: QGConfig, const: QGConstants, q: torch.Tensor,
            prev, dtmax0: float):
     """One RHS evaluation: PV inversion + fused tendency and CFL maxima +
     the fused tracer tendency + the CFL tail; returns (dq, dtr, psi, prev,
-    dtm, MGStats). Routes on q's device alone (fused_rhs.rhs_fused,
-    fused_tracer.tracer_fused, the multigrid's fused_mg kernels)."""
+    dtm, MGStats). Routes on q's device (fused_rhs.rhs_fused,
+    fused_tracer.tracer_fused, the multigrid's fused_mg kernels), and on
+    const.rhs_kernel: a strl that varies in x runs the tendency's plain
+    version as torch ops, on the card too."""
     psi, st = invert_q(cfg, const, psi_guess, q)
     need_q = cfg.energy_conserv or cfg.stochastic
-    dq, umax = fused_rhs.rhs_fused(cfg, const, psi, q if need_q else None)
+    rhs_fn = fused_rhs.rhs_fused if const.rhs_kernel \
+        else fused_rhs.rhs_fused_reference
+    dq, umax = rhs_fn(cfg, const, psi, q if need_q else None)
     dtr = None
     if tracers is not None:
         dtr = fused_tracer.tracer_fused(cfg, const, psi, tracers)

@@ -12,7 +12,8 @@ outputs:
   de_ft  the wavelet filter's energy flux (summed at filter events)
 The cross term jc = J(psi, psi_pg) cancels between j2 and j3 as in the
 reference's split (qg_energy.h:19-26, 70-71). Torch ops on either device,
-on the port's ghost views; strl is the (nl-1, N, 1) y-profile.
+on the port's ghost views; strl is the (nl-1, N, 1) y-profile or, with a
+frpg that varies in x, the (nl-1, N, N) field: both broadcast.
 """
 
 from __future__ import annotations

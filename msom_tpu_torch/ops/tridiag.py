@@ -4,9 +4,9 @@
 The vertical dimension is small and static, so the elimination is unrolled
 over layers and every step is an elementwise op over all (ny, nx) cells at
 once. The coefficients may be full (nl, ny, nx) fields or anything that
-broadcasts against them, e.g. (nl, ny, 1) y-profiles. `thomas_scan` (the
-long perimeter systems of mspg's circulation BC) is not ported yet:
-ROADMAP.md queue 1, item 13.
+broadcasts against them, e.g. (nl, ny, 1) y-profiles. `thomas_scan` is the
+same elimination along a long axis 0 as a loop (mspg's 4N-point perimeter
+system of the circulation BC, whose inverse it forms once at set-up).
 """
 
 from __future__ import annotations
@@ -20,6 +20,28 @@ def thomas(t0: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor,
     all inputs (nl, ...)."""
     cp, im = factor(t0, t1, t2)
     return solve_factored(cp, im, t0, rhs)
+
+
+def thomas_scan(t0: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor,
+                rhs: torch.Tensor) -> torch.Tensor:
+    """The Thomas solve of `thomas` along a long axis 0 (the JAX package's
+    lax.scan form): a forward sweep for (cp, dp), then back substitution.
+    The coefficients are (n,) or broadcast against rhs (n, ...)."""
+    cp = dp = torch.zeros_like(rhs[0])
+    cps, dps = [], []
+    for a, b, c, d in zip(t0, t1, t2, rhs):
+        m = b - a * cp
+        cp = c / m
+        dp = (d - a * dp) / m
+        cps.append(cp)
+        dps.append(dp)
+    x = torch.zeros_like(rhs[0])
+    xs = []
+    for cp, dp in zip(reversed(cps), reversed(dps)):
+        x = dp - cp * x
+        xs.append(x)
+    xs.reverse()
+    return torch.stack(xs)
 
 
 def factor(t0: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor):

@@ -1,11 +1,11 @@
-"""Typed msqg run configuration and the params.in parser.
+"""Typed msqg and mspg run configurations and the params.in parsers.
 
-The port's own copy of `msom_tpu.params.QGConfig`, `_parse_kv` and
-`load_qg_config`: the same fields, defaults, derived properties and
-validation, so that a deck (e.g. `msom_tpu/configs/double_gyre_small.in`)
-parses to the same configuration in both packages. Derived values (inverse
-Reynolds numbers, the viscous-CFL clamp on DT) mirror the reference's
-msqg/qg.h:739-754.
+The port's own copy of `msom_tpu.params.QGConfig`, `PGConfig`, `_parse_kv`,
+`load_qg_config` and `load_pg_config`: the same fields, defaults, derived
+properties and validation, so that a deck (e.g.
+`msom_tpu/configs/double_gyre_small.in`) parses to the same configuration
+in both packages. Derived values (inverse Reynolds numbers, the viscous-CFL
+clamp on DT) mirror the reference's msqg/qg.h:739-754.
 
 Two fields are JAX-runtime knobs that the port reads differently:
 `use_pallas` is ignored (the port's fused RHS runs on every CUDA tensor and
@@ -168,3 +168,48 @@ def load_qg_config(path_or_text: str, **overrides) -> QGConfig:
     kw = {key: val for key, val in kv.items() if key in _QG_KEYS}
     kw.update(overrides)
     return QGConfig(**kw).validate()
+
+
+@dataclasses.dataclass(frozen=True)
+class PGConfig:
+    """mspg configuration (defaults match the reference's mspg/pg.h:16-57;
+    the parser's keys are pg.c:60-76's: the reference's own deck keys `kd`,
+    `a` and `nu` are not read by its parser and are ignored here too, nu
+    keeping its compiled-in default 3e-4)."""
+
+    N: int = 64
+    nl: int = 1
+    L0: float = 1.0
+    ys: float = 0.0          # southern latitude (origin shift, pg.c:97)
+    r: float = 0.1           # linear friction
+    kv: float = 0.0          # vertical diffusivity coefficient
+    kh: float = 0.0          # horizontal diffusivity coefficient
+    nu: float = 3e-4         # momentum viscosity (global, not parsed)
+    tau_s: float = 1e-2      # surface buoyancy relaxation time
+    tau0: float = 0.12       # wind amplitude
+    k_gm: float = 0.0        # Gent-McWilliams coefficient
+    N2min: float = 1e-10
+    cmin: float = 2.0
+    omega: float = 0.3       # pseudo-SOR relaxation factor
+    DT: float = 1e10
+    CFL: float = 0.5
+    tend: float = 1.0
+    dtout: float = 1.0
+    tol: float = 1e-3
+    dtype: str = "float32"
+
+    @property
+    def delta(self) -> float:
+        return self.L0 / self.N
+
+
+_PG_KEYS = {f.name for f in dataclasses.fields(PGConfig)} - {"nu"}
+
+
+def load_pg_config(path_or_text: str, **overrides) -> PGConfig:
+    """Read a reference mspg params.in (grammar of mspg/pg.c:60-76) into a
+    PGConfig."""
+    kv = _parse_kv(path_or_text)
+    kw = {key: val for key, val in kv.items() if key in _PG_KEYS}
+    kw.update(overrides)
+    return PGConfig(**kw)

@@ -1,11 +1,14 @@
-"""Geometric multigrid for the elliptic inversions (the port of the layered
-half of `msom_tpu.solvers.mg`).
+"""Geometric multigrid for the elliptic inversions (the port of
+`msom_tpu.solvers.mg`).
 
 * layered Helmholtz  L(a) = lap(a) + Gamma(a) + lam*a = b  per column with
   Neumann vertical BCs: the msqg PV inversion (msqg/poisson_layer.h; a
   tridiagonal coupling in the vertical);
 * scalar Poisson/Helmholtz (nl = 1; the modal-inversion path, Basilisk
-  poisson.h semantics).
+  poisson.h semantics);
+* mspg's barotropic vorticity solver `solve_bt` (mspg/pg.h:207-349,
+  elliptic.h): face coefficients, a first-order beta term and pseudo-SOR
+  red-black point relaxation, as torch ops on either device.
 
 The cycle is Basilisk's `mg_cycle`/`mg_solve` (mspg/elliptic.h:43-220): the
 fine residual is restricted to every level (4-cell average), the correction
@@ -28,9 +31,6 @@ ops.
 The cycle loop depends on the data, so it is a Python loop: the residual
 norm comes to the host once a cycle (and once for the initial residual),
 and `MGStats` holds host numbers.
-
-Not ported yet: the mspg barotropic solver `solve_bt` with its face
-coefficients and pseudo-SOR relaxation (ROADMAP.md queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from msom_tpu_torch.ops import tridiag
 from msom_tpu_torch.ops.bc import BC, pad
 from msom_tpu_torch.ops.ghost import ghosted
+from msom_tpu_torch.ops.stencil import shift
 from msom_tpu_torch.solvers import fused_mg
 
 NITERMAX = 100
@@ -296,3 +297,135 @@ def solve_poisson(a0: torch.Tensor, b: torch.Tensor, *, L0: float,
                           lam=None if lam is None else lam[None],
                           bc=bc, tolerance=tolerance, **kw)
     return a[0], st
+
+
+# ---------------------------------------------------------------------------
+# mspg barotropic vorticity solver (pseudo-SOR, first-order beta term)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _BtLevel:
+    delta: float
+    ax: torch.Tensor   # (ny, nx+1) face alpha x
+    ay: torch.Tensor   # (ny+1, nx) face alpha y
+    bx: torch.Tensor   # (ny, nx) cell beta.x
+    by: torch.Tensor   # (ny, nx) cell beta.y
+    red: torch.Tensor  # bool (ny, nx) checkerboard
+
+
+def restrict_face_x(ax: torch.Tensor) -> torch.Tensor:
+    """Coarse x-face = mean of the two fine x-faces it contains."""
+    return 0.5 * (ax[..., ::2, ::2] + ax[..., 1::2, ::2])
+
+
+def restrict_face_y(ay: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (ay[..., ::2, ::2] + ay[..., ::2, 1::2])
+
+
+def _bt_levels(depth, L0, ax, ay, bx, by, minlevel=1):
+    """The bt solver's levels, finest first, on the coefficients' device."""
+    levels = []
+    for lev in range(depth, minlevel - 1, -1):
+        n = 2 ** lev
+        levels.append(_BtLevel(delta=L0 / n, ax=ax, ay=ay, bx=bx, by=by,
+                               red=fused_mg.checkerboard(n, n, ax.device)))
+        ax, ay = restrict_face_x(ax), restrict_face_y(ay)
+        bx, by = restrict_cell(bx), restrict_cell(by)
+    return levels
+
+
+def _bt_apply(a, lvl: _BtLevel, bc: BC, pad_fn=None):
+    """The -L(a) part of residual_bt (mspg/pg.h:218-257, the non-TREE
+    branch): what is added to b in the residual. `pad_fn` overrides the
+    ghost fill: the hook for mspg's circulation BC, which the reference
+    applies by rewriting ghosts after each cycle (elliptic.h:97) and which
+    here enters the converged solution through the residual."""
+    P = pad_fn(a) if pad_fn is not None else pad(a, bc)
+    aC = shift(P, 0, 0)
+    aE, aW = shift(P, 0, 1), shift(P, 0, -1)
+    aN, aS = shift(P, 1, 0), shift(P, -1, 0)
+    d = lvl.delta
+    axl, axr = lvl.ax[..., :, :-1], lvl.ax[..., :, 1:]
+    ayb, ayt = lvl.ay[..., :-1, :], lvl.ay[..., 1:, :]
+    out = ((axr + axl) * aC - axr * aE - axl * aW) / (d * d)
+    out = out + ((ayt + ayb) * aC - ayt * aN - ayb * aS) / (d * d)
+    # f.x = -1: res += -beta.y*0.5*(aE-aW)/d; f.y = +1: res +=
+    # beta.x*0.5*(aN-aS)/d
+    out = out + -lvl.by * 0.5 * (aE - aW) / d
+    out = out + lvl.bx * 0.5 * (aN - aS) / d
+    return out
+
+
+def _bt_relax(da, res, lvl: _BtLevel, nrelax: int, omega: float, bc: BC):
+    """nrelax sweeps of pseudo-SOR red-black point relaxation
+    (mspg/pg.h:260-318): c = (1 - omega) c + omega n/d."""
+    d = lvl.delta
+    axl, axr = lvl.ax[..., :, :-1], lvl.ax[..., :, 1:]
+    ayb, ayt = lvl.ay[..., :-1, :], lvl.ay[..., 1:, :]
+    den = axr + axl + ayt + ayb
+
+    def one_color(da, mask):
+        P = pad(da, bc)
+        aE, aW = shift(P, 0, 1), shift(P, 0, -1)
+        aN, aS = shift(P, 1, 0), shift(P, -1, 0)
+        n = -d * d * res + axr * aE + axl * aW + ayt * aN + ayb * aS
+        n = n - -lvl.by * 0.5 * (aE - aW) * d   # f.x = -1, sign per relax_bt
+        n = n - lvl.bx * 0.5 * (aN - aS) * d    # f.y = +1
+        new = (1.0 - omega) * shift(P, 0, 0) + omega * n / den
+        return torch.where(mask, new, da)
+
+    for _ in range(nrelax):
+        da = one_color(da, lvl.red)
+        da = one_color(da, ~lvl.red)
+    return da
+
+
+def solve_bt(a0: torch.Tensor, b: torch.Tensor, *, L0: float,
+             alpha_x: torch.Tensor, alpha_y: torch.Tensor,
+             beta_x: torch.Tensor, beta_y: torch.Tensor,
+             omega: float = 0.3, bc: BC = BC.DIRICHLET,
+             tolerance: float = 1e-3, nrelax0: int = 4, minlevel: int = 1,
+             nitermax: int = NITERMAX, pad_fn=None):
+    """mspg's barotropic streamfunction solver (btsolver, mspg/pg.h:320-
+    349): div(alpha grad a) + beta terms = b with pseudo-SOR relaxation,
+    warm-started from a0 (N, N). The cycle is solve_layered's: at least one
+    cycle, the max-norm residual read on the host once a cycle, nrelax
+    adapted in [2, 100]. `pad_fn` fills the fine residual's ghosts (mspg's
+    circulation BC). Returns (a, MGStats)."""
+    N = a0.shape[-1]
+    depth = int(round(np.log2(N)))
+    levels = _bt_levels(depth, L0, alpha_x, alpha_y, beta_x, beta_y,
+                        minlevel)
+    nlev = len(levels)
+
+    def residual(a):
+        res = b + _bt_apply(a, levels[0], bc, pad_fn)
+        return res, torch.max(torch.abs(res))
+
+    def cycle(a, res, nrelax):
+        pyr = [res]
+        for _ in range(nlev - 1):
+            pyr.append(restrict_cell(pyr[-1]))
+        da = torch.zeros_like(pyr[-1])
+        for k in range(nlev - 1, -1, -1):
+            if k < nlev - 1:
+                da = prolong_bilinear(da, bc)
+            da = _bt_relax(da, pyr[k], levels[k], nrelax, omega, bc)
+        return a + da
+
+    a = a0
+    res, maxres = residual(a)
+    resb = resa = maxres.item()          # the residual norm, on the host
+    nrelax, iters = nrelax0, 0
+    while iters < nitermax and (iters < 1 or resa > tolerance):
+        a = cycle(a, res, nrelax)
+        res, maxres = residual(a)
+        resa_new = maxres.item()         # one device-to-host read a cycle
+        ratio = resa / max(resa_new, 1e-300)
+        if resa_new > tolerance and ratio < 1.2 and nrelax < 100:
+            nrelax += 1
+        if resa_new > tolerance and ratio > 10.0 and nrelax > 2:
+            nrelax -= 1
+        resa = resa_new
+        iters += 1
+    return a, MGStats(iters=iters, resb=resb, resa=resa, nrelax=nrelax)

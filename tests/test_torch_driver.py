@@ -303,7 +303,7 @@ def test_cli_matches_jax_main(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("args,match", [
-    (["--model", "pg"], "item 13"),
+    (["--model", "pg", "--sharded"], "item 15"),
     (["--sharded"], "item 15"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, args, match):
@@ -352,8 +352,8 @@ def test_write_bas_writes_jax_bytes(tmp_path, shape):
 
 
 def test_load_qg_deck_matches_jax(tmp_path):
-    """Every input file of an msqg deck, read by both; a deck with frpg
-    reaches build_constants, which refuses it (item 10)."""
+    """Every input file of an msqg deck, read by both; the constants built
+    from it, frpg included, are the JAX package's."""
     d = str(tmp_path)
     nl, N, nptr = 2, 16, 2
     with open(os.path.join(d, "params.in"), "w") as f:
@@ -383,10 +383,13 @@ def test_load_qg_deck_matches_jax(tmp_path):
         for key in got[part]:
             np.testing.assert_array_equal(got[part][key], want[part][key])
             assert got[part][key].dtype == want[part][key].dtype, key
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tqg.build_constants(tload(cfgpath), device="cpu", **got["const"])
-    del got["const"]["frpg"]
-    tqg.build_constants(tload(cfgpath), device="cpu", **got["const"])
+    tc = tqg.build_constants(tload(cfgpath), device="cpu", **got["const"])
+    jc = jqg.build_constants(jload(cfgpath), **want["const"])
+    assert not tc.rhs_kernel
+    for name in ("strl", "Rd", "qforc", "s_stoch"):
+        np.testing.assert_array_equal(
+            getattr(tc, name).expand(np.shape(getattr(jc, name))).numpy(),
+            np.asarray(getattr(jc, name)))
 
 
 def test_checkpoint_round_trips_the_filter_mean(tmp_path):

@@ -305,8 +305,8 @@ def test_chip_smoke_fails_without_a_card():
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
-    from msom_tpu_torch import convert, driver, driver_node
-    from msom_tpu_torch.models import qg, qg_energy, qg_node
+    from msom_tpu_torch import convert, coupling, driver, driver_node
+    from msom_tpu_torch.models import mspg, qg, qg_energy, qg_node
     from msom_tpu_torch.ops import vertex
     from msom_tpu_torch.solvers import mg, spectral, vmg
     for fn in (qg.build_constants, spectral.build_spectral,
@@ -314,7 +314,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
                spectral.build_spectral_node, convert.node_state_from_numpy,
                mg.build_layered_coeffs, vmg.build_vlevels,
                vertex.default_mask, driver.run_qg, qg_energy.init_energy,
-               qg_node.build_constants_periodic, driver_node.run_node):
+               qg_node.build_constants_periodic, driver_node.run_node,
+               mspg.build_constants, driver.run_pg,
+               convert.pg_state_from_numpy, coupling.pg_to_qg_inputs):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     # the node command line hands run_node the card unless --cpu is given
     seen = []

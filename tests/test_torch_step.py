@@ -224,8 +224,11 @@ def test_configs_outside_the_slice_raise(override, match):
 
 @pytest.mark.parametrize("name", ["frpg"])
 def test_input_fields_outside_the_slice_raise(name):
+    """An input field of the wrong shape raises ValueError naming it (frpg
+    is ported: a field needs nl-1 or more (N, N) blocks); a field that
+    build_constants does not know raises TypeError."""
     _, tcfg = verron(16)
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(ValueError, match=name):
         tqg.build_constants(tcfg, device="cpu", **{name: np.zeros(1)})
     with pytest.raises(TypeError):
         tqg.build_constants(tcfg, device="cpu", not_a_field=None)
