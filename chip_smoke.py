@@ -6,7 +6,7 @@
 Needs one CUDA card, nvcc and the repository checkout; imports nothing of
 JAX or msom_tpu. With no argument every phase runs; with phase names
 (kernels, steps, paths, fused_mm, mg, node, periodic, stochastic, driver,
-driver_node, mspg, coupling)
+driver_node, mspg, coupling, varro, newqg, sqg)
 the build and those phases only (for work on one part: the kernels' record
 then lists what ran). Phases, in order; any failure exits non-zero:
 
@@ -164,6 +164,33 @@ then lists what ran). Phases, in order; any failure exits non-zero:
    with and without it: each stage's seconds, the QG stage's ms/step and
    V-cycles, and K1, K3 and K4 at 0 launches in the QG stage (a 2-D frpg
    is no mode of theirs, in either package).
+15. varRo and the y-profile direct solve (phase name varro): the
+   block-Thomas y-sweeps (KV) against their plain version in f64 and f32
+   at N = 64, 100 (a partial block), 256 and 2048 with nl = 2, 3, 4; one
+   vary solve on the card against the CPU (128^2 x 3 f64); the step on
+   the card against the CPU, 128^2 x 3 f64, 20 steps: varRo spectral (KV
+   twice a step), varRo mg (the same V-cycles, K3/K4) and a frpg varying
+   in y only with spectral; then tools/vary_bench.py's configuration at
+   2048^2 x 4 f32 with solver="spectral" (the fold, KV, K1) and "mg" (K1,
+   K3, K4): 20 warm-up steps, five rounds of 20 steps timed with CUDA
+   events (median and range), the kernels' launches, device busy and
+   idle share (a four-step profile); on the spectral path KV and K1 alone
+   on the final state against their plain versions and bounds, and the
+   f32 solve against the f64 solve of the same q.
+16. newqg (phase name newqg): the step on the card against the CPU,
+   128^2 f64, 20 steps, nl = 1 and nl = 2 with gp_low, each with mg and
+   spectral, walled and periodic (the same V-cycles; K3/K4 on the walled
+   mg); run_newqg on the card against the CPU with its vars.nc records;
+   then the newqg reference deck (tests/test_newqg_io.py:24-37) at
+   2048^2 x 1 f32, nu and DT scaled by 64/N: mg (K3, K4) and spectral,
+   the same protocol, K3 and K4 alone on the mg path's final state.
+17. the SQG variant (phase name sqg): the step on the card against the
+   CPU, 128^2 x 3 f64, 20 steps (the same V-cycles; K6 on the card, K5
+   never: SQG's rhs_pv is torch ops); run_sqg on the card against the
+   CPU with output and a restart; then bench's measure_node physics at
+   2048^2 x 4 f32 (N2 at the surface and three interfaces, the default
+   mask, numpy psi and bs): 40 spin-up steps, the same protocol, K6's
+   launches and V-cycles a solve, bs2, K6 alone on the final state.
 
 TF32 is switched off for matmuls and convolutions before anything runs:
 1-pass reduced-precision transforms give O(1) solution error at N = 2048.
@@ -195,7 +222,8 @@ MG_SWEEPS = 4
 MG_SOLVE_LIMIT = 1e-10                    # CUDA solve vs CPU solve, f64
 MG_MAX_CYCLES = 20      # a solve that needs more at tol 1e-3 is spinning
 PHASES = ("kernels", "steps", "paths", "fused_mm", "mg", "node", "periodic",
-          "stochastic", "driver", "driver_node", "mspg", "coupling")
+          "stochastic", "driver", "driver_node", "mspg", "coupling", "varro",
+          "newqg", "sqg")
 K1_OPTIONS = ("pg", "pg_flsrv", "topo", "qforc", "energy_conserv", "slip",
               "all")
 # the periodic kernel's option sets (no slip: the domain has no wall), and
@@ -1345,11 +1373,12 @@ def k2_checks(QGConfig, periodic, sizes=KERNEL_SIZES):
     return ok, err
 
 
-def step_check(QGConfig, label, cfg, coupled=False):
+def step_check(QGConfig, label, cfg, coupled=False, fields=None):
     """The step on the card against the port on the CPU, f64, 20 steps from
     one numpy IC (coupled: bench's fields, a weak 3-D forcing, numpy
     tracers; a periodic cfg takes its pp from upg/vpg, not psipg; a
-    stochastic cfg draws from a generator seeded alike on each side).
+    stochastic cfg draws from a generator seeded alike on each side;
+    `fields`: input fields given to build_constants, such as frpg).
     Returns False if they differ beyond STEP_LIMIT, or with solver="mg"
     the V-cycles differ or the kernels did not run."""
     import torch
@@ -1357,7 +1386,7 @@ def step_check(QGConfig, label, cfg, coupled=False):
     from msom_tpu_torch.solvers import fused_mg
     rng = np.random.default_rng(42)
     psi0 = 1e-3 * rng.uniform(-1, 1, (cfg.nl, cfg.N, cfg.N))
-    fields, tr0 = {}, None
+    fields, tr0 = dict(fields or {}), None
     if coupled:
         fields = coupled_fields(cfg)
         if cfg.sbc == -1:
@@ -1440,7 +1469,7 @@ def _path_run(label, cfg, const, state, step, warm, steps, want):
 
 
 def _kernel_row(label, name, kernel, plain, bound_work, launches, source,
-                replaces, mode, limit=LIMITS[4]):
+                replaces, mode, limit=LIMITS[4], n_plain=10):
     """Hold one kernel against its plain version on the path's final state
     (f32, `limit` of max|out|; `kernel` and `plain` return the tendency or
     the correction), time both and print them beside the bound; returns
@@ -1451,7 +1480,7 @@ def _kernel_row(label, name, kernel, plain, bound_work, launches, source,
     abs_err = (out_k - out_r).abs().max().item()
     rel = abs_err / out_r.abs().max().item()
     del out_k, out_r
-    k_ms, p_ms = kernel_times(kernel, plain)
+    k_ms, p_ms = kernel_times(kernel, plain, n_plain=n_plain)
     nbytes, nops = bound_work
     bound, by, t_b, t_o = roofline(nbytes, nops, 4)
     good = rel <= limit
@@ -2183,13 +2212,26 @@ def _rel(got, want):
 
 
 def kernel_counts():
-    """The launch counters of the seven kernels' wrappers."""
+    """The launch counters of the eight kernels' wrappers."""
     from msom_tpu_torch.models import fused_node_rhs, fused_rhs, fused_tracer
-    from msom_tpu_torch.solvers import fused_mg, fused_spectral, fused_vmg
+    from msom_tpu_torch.solvers import (fused_mg, fused_spectral, fused_vary,
+                                        fused_vmg)
     return {"K1": fused_rhs.launches, "K2": fused_tracer.launches,
             "K3": fused_mg.sweep_launches, "K4": fused_mg.residual_launches,
             "K5": fused_node_rhs.launches, "K6": fused_vmg.launches,
-            "K7": fused_spectral.launches}
+            "K7": fused_spectral.launches, "KV": fused_vary.launches}
+
+
+def reset_counts():
+    """Set every wrapper's launch counter to 0."""
+    from msom_tpu_torch.models import fused_node_rhs, fused_rhs, fused_tracer
+    from msom_tpu_torch.solvers import (fused_mg, fused_spectral, fused_vary,
+                                        fused_vmg)
+    for mod in (fused_rhs, fused_tracer, fused_node_rhs, fused_vmg,
+                fused_spectral, fused_vary):
+        mod.launches = 0
+    fused_mg.sweep_launches = fused_mg.residual_launches = 0
+    fused_mg.sweep_launches_by_n.clear()
 
 
 def mspg_check(PGConfig, label, over, b_forc=False):
@@ -2287,7 +2329,7 @@ def mspg_path(PGConfig):
     steps (device busy, idle share, launches a step), the host's time to
     queue a step; then driver.run_pg with a PGOutputWriter into a
     temporary directory (dtout = 0.05, tend = 0.2: five output events),
-    each output event's seconds. mspg runs none of the seven kernels.
+    each output event's seconds. mspg runs none of the kernels.
     Returns False if a check failed."""
     import os
     import shutil
@@ -2635,6 +2677,659 @@ def coupling_path(PGConfig, QGConfig):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# varRo and the y-profile direct solve (phase name varro), newqg (newqg)
+# and the SQG variant (sqg): KV against its plain version, the steps and
+# drivers on the card against the CPU, and the three paths at full width
+# ---------------------------------------------------------------------------
+
+# KV's check sizes: partial blocks (N = 100), the paths' width; nl 2-4
+KV_SIZES = [(N, nl) for N in (64, 100, 256, 2048) for nl in (2, 3, 4)]
+KV_LIMITS = {4: 1e-5, 8: 1e-11}          # KV vs plain, of max|psi|
+# the f32 vary solve against the f64 solve of the same q at 2048^2 x 4, of
+# max|psi|: f32 rounding through the folded transform and 4096 dependent
+# rows (about 1e-5 on the CPU at N = 512); a wrong factor or row gives O(1)
+VARY_F32_LIMIT = 1e-3
+ROUNDS, ROUND_STEPS = 5, 20              # ROADMAP item 5's protocol
+# the newqg reference deck (tests/test_newqg_io.py:24-37, N = 64)
+NEWQG_DECK = dict(L0=100.0, tau0=1e-3, nu=5.0, beta=0.5, dh=(1.0,), sbc=0.0,
+                  DT=5e-2, CFL=0.2, TOLERANCE=1e-5, tend=1e18, dtout=1e18)
+
+
+def newqg_deck(N, **kw):
+    """The newqg deck at N: nu scaled by 64/N as bench's node row scales it
+    (bench.py:178-185), and DT with it, which keeps the deck's viscous
+    number nu DT / Delta^2 (newqg has no viscous clamp: at 2048 with the
+    deck's DT = 5e-2 the run is unstable; on one H100 it read 100 V-cycles
+    a solve and ke 3.2e3 after 140 steps)."""
+    deck = dict(NEWQG_DECK, N=N, nu=5.0 * 64 / N, DT=5e-2 * 64 / N)
+    deck.update(kw)
+    return deck
+NEWQG_NL2 = dict(nl=2, gp_low=2.0, dh=(0.5, 0.5), hEkb=1e-2, f0=2.0)
+
+
+def timed_rounds(one_step, rounds=ROUNDS, steps=ROUND_STEPS):
+    """`rounds` rounds of `steps` calls of one_step(), each timed with CUDA
+    events: (median ms a call, each round's ms)."""
+    ms = [cuda_ms(one_step, steps) for _ in range(rounds)]
+    return float(np.median(ms)), ms
+
+
+def rounds_line(ms, med, busy):
+    return (f"{med:.4f} ms/step, the median of {len(ms)} rounds of "
+            f"{ROUND_STEPS} steps (range {min(ms):.4f}-{max(ms):.4f}: "
+            + ", ".join(f"{m:.4f}" for m in ms) + f"), device busy "
+            f"{busy:.4f} ms/step, idle share {1 - busy / med:.4f}")
+
+
+def kv_checks():
+    """KV against its plain version on the card, f64 and f32, at each
+    (N, nl) of KV_SIZES, with block inverses W drawn so that the chain is
+    stable (|a W| row sums 1/2, as the real factors' are at most); returns
+    (ok, max abs error at 2048 x 4 f32)."""
+    import torch
+    from msom_tpu_torch.solvers import fused_vary
+    ok, main_err = True, None
+    for dtype in ("float64", "float32"):
+        tdt = getattr(torch, dtype)
+        lim = KV_LIMITS[8 if dtype == "float64" else 4]
+        for N, nl in KV_SIZES:
+            rng = np.random.default_rng(N + nl)
+            a = (N / 80.0) ** 2
+            W = torch.as_tensor(rng.uniform(-0.5, 0.5, (nl, nl, N, N))
+                                / (a * nl), dtype=tdt).cuda()
+            X = torch.as_tensor(rng.standard_normal((nl, N, N)),
+                                dtype=tdt).cuda()
+            n0 = fused_vary.launches
+            k = fused_vary.sweep(W, X, a)
+            n1 = fused_vary.launches
+            p = fused_vary.sweep_reference(W, X, a)
+            torch.cuda.synchronize()
+            err = (k - p).abs().max().item()
+            rel = err / p.abs().max().item()
+            good = (rel <= lim and n1 - n0 == 1 and k.shape == X.shape
+                    and bool(torch.isfinite(k).all()))
+            ok &= good
+            print(f"KV check {dtype} N={N} nl={nl}: max|d psi|/max|psi| = "
+                  f"{rel:.3e} (limit {lim:g}), launches {n1 - n0} "
+                  f"{'ok' if good else 'FAIL'}")
+            if dtype == "float32" and (N, nl) == (2048, 4):
+                main_err = err
+            del W, X, k, p
+        torch.cuda.empty_cache()
+    return ok, main_err
+
+
+def vary_s_prof(cfg):
+    """The varRo strl y-profile (nl-1, N) of a config, as build_constants
+    forms it (msqg/qg.h:1032-1048)."""
+    y = (np.arange(cfg.N) + 0.5) * cfg.delta
+    Ro = cfg.Rom / (1.0 + cfg.Rom * cfg.beta * (y - 0.5 * cfg.L0))
+    return (np.asarray(cfg.Fr[:cfg.nl - 1])[:, None] / Ro[None, :]) ** 2
+
+
+def vary_solve_check(QGConfig):
+    """One y-profile direct solve on the card against the CPU, f64,
+    128^2 x 3 (the Verron physics with varRo): psi within STEP_LIMIT, one
+    KV launch on the card, none on the CPU."""
+    import torch
+    from msom_tpu_torch.ops.stretch import layer_metrics
+    from msom_tpu_torch.solvers import fused_vary, vary
+    cfg = verron(QGConfig, 128, varRo=1)
+    _, idh0, idh1 = layer_metrics(np.asarray(cfg.dh[:cfg.nl]))
+    q = np.random.default_rng(5).standard_normal((cfg.nl, cfg.N, cfg.N))
+    out, launched = {}, {}
+    for where in ("cpu", "cuda"):
+        data = vary.build_spectral_vary(
+            nl=cfg.nl, N=cfg.N, L0=cfg.L0, s_prof=vary_s_prof(cfg),
+            idh0=idh0, idh1=idh1, dtype=torch.float64, device=where)
+        n0 = fused_vary.launches
+        out[where] = vary.solve_spectral_vary(
+            data, torch.as_tensor(q).to(where)).cpu()
+        launched[where] = fused_vary.launches - n0
+    rel = _rel(out["cuda"], out["cpu"])
+    good = rel <= STEP_LIMIT and launched == {"cpu": 0, "cuda": 1}
+    print(f"vary solve check 128^2 x 3 f64 cuda vs cpu: rel psi = {rel:.3e} "
+          f"(limit {STEP_LIMIT:g}), KV launches {launched} "
+          f"{'ok' if good else 'FAIL'}")
+    return good
+
+
+def varro_checks(QGConfig):
+    """The varRo step and an x-constant frpg on the card against the CPU,
+    f64, 128^2 x 3, 20 steps (step_check): spectral (KV twice a step on
+    the card), mg (the same V-cycles every step, K3/K4 on the card), and
+    a frpg varying in y only with spectral."""
+    from msom_tpu_torch.solvers import fused_vary
+    y = (np.arange(128) + 0.5) / 128
+    frpg = np.stack([0.0023669 * (1 + 0.4 * y), 0.0076173 * (1 - 0.3 * y)])
+    frpg = np.broadcast_to(frpg[:, :, None], (2, 128, 128)).copy()
+    ok = True
+    for label, cfg, fields in (
+            ("varRo spectral", verron(QGConfig, 128, varRo=1), None),
+            ("varRo mg", verron(QGConfig, 128, varRo=1, solver="mg"), None),
+            ("frpg (y only) spectral", verron(QGConfig, 128),
+             dict(frpg=frpg))):
+        n0 = fused_vary.launches
+        good = step_check(QGConfig, label, cfg, fields=fields)
+        n_kv = fused_vary.launches - n0
+        want = 40 if cfg.solver == "spectral" else 0
+        print(f"  {label}: KV launches {n_kv} (expected {want})")
+        ok &= good and n_kv == want
+    return ok
+
+
+def varro_path(QGConfig, rows, kv_err):
+    """tools/vary_bench.py's configuration (bench's 4-layer Verron variant
+    with varRo, tol 1e-3) at 2048^2 x 4 f32: solver="spectral" (the fold,
+    KV, K1) and solver="mg" (K1, K3, K4), 20 warm-up steps, then
+    timed_rounds with the kernels' launches counted; on the spectral path
+    KV and K1 alone on the final state against their plain versions and
+    bounds, and the f32 solve against the f64 solve of the same q; a
+    four-step profile of each. Appends the records to `rows`."""
+    import torch
+    from msom_tpu_torch.models import fused_rhs, qg
+    from msom_tpu_torch.solvers import ctdst, fused_mg, fused_vary, vary
+    N, nl, warm = 2048, 4, 20
+    shape = (nl, N, N)
+    for solver in ("spectral", "mg"):
+        label = f"varro {solver}"
+        cfg = bench_config(QGConfig, N, nl, "float32", solver=solver,
+                           varRo=1, tol=1e-3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        const = qg.build_constants(cfg, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        psi0 = 1e-3 * np.random.default_rng(0).uniform(-1, 1, shape)
+        state = qg.init_state(cfg, const, psi0=psi0)
+        step = qg.make_step(cfg)
+        spec = const.spec
+        print(f"{label} path set-up: {build_s:.2f} s"
+              + (" (the host's f64 block-Thomas factors and their copy to "
+                 "the card)" if spec is not None else "")
+              + f", Ro {const.Ro.min().item():.4f}-"
+              f"{const.Ro.max().item():.4f}, inversion "
+              f"{type(spec).__name__ if spec is not None else 'multigrid'}"
+              + (f" with the fold {spec.fac is not None}"
+                 if spec is not None else
+                 f", profiles on every level "
+                 f"{all(lv.sw is not None for lv in const.levels)}"))
+        for _ in range(warm):
+            state, diag = step(state, const, 1e18)
+        torch.cuda.synchronize()
+        box, cycles = [state, diag], []
+
+        def one_step():
+            n0 = fused_mg.residual_launches
+            box[0], box[1] = step(box[0], const, 1e18)
+            if solver == "mg":
+                # a solve launches K4 once for its first residual and once
+                # a cycle
+                both = fused_mg.residual_launches - n0 - 2
+                cycles.extend([box[1].mg_iters, both - box[1].mg_iters])
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        med, ms = timed_rounds(one_step)
+        launched = kernel_counts()
+        state, diag = box
+        steps = ROUNDS * ROUND_STEPS
+        finite = state_ok(state, diag, shape)
+        prof = kernel_profile(label, one_step, 4, med)
+        busy = sum(r[0] for r in prof)
+        want = {"K1": 2 * steps,
+                "KV": 2 * steps if solver == "spectral" else 0}
+        ok = (finite and all(launched[k] == v for k, v in want.items())
+              and all(launched[k] == 0 for k in ("K2", "K5", "K6", "K7"))
+              and ((launched["K3"] > 0 and launched["K4"] > 0)
+                   == (solver == "mg")))
+        extra = ""
+        if solver == "mg":
+            ok &= min(cycles) >= 1 and max(cycles) <= MG_MAX_CYCLES
+            extra = (f", V-cycles a solve mean {np.mean(cycles):.4f} max "
+                     f"{max(cycles)} min {min(cycles)}")
+        print(f"{label} path {N}^2 x {nl} f32 after {warm} warm-up steps: "
+              + rounds_line(ms, med, busy) + ", kernel launches "
+              + ", ".join(f"{k} {v}" for k, v in launched.items())
+              + f" over {steps} steps{extra}, ke {diag.ke.item():.6e}, dt "
+              f"{diag.dt.item():.6e}, t {state.t.item():.6e}, finite "
+              f"{finite}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            return False
+        psi, q = state.psi.contiguous(), state.q.contiguous()
+        if solver == "spectral":
+            X = (ctdst.fdst_x(spec.fac, q) if spec.fac is not None
+                 else torch.matmul(q, spec.S.T)).contiguous()
+            row = _kernel_row(
+                label, "vary_sweep",
+                lambda: fused_vary.sweep(spec.W, X, spec.a),
+                lambda: fused_vary.sweep_reference(spec.W, X, spec.a),
+                fused_vary.bound_work(nl, N, N, 4), launched["KV"],
+                fused_vary.SOURCE, "msom_tpu/solvers/vary.py:270",
+                "block-Thomas y-sweeps, forward and backward",
+                limit=KV_LIMITS[4], n_plain=2)
+            if row is None:
+                return False
+            row["max_abs_err"] = max(row["max_abs_err"], kv_err)
+            rows.append(row)
+            row = _kernel_row(
+                label, "fused_rhs", lambda: fused_rhs.rhs_fused(cfg, const,
+                                                                psi)[0],
+                lambda: fused_rhs.rhs_fused_reference(cfg, const, psi)[0],
+                fused_rhs.bound_work(cfg, const, 4), launched["K1"],
+                fused_rhs.SOURCE, "msom_tpu/models/pallas_rhs.py:441",
+                "varRo: y-profile strl")
+            if row is None:
+                return False
+            rows.append(row)
+            # the f32 solve against the f64 solve of the same q
+            t0 = time.perf_counter()
+            spec64 = vary.build_spectral_vary(
+                nl=nl, N=N, L0=cfg.L0, s_prof=const.strl[..., 0].double()
+                .cpu().numpy(), idh0=const.idh0, idh1=const.idh1,
+                dtype=torch.float64, device="cuda")
+            psi64 = vary.solve_spectral_vary(spec64, q.double())
+            psi32 = vary.solve_spectral_vary(spec, q)
+            rel = _rel(psi32, psi64)
+            good = rel <= VARY_F32_LIMIT
+            print(f"{label}: the f32 solve against the f64 solve of the final "
+                  f"q: max|d psi|/max|psi| = {rel:.3e} (limit "
+                  f"{VARY_F32_LIMIT:g}; the f64 build and solve "
+                  f"{time.perf_counter() - t0:.2f} s) "
+                  f"{'ok' if good else 'FAIL'}")
+            if not good:
+                return False
+            del spec64, psi64, psi32, X
+        del const, state, psi, q, box
+        torch.cuda.empty_cache()
+    return True
+
+
+def newqg_step_check(NewQGConfig, label, cfg):
+    """The newqg step on the card against the CPU, f64, 20 steps from one
+    numpy psi: q and psi within STEP_LIMIT, the same V-cycles every step;
+    K3/K4 on the card iff the multigrid runs with walls."""
+    import torch
+    from msom_tpu_torch.models import newqg
+    from msom_tpu_torch.solvers import fused_mg
+    rng = np.random.default_rng(11)
+    psi0 = 1e-2 * rng.uniform(-1, 1, (cfg.nl, cfg.N, cfg.N))
+    states, cycles, launched = {}, {}, {}
+    for where in ("cpu", "cuda"):
+        _, lam = newqg.build_levels(cfg, where)
+        state = newqg.init_state(cfg, lam, psi0=psi0, device=where)
+        step = newqg.make_step(cfg, device=where)
+        before = fused_mg.sweep_launches, fused_mg.residual_launches
+        cycles[where] = []
+        for _ in range(20):
+            state, diag = step(state, 1e9)
+            cycles[where].append(diag.mg_iters)
+        states[where] = state
+        launched[where] = (fused_mg.sweep_launches - before[0],
+                           fused_mg.residual_launches - before[1])
+    rels = {n: _rel(getattr(states["cuda"], n), getattr(states["cpu"], n))
+            for n in ("q", "psi")}
+    kernels = cfg.solver == "mg" and cfg.sbc != -1
+    good = (all(r <= STEP_LIMIT for r in rels.values())
+            and cycles["cuda"] == cycles["cpu"] and launched["cpu"] == (0, 0)
+            and (min(launched["cuda"]) > 0) == kernels
+            and (max(launched["cuda"]) == 0) == (not kernels)
+            and (min(cycles["cuda"]) >= 1) == (cfg.solver == "mg"))
+    print(f"newqg step check {label} {cfg.N}^2 x {cfg.nl} f64, 20 steps cuda "
+          f"vs cpu: "
+          + ", ".join(f"rel {k} = {v:.3e}" for k, v in rels.items())
+          + f" (limit {STEP_LIMIT:g}), V-cycles of the first solve cuda "
+          f"{cycles['cuda']} cpu {cycles['cpu']}, K3/K4 launches "
+          f"{launched['cuda']} {'ok' if good else 'FAIL'}")
+    return good
+
+
+def newqg_checks(NewQGConfig):
+    """newqg_step_check for nl = 1 and nl = 2 with gp_low, each with mg
+    and spectral, walled and periodic (no wind: the pulse's mean has no
+    periodic solution), with the reference deck at 128^2 (newqg_deck,
+    TOLERANCE 1e-8)."""
+    ok = True
+    for nl_kw in ({}, NEWQG_NL2):
+        for solver in ("mg", "spectral"):
+            for per in (False, True):
+                kw = newqg_deck(128, TOLERANCE=1e-8, dtype="float64",
+                                solver=solver, **nl_kw)
+                if per:
+                    kw.update(sbc=-1.0, tau0=0.0)
+                cfg = NewQGConfig(**kw)
+                label = (f"nl={cfg.nl} {solver} "
+                         f"{'periodic' if per else 'walled'}")
+                ok &= newqg_step_check(NewQGConfig, label, cfg)
+    return ok
+
+
+def _nc_agree(tmp, names):
+    """(max record difference over max|value| of the CPU's file, the same
+    record times) between the cpu/ and cuda/ vars.nc under `tmp`."""
+    import os
+    from msom_tpu_torch.io.netcdf import read_nc
+    nc = {w: read_nc(os.path.join(tmp, w, "vars.nc"), names, None)
+          for w in ("cpu", "cuda")}
+    rel = max(np.abs(nc["cuda"][0][n] - nc["cpu"][0][n]).max()
+              / np.abs(nc["cpu"][0][n]).max() for n in names)
+    return rel, np.array_equal(nc["cuda"][1], nc["cpu"][1]), nc["cpu"][1]
+
+
+def run_newqg_check(NewQGConfig):
+    """driver_node.run_newqg on the card against the CPU, f64, 128^2 x 2
+    with gp_low (mg), from one numpy psi to tend = 0.5 with dtout = 0.25:
+    the final q and psi within STEP_LIMIT, the three vars.nc records within
+    float32 rounding at the same times."""
+    import tempfile
+    from msom_tpu_torch import driver_node
+    from msom_tpu_torch.models import newqg
+    cfg = NewQGConfig(**newqg_deck(128, TOLERANCE=1e-8, dtype="float64",
+                                   tend=0.5, dtout=0.25, **NEWQG_NL2))
+    psi0 = 1e-2 * np.random.default_rng(12).uniform(-1, 1, (2, 128, 128))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for where in ("cpu", "cuda"):
+            _, lam = newqg.build_levels(cfg, where)
+            state = newqg.init_state(cfg, lam, psi0=psi0, device=where)
+            out[where], _ = driver_node.run_newqg(
+                cfg, lam=lam, state=state, restart=None,
+                outdir=f"{tmp}/{where}")
+        nc_rel, same_t, times = _nc_agree(tmp, ["psi", "q"])
+    rels = {n: _rel(getattr(out["cuda"], n), getattr(out["cpu"], n))
+            for n in ("q", "psi")}
+    good = (all(r <= STEP_LIMIT for r in rels.values())
+            and nc_rel <= 2.0 ** -23 and same_t and len(times) == 3
+            and int(out["cuda"].i) == int(out["cpu"].i))
+    print(f"run_newqg check 128^2 x 2 f64, {int(out['cpu'].i)} steps, "
+          f"records at t {list(times)}, cuda vs cpu: "
+          + ", ".join(f"rel {k} = {v:.3e}" for k, v in rels.items())
+          + f"; vars.nc {nc_rel:.3e} of max (limit 2^-23) "
+          f"{'ok' if good else 'FAIL'}")
+    return good
+
+
+def newqg_path(NewQGConfig, rows):
+    """The newqg reference deck (tests/test_newqg_io.py:24-37) at
+    2048^2 x 1 f32, nu and DT scaled by 64/N (newqg_deck), from a numpy
+    noise psi: solver="mg" (K3, K4) and
+    "spectral" (the fold, no kernel), 20 warm-up steps, timed_rounds with
+    the launches and the V-cycles a solve counted, K3 and K4 alone on the
+    mg path's final state (K4 with b = 0), a four-step profile of each. Appends the
+    records to `rows`."""
+    import torch
+    from msom_tpu_torch.models import newqg
+    from msom_tpu_torch.solvers import fused_mg
+    N, nl, warm = 2048, 1, 20
+    for solver in ("mg", "spectral"):
+        label = f"newqg {solver}"
+        cfg = NewQGConfig(**newqg_deck(N, dtype="float32", solver=solver))
+        levels, lam = newqg.build_levels(cfg, "cuda")
+        psi0 = 1e-3 * np.random.default_rng(0).uniform(-1, 1, (nl, N, N))
+        state = newqg.init_state(cfg, lam, psi0=psi0, device="cuda")
+        step = newqg.make_step(cfg, device="cuda")
+        for _ in range(warm):
+            state, diag = step(state, 1e18)
+        torch.cuda.synchronize()
+        box, cycles = [state, diag], []
+
+        def one_step():
+            n0 = fused_mg.residual_launches
+            box[0], box[1] = step(box[0], 1e18)
+            if solver == "mg":
+                both = fused_mg.residual_launches - n0 - 2
+                cycles.extend([box[1].mg_iters, both - box[1].mg_iters])
+
+        reset_counts()
+        med, ms = timed_rounds(one_step)
+        launched = kernel_counts()
+        state, diag = box
+        prof = kernel_profile(label, one_step, 4, med)
+        busy = sum(r[0] for r in prof)
+        finite = (bool(torch.isfinite(state.q).all())
+                  and bool(torch.isfinite(state.psi).all())
+                  and np.isfinite(diag.ke.item()) and diag.dt.item() > 0)
+        mg = solver == "mg"
+        ok = (finite and all(v == 0 for k, v in launched.items()
+                             if k not in ("K3", "K4"))
+              and (launched["K3"] > 0 and launched["K4"] > 0) == mg
+              and (launched["K3"] == launched["K4"] == 0) == (not mg))
+        extra = ""
+        if mg:
+            ok &= min(cycles) >= 1 and max(cycles) <= MG_MAX_CYCLES
+            extra = (f", V-cycles a solve mean {np.mean(cycles):.4f} max "
+                     f"{max(cycles)} min {min(cycles)}")
+        print(f"{label} path {N}^2 x {nl} f32 after {warm} warm-up steps: "
+              + rounds_line(ms, med, busy) + ", kernel launches "
+              + ", ".join(f"{k} {v}" for k, v in launched.items())
+              + f" over {ROUNDS * ROUND_STEPS} steps{extra}, ke "
+              f"{diag.ke.item():.6e}, dt {diag.dt.item():.6e}, t "
+              f"{state.t.item():.6e}, finite {finite} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            return False
+        if mg:
+            lvl = levels[0]
+            sign = dict(sign_x=-1.0, sign_y=-1.0)
+            rkw = dict(delta=lvl.delta, idh0=np.zeros(1), idh1=np.zeros(1),
+                       **sign)
+            skw = dict(d2=lvl.delta * lvl.delta, **sign)
+            psi, q = state.psi.contiguous(), state.q.contiguous()
+            res, _ = fused_mg.residual_norm(psi, q, lvl.rp, **rkw)
+            da = fused_mg.rb_line_sweep(torch.zeros_like(res), res, lvl.sw,
+                                        **skw)
+            # K4 alone against b = 0: the residual of the converged state is
+            # a cancellation, whose rounding is not the kernel's error
+            q = torch.zeros_like(psi)
+            for name, kern, plain, work, n, src, line in (
+                    ("mg_sweep",
+                     lambda: fused_mg.rb_line_sweep(da, res, lvl.sw, **skw),
+                     lambda: fused_mg.rb_line_sweep_reference(da, res,
+                                                              lvl.sw, **skw),
+                     fused_mg.sweep_bound_work(nl, N, 4), launched["K3"],
+                     fused_mg.SWEEP_SOURCE, 179),
+                    ("mg_residual",
+                     lambda: fused_mg.residual_norm(psi, q, lvl.rp, **rkw)[0],
+                     lambda: fused_mg.residual_norm_reference(
+                         psi, q, lvl.rp, **rkw)[0],
+                     fused_mg.residual_bound_work(nl, N, 4, False,
+                                                  lvl.rp.lam is not None),
+                     launched["K4"], fused_mg.RESIDUAL_SOURCE, 247)):
+                row = _kernel_row(label, name, kern, plain, work, n, src,
+                                  f"msom_tpu/solvers/pallas_mg.py:{line}",
+                                  "nl = 1, Dirichlet", limit=MG_LIMITS[4])
+                if row is None:
+                    return False
+                rows.append(row)
+        del state, box, levels, lam
+        torch.cuda.empty_cache()
+    return True
+
+
+def sqg_config(NodeQGConfig, N, nl, dtype, **kw):
+    """bench's measure_node physics (bench.py:178-185) for the SQG variant:
+    N2 at the surface and the nl-1 interfaces, no filter."""
+    return node_config(NodeQGConfig, N, nl, dtype, N2=(1.0,) * nl,
+                       dtflt=-1.0, **kw)
+
+
+def sqg_ic(cfg, seed=0):
+    """(psi0, bs0): node_noise_ic's psi, and noise_init uniform noise for
+    bs, zero on the walls."""
+    psi0 = node_noise_ic(cfg, seed)
+    M = cfg.N + 1
+    bs0 = cfg.noise_init * np.random.default_rng(seed + 1).uniform(
+        -1, 1, (M, M))
+    bs0[0] = bs0[-1] = bs0[:, 0] = bs0[:, -1] = 0.0
+    return psi0, bs0
+
+
+def sqg_step_check(NodeQGConfig):
+    """The SQG step on the card against the CPU, f64, 128^2 x 3, 20 steps
+    from one numpy psi and bs (TOLERANCE 1e-8): q, bs and psi within
+    STEP_LIMIT, the same V-cycles every step; K6 on the card only, K5
+    never (SQG's rhs_pv is torch ops in both packages)."""
+    from msom_tpu_torch.models import fused_node_rhs, sqg
+    from msom_tpu_torch.solvers import fused_vmg
+    cfg = sqg_config(NodeQGConfig, 128, 3, "float64", TOLERANCE=1e-8)
+    psi0, bs0 = sqg_ic(cfg, 42)
+    states, cycles, launched = {}, {}, {}
+    for where in ("cpu", "cuda"):
+        const = sqg.build_constants(cfg, device=where)
+        state = sqg.init_state(cfg, const, psi0=psi0, bs0=bs0)
+        step = sqg.make_step(cfg)
+        before = fused_vmg.launches, fused_node_rhs.launches
+        cycles[where] = []
+        for _ in range(20):
+            state, diag = step(state, const, 1e9)
+            cycles[where].append(diag.mg_iters)
+        states[where] = state
+        launched[where] = (fused_vmg.launches - before[0],
+                           fused_node_rhs.launches - before[1])
+    rels = {n: _rel(getattr(states["cuda"], n), getattr(states["cpu"], n))
+            for n in ("q", "bs", "psi")}
+    good = (all(r <= STEP_LIMIT for r in rels.values())
+            and cycles["cuda"] == cycles["cpu"] and min(cycles["cuda"]) >= 1
+            and launched["cpu"] == (0, 0) and launched["cuda"][0] > 0
+            and launched["cuda"][1] == 0)
+    print(f"sqg step check 128^2 x 3 f64, 20 steps cuda vs cpu: "
+          + ", ".join(f"rel {k} = {v:.3e}" for k, v in rels.items())
+          + f" (limit {STEP_LIMIT:g}), V-cycles of the first solve cuda "
+          f"{cycles['cuda']} cpu {cycles['cpu']}, K6/K5 launches "
+          f"{launched['cuda']} {'ok' if good else 'FAIL'}")
+    return good
+
+
+def run_sqg_check(NodeQGConfig):
+    """driver_node.run_sqg on the card against the CPU, f64, 128^2 x 3,
+    from one numpy psi and bs to tend = 0.25 with dtout = 0.125, then
+    both from the CPU run's vars.nc as restart.nc to tend = 0.375: the
+    final q, bs and psi within STEP_LIMIT, every vars.nc record (psi, q,
+    bs) within float32 rounding at the same times."""
+    import os
+    import shutil
+    import tempfile
+    from msom_tpu_torch import driver_node
+    from msom_tpu_torch.models import sqg
+    cfg = sqg_config(NodeQGConfig, 128, 3, "float64", TOLERANCE=1e-8,
+                     dtout=0.125, tend=0.25)
+    cfg2 = dataclasses.replace(cfg, tend=0.375)
+    psi0, bs0 = sqg_ic(cfg, 43)
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        for leg, c in (("run", cfg), ("restart", cfg2)):
+            out = {}
+            rp = os.path.join(tmp, "restart.nc")
+            for where in ("cpu", "cuda"):
+                const = sqg.build_constants(c, device=where)
+                state = None if leg == "restart" else sqg.init_state(
+                    c, const, psi0=psi0, bs0=bs0)
+                out[where], _ = driver_node.run_sqg(
+                    c, const=const, state=state,
+                    restart=rp if leg == "restart" else None,
+                    outdir=os.path.join(tmp, leg, where))
+            nc_rel, same_t, times = _nc_agree(os.path.join(tmp, leg),
+                                              ["psi", "q", "bs"])
+            if leg == "run":
+                shutil.copy(os.path.join(tmp, leg, "cpu", "vars.nc"), rp)
+            rels = {n: _rel(getattr(out["cuda"], n), getattr(out["cpu"], n))
+                    for n in ("q", "bs", "psi")}
+            good = (all(r <= STEP_LIMIT for r in rels.values())
+                    and nc_rel <= 2.0 ** -23 and same_t and len(times) >= 2
+                    and abs(out["cuda"].t.item() - c.tend) < 1e-12)
+            ok &= good
+            print(f"run_sqg check ({leg}) 128^2 x 3 f64, to t "
+                  f"{out['cuda'].t.item():.4f}, records at t {list(times)}, "
+                  f"cuda vs cpu: "
+                  + ", ".join(f"rel {k} = {v:.3e}" for k, v in rels.items())
+                  + f"; vars.nc {nc_rel:.3e} of max (limit 2^-23) "
+                  f"{'ok' if good else 'FAIL'}")
+    return ok
+
+
+def sqg_path(NodeQGConfig, rows):
+    """bench's measure_node physics for SQG at 2048^2 x 4 f32 (N2 at the
+    surface and three interfaces, the default walled mask, numpy psi and
+    bs): 40 spin-up steps, timed_rounds with K6's launches and the
+    V-cycles a solve counted, bs2 printed, K6 alone on the final state
+    against its plain version and bound, a four-step profile. Appends K6's
+    record to `rows`."""
+    import torch
+    from msom_tpu_torch.models import sqg
+    from msom_tpu_torch.solvers import fused_vmg, vmg
+    N, nl, warm = 2048, 4, 40
+    cfg = sqg_config(NodeQGConfig, N, nl, "float32")
+    t0 = time.perf_counter()
+    const = sqg.build_constants(cfg, device="cuda")
+    psi0, bs0 = sqg_ic(cfg)
+    state = sqg.init_state(cfg, const, psi0=psi0, bs0=bs0)
+    step = sqg.make_step(cfg)
+    torch.cuda.synchronize()
+    nlev = len(const.vlevels)
+    print(f"sqg path set-up: {time.perf_counter() - t0:.1f} s, vmg "
+          f"{nlev} levels, dt clamp {cfg.dt_clamped():.4e}")
+    spin = []
+    for _ in range(warm):
+        state, diag = step(state, const, 1e18)
+        spin.append(diag.mg_iters)
+    torch.cuda.synchronize()
+    box, cycles = [state, diag], []
+
+    def one_step():
+        n0 = fused_vmg.launches
+        box[0], box[1] = step(box[0], const, 1e18)
+        # a relaxation is one K6 launch a level and cycle
+        both = (fused_vmg.launches - n0) // nlev
+        cycles.extend([box[1].mg_iters, both - box[1].mg_iters])
+
+    reset_counts()
+    med, ms = timed_rounds(one_step)
+    launched = kernel_counts()
+    state, diag = box
+    prof = kernel_profile("sqg", one_step, 4, med)
+    busy = sum(r[0] for r in prof)
+    finite = all(bool(torch.isfinite(f).all())
+                 for f in (state.q, state.psi, state.bs)) \
+        and diag.dt.item() > 0
+    ok = (finite and launched["K6"] > 0
+          and all(v == 0 for k, v in launched.items() if k != "K6")
+          and min(cycles) >= 1 and max(cycles) <= 99)
+    print(f"sqg path {N}^2 x {nl} f32 after {warm} spin-up steps (V-cycles "
+          f"of the first solve: first ten {spin[:10]}, last ten "
+          f"{spin[-10:]}): " + rounds_line(ms, med, busy)
+          + ", kernel launches "
+          + ", ".join(f"{k} {v}" for k, v in launched.items())
+          + f" over {ROUNDS * ROUND_STEPS} steps "
+          f"({launched['K6'] / (ROUNDS * ROUND_STEPS):.1f} a step), V-cycles "
+          f"a solve mean {np.mean(cycles):.4f} max {max(cycles)} min "
+          f"{min(cycles)}, bs2 {diag.bs2.item():.6e}, ke "
+          f"{diag.ke.item():.6e}, dt {diag.dt.item():.6e}, t "
+          f"{state.t.item():.6e}, finite {finite} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        return False
+    lvl = const.vlevels[0]
+    psi = state.psi.contiguous()
+    rhs = (state.q - sqg.bs_source(cfg, const, state.bs)).contiguous()
+    res, _ = vmg.residual_v(psi, rhs, lvl, (0.0,) + const.idh0[1:],
+                            const.idh1)
+    da = fused_vmg.vrb_sweep(torch.zeros_like(res), res, lvl)
+    row = _kernel_row(
+        "sqg", "vmg_sweep",
+        lambda: fused_vmg.vrb_relax(da, res, lvl, vmg.NRELAX),
+        lambda: fused_vmg.vrb_relax_reference(da, res, lvl, vmg.NRELAX),
+        fused_vmg.bound_work(nl, N + 1, 4, vmg.NRELAX), launched["K6"],
+        fused_vmg.SOURCE, "msom_tpu/solvers/pallas_vmg.py:105",
+        f"a relaxation of {vmg.NRELAX} sweeps, SQG interface metrics",
+        limit=MG_LIMITS[4])
+    if row is None:
+        return False
+    rows.append(row)
+    return True
+
+
 def k7_checks(periodic, shapes):
     """K7 against its plain version, the cuBLAS chain, f64 and f32, at each
     (N, nl) of `shapes`, on the DST-II basis or (periodic) the Fourier
@@ -2699,6 +3394,7 @@ def main() -> int:
         return 1
     from msom_tpu_torch import _build
     from msom_tpu_torch.models import fused_rhs, fused_tracer, qg
+    from msom_tpu_torch.models.newqg import NewQGConfig
     from msom_tpu_torch.models.qg_node import NodeQGConfig
     from msom_tpu_torch.params import PGConfig, QGConfig
     from msom_tpu_torch.solvers import fused_mg, fused_spectral
@@ -2994,6 +3690,39 @@ def main() -> int:
             return 14
         print(f"coupling path done at {time.perf_counter() - t_start:.0f} "
               "s")
+
+    # 15. varRo and the y-profile direct solve: KV, the solve, the steps on
+    # the card against the CPU, the spectral and mg paths at full width
+    if wanted("varro"):
+        good, kv_err = kv_checks()
+        if not (good and vary_solve_check(QGConfig)
+                and varro_checks(QGConfig)):
+            return 15
+        print(f"varro checks done at {time.perf_counter() - t_start:.0f} s")
+        if not varro_path(QGConfig, rows, kv_err):
+            return 15
+        print(f"varro paths done at {time.perf_counter() - t_start:.0f} s")
+
+    # 16. newqg: the steps and run_newqg on the card against the CPU, then
+    # the reference deck at 2048^2
+    if wanted("newqg"):
+        if not (newqg_checks(NewQGConfig) and run_newqg_check(NewQGConfig)):
+            return 16
+        print(f"newqg checks done at {time.perf_counter() - t_start:.0f} s")
+        if not newqg_path(NewQGConfig, rows):
+            return 16
+        print(f"newqg paths done at {time.perf_counter() - t_start:.0f} s")
+
+    # 17. SQG: the step and run_sqg on the card against the CPU, then
+    # bench's node physics at 2048^2 x 4
+    if wanted("sqg"):
+        if not (sqg_step_check(NodeQGConfig)
+                and run_sqg_check(NodeQGConfig)):
+            return 17
+        print(f"sqg checks done at {time.perf_counter() - t_start:.0f} s")
+        if not sqg_path(NodeQGConfig, rows):
+            return 17
+        print(f"sqg path done at {time.perf_counter() - t_start:.0f} s")
 
     print(f"total {time.perf_counter() - t_start:.0f} s")
     print("kernels: " + json.dumps(sorted({r["name"] for r in rows})))

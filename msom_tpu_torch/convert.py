@@ -27,6 +27,12 @@ to `qg_node.build_constants`.
 JAX mspg run resumes in the port and back. mspg has no learned weights:
 its constants come from the config and the numpy `b_forc` given to
 `mspg.build_constants`.
+
+`newqg_state_from_numpy`/`newqg_state_to_numpy` carry newqg's
+`NewQGState` (leaves q, psi, t, dt_prev, i on the (nl, N, N) cells) and
+`sqg_state_from_numpy`/`sqg_state_to_numpy` the SQG variant's `SQGState`
+(leaves q, psi (nl, N+1, N+1), bs (N+1, N+1), t, dt_prev, i; the `key`
+leaf is ignored), so a JAX run of either resumes in the port and back.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from msom_tpu_torch.models import mspg, qg_node
+from msom_tpu_torch.models import mspg, newqg, qg_node, sqg
 from msom_tpu_torch.models.qg import QGState, _torch_dtype
 from msom_tpu_torch.params import PGConfig, QGConfig
 
@@ -134,25 +140,70 @@ PG_LEAVES = ("b", "ux", "uy", "t", "dt_prev", "i", "b_me", "ux_me", "uy_me",
              "nme")
 
 
+def _leaves_to_tensors(leaves, shapes: dict, dtype, device,
+                       ints=("i",)) -> dict:
+    """{name: tensor on `device`} for the names of `shapes` (() a 0-d
+    leaf), int32 for the names in `ints`, else `dtype`; raises on a shape
+    mismatch."""
+    out = {}
+    for name, want in shapes.items():
+        a = np.asarray(leaves[name])
+        if a.shape != want:
+            raise ValueError(f"leaf {name!r} has shape {a.shape}, the "
+                             f"config needs {want}")
+        dt = torch.int32 if name in ints else dtype
+        out[name] = torch.tensor(a, dtype=dt, device=device)
+    return out
+
+
 def pg_state_from_numpy(cfg: PGConfig, leaves, device="cuda") -> mspg.PGState:
     """The port's PGState on `device` from a mapping of numpy arrays with
     the leaves of PG_LEAVES: b, b_me (nl, N, N); ux, ux_me (nl, N, N+1);
     uy, uy_me (nl, N+1, N); the 0-d t, dt_prev, i and nme."""
-    dtype = _torch_dtype(cfg)
     nl, N = cfg.nl, cfg.N
-    shapes = {"b": (nl, N, N), "ux": (nl, N, N + 1), "uy": (nl, N + 1, N)}
-    out = {}
-    for name in PG_LEAVES:
-        a = np.asarray(leaves[name])
-        want = shapes.get(name.removesuffix("_me"), ())
-        if a.shape != want:
-            raise ValueError(f"leaf {name!r} has shape {a.shape}, the "
-                             f"config needs {want}")
-        dt = torch.int32 if name in ("i", "nme") else dtype
-        out[name] = torch.tensor(a, dtype=dt, device=device)
-    return mspg.PGState(**out)
+    fields = {"b": (nl, N, N), "ux": (nl, N, N + 1), "uy": (nl, N + 1, N)}
+    shapes = {n: fields.get(n.removesuffix("_me"), ()) for n in PG_LEAVES}
+    return mspg.PGState(**_leaves_to_tensors(
+        leaves, shapes, _torch_dtype(cfg), device, ints=("i", "nme")))
 
 
 def pg_state_to_numpy(state: mspg.PGState) -> dict:
     """The leaves of a PGState as host numpy arrays."""
     return {name: getattr(state, name).cpu().numpy() for name in PG_LEAVES}
+
+
+NEWQG_LEAVES = ("q", "psi", "t", "dt_prev", "i")
+SQG_LEAVES = ("q", "bs", "psi", "t", "dt_prev", "i")
+
+
+def newqg_state_from_numpy(cfg: newqg.NewQGConfig, leaves,
+                           device="cuda") -> newqg.NewQGState:
+    """The port's NewQGState on `device` from a mapping of numpy arrays
+    with the leaves of NEWQG_LEAVES: q, psi (nl, N, N); the 0-d t,
+    dt_prev, i."""
+    field = (cfg.nl, cfg.N, cfg.N)
+    shapes = {n: field if n in ("q", "psi") else () for n in NEWQG_LEAVES}
+    return newqg.NewQGState(**_leaves_to_tensors(
+        leaves, shapes, newqg._torch_dtype(cfg), device))
+
+
+def newqg_state_to_numpy(state: newqg.NewQGState) -> dict:
+    """The leaves of a NewQGState as host numpy arrays."""
+    return {n: getattr(state, n).cpu().numpy() for n in NEWQG_LEAVES}
+
+
+def sqg_state_from_numpy(cfg: qg_node.NodeQGConfig, leaves,
+                         device="cuda") -> sqg.SQGState:
+    """The port's SQGState on `device` from a mapping of numpy arrays with
+    the leaves of SQG_LEAVES: q, psi (nl, N+1, N+1), bs (N+1, N+1); the
+    0-d t, dt_prev, i. The `key` leaf is ignored."""
+    M = cfg.N + 1
+    shapes = {n: () for n in SQG_LEAVES}
+    shapes.update(q=(cfg.nl, M, M), psi=(cfg.nl, M, M), bs=(M, M))
+    return sqg.SQGState(**_leaves_to_tensors(
+        leaves, shapes, qg_node._torch_dtype(cfg), device))
+
+
+def sqg_state_to_numpy(state: sqg.SQGState) -> dict:
+    """The leaves of an SQGState as host numpy arrays."""
+    return {n: getattr(state, n).cpu().numpy() for n in SQG_LEAVES}

@@ -1,9 +1,10 @@
-"""Run loop and events of the qg-node model (the port of the qg-node half of
-`msom_tpu.driver_node`), and its command line, the `./qg.e params.in`
-equivalent:
+"""Run loops and events of the qg-node family: the qg-node model, newqg and
+SQG (the port of `msom_tpu.driver_node`), and their command line, the
+`./qg.e params.in` equivalent:
 
-    python -m msom_tpu_torch.driver_node --config params.in [--steps N]
-        [--deck DIR] [--outdir DIR] [--restart PATH] [--cpu]
+    python -m msom_tpu_torch.driver_node [--model node|newqg|sqg]
+        --config params.in [--steps N] [--deck DIR] [--outdir DIR]
+        [--restart PATH] [--cpu]
 
 The reference's event schedule (qg-node/qg.c:130-179, qg.h:361-400,
 486-499) becomes a host loop around the step: a `vars.nc` NetCDF record of
@@ -17,10 +18,15 @@ the reference's per-step `event forcing` needs no host hook. The loop reads
 the model time to the host once a step; event times are compared within
 `driver._time_eps`, so a float32 run lands on every event.
 
-One process (the port has no multi-process run yet). Not ported yet (each
-raises NotImplementedError naming its ROADMAP.md queue-1 item): newqg
-(`--model newqg`, item 13b), SQG (`--model sqg`, item 12f) and the sharded
-run (`sharded=`, `--sharded`, item 15).
+newqg (`run_newqg`, reference newqg/qg.c:50-99): a cell-centred vars.nc
+record of psi and q every dtout (at t = 0 too), the restart.nc pickup
+(psi) and the KE heartbeat. SQG (`run_sqg`, qg-node built with -DSQG): the
+same events with the surface buoyancy bs as a third vars.nc variable, and
+psi and bs read from restart.nc (qg-node/qg.h:492-495).
+
+One process (the port has no multi-process run yet). Not ported yet: the
+sharded run (`sharded=`, `--sharded`, ROADMAP.md queue 1, item 15), which
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -40,9 +46,6 @@ from msom_tpu_torch.models import qg_node as node
 from msom_tpu_torch.ops import vertex
 
 UNPORTED = {
-    "newqg": "the newqg model is not ported yet (ROADMAP.md queue 1, "
-             "item 13b)",
-    "sqg": "the SQG model is not ported yet (ROADMAP.md queue 1, item 12f)",
     "sharded": "the sharded qg-node run is not ported yet (ROADMAP.md "
                "queue 1, item 15)",
 }
@@ -211,10 +214,123 @@ def run_node(cfg, *, const=None, state=None, hooks: RunHooks | None = None,
     return state, output
 
 
+def _event_loop(state, step, output, hooks, cadence, tend, max_steps,
+                write):
+    """The newqg and SQG drivers' loop: `write(state, t)` at t = 0 and
+    every `cadence`, a step to the next event or `tend`, the heartbeat;
+    event times within `driver._time_eps`. Returns the state."""
+    t = float(state.t)
+    eps = _time_eps(t, state.t.dtype)
+    next_out = 0.0
+    while True:
+        if t >= next_out - eps:
+            write(state, t)
+            if hooks.on_output is not None:
+                hooks.on_output(state, t)
+            next_out = _next_event(t, cadence, eps)
+        if t >= tend - eps:
+            break
+        state, diag = step(state, min(next_out, tend))
+        t = float(state.t)
+        i = int(state.i)
+        eps = _time_eps(t, state.t.dtype)
+        if t != t:
+            raise FloatingPointError(
+                f"non-finite model time after step {i} (check DT/CFL)")
+        if hooks.on_log is not None:
+            hooks.on_log(i, float(diag.dt), t, float(diag.ke))
+        if max_steps is not None and i >= max_steps:
+            break
+    output.close()
+    return state
+
+
+def run_newqg(cfg, *, lam=None, state=None, hooks: RunHooks | None = None,
+              max_steps: int | None = None, outdir=None, output=None,
+              restart: str | None = "restart.nc", params_text=None,
+              device="cuda"):
+    """Integrate newqg to cfg.tend (the reference's newqg/qg.c loop);
+    returns (state, output). `lam` (the Helmholtz field of
+    `newqg.build_levels`) and `state` default to ones made here on
+    `device` (the state's device wins); an existing `restart` file
+    replaces psi (and q, t) by its last record."""
+    from msom_tpu_torch.models import newqg
+    hooks = hooks or RunHooks()
+    if state is not None:
+        device = state.q.device
+    if lam is None:
+        _, lam = newqg.build_levels(cfg, device)
+    if state is None:
+        state = newqg.init_state(cfg, lam, device=device)
+    rp = _maybe_restart(restart)
+    if rp:
+        fields, t0 = read_nc(rp, ["psi"])
+        dtype = state.q.dtype
+        psi = torch.as_tensor(fields["psi"].reshape(cfg.nl, cfg.N, cfg.N),
+                              dtype=dtype).to(device)
+        zero = torch.zeros((), dtype=dtype, device=device)
+        state = newqg.NewQGState(
+            q=newqg.comp_q(cfg, lam, psi), psi=psi,
+            t=torch.tensor(t0, dtype=dtype, device=device),
+            dt_prev=zero, i=torch.zeros((), dtype=torch.int32,
+                                        device=device))
+    if output is None:
+        output = NodeOutput(cfg, outdir, vertex=False,
+                            params_text=params_text)
+    if rp:
+        output.backup_restart(rp)
+    step = newqg.make_step(cfg, device=device)
+    state = _event_loop(state, step, output, hooks, cfg.dtout, cfg.tend,
+                        max_steps, lambda s, t: output.write(t, psi=s.psi,
+                                                             q=s.q))
+    return state, output
+
+
+def run_sqg(cfg, *, const=None, state=None, hooks: RunHooks | None = None,
+            max_steps: int | None = None, outdir=None, output=None,
+            restart: str | None = "restart.nc", params_text=None,
+            device="cuda"):
+    """Integrate the SQG variant to cfg.tend (qg-node with -DSQG: bs is
+    prognostic, written to vars.nc and read from restart.nc, qg-node/
+    qg.h:492-495); returns (state, output). `const` and `state` default
+    to `sqg.build_constants(cfg, device=device)` and its `init_state`."""
+    from msom_tpu_torch.models import sqg
+    hooks = hooks or RunHooks()
+    if const is None:
+        const = sqg.build_constants(cfg, device=device)
+    if state is None:
+        state = sqg.init_state(cfg, const)
+    rp = _maybe_restart(restart)
+    if rp:
+        fields, t0 = read_nc(rp, ["psi", "bs"])
+        dtype, dev = state.q.dtype, state.q.device
+        M = cfg.N + 1
+        psi = vertex.bc_psi(torch.as_tensor(
+            fields["psi"].reshape(cfg.nl, M, M), dtype=dtype).to(dev))
+        bs = torch.as_tensor(fields["bs"].reshape(M, M),
+                             dtype=dtype).to(dev)
+        state = dataclasses.replace(
+            state, psi=psi, bs=bs, q=sqg.comp_q(cfg, const, psi, bs),
+            t=torch.tensor(t0, dtype=dtype, device=dev))
+    if output is None:
+        output = NodeOutput(cfg, outdir, var_names=("psi", "q", "bs"),
+                            params_text=params_text)
+    if rp:
+        output.backup_restart(rp)
+    step = sqg.make_step(cfg)
+    state = _event_loop(
+        state, lambda s, tn: step(s, const, tn), output, hooks, cfg.dtout,
+        cfg.tend, max_steps,
+        lambda s, t: output.write(t, psi=s.psi, q=s.q, bs=s.bs))
+    return state, output
+
+
 def main(argv=None):
     """The command line: `--model node` runs `run_node` from the config
-    and the deck beside it (or `--deck`), printing the KE heartbeat; on
-    the CUDA card unless `--cpu`. Returns (state, output)."""
+    and the deck beside it (or `--deck`), `--model newqg` runs `run_newqg`
+    from a newqg params.in, `--model sqg` runs `run_sqg` from a qg-node
+    params.in; each prints the KE heartbeat, on the CUDA card unless
+    `--cpu`. Returns (state, output)."""
     p = argparse.ArgumentParser(
         description="msom_tpu_torch node-family driver, the `./qg.e "
                     "params.in` equivalent: input_vars_<nl>l_N<N>.nc from "
@@ -233,18 +349,21 @@ def main(argv=None):
     p.add_argument("--sharded", action="store_true",
                    help="vertex-sharded step over the local devices")
     args = p.parse_args(argv)
-    if args.model != "node":
-        raise NotImplementedError(UNPORTED[args.model])
     if args.sharded:
         raise NotImplementedError(UNPORTED["sharded"])
-    deck = args.deck or os.path.dirname(os.path.abspath(args.config))
     with open(args.config) as f:
         text = f.read()
+    kw = dict(hooks=stdout_hooks(), max_steps=args.steps, outdir=args.outdir,
+              restart=args.restart, params_text=text,
+              device="cpu" if args.cpu else "cuda")
+    if args.model == "newqg":
+        from msom_tpu_torch.models.newqg import load_newqg_config
+        return run_newqg(load_newqg_config(text), **kw)
     cfg = node.load_node_config(text)
-    return run_node(cfg, hooks=stdout_hooks(), max_steps=args.steps,
-                    outdir=args.outdir, restart=args.restart,
-                    params_text=text, deck=deck,
-                    device="cpu" if args.cpu else "cuda")
+    if args.model == "sqg":
+        return run_sqg(cfg, **kw)
+    deck = args.deck or os.path.dirname(os.path.abspath(args.config))
+    return run_node(cfg, deck=deck, **kw)
 
 
 if __name__ == "__main__":

@@ -22,19 +22,21 @@ coupling from `psipg` or `upg/vpg`, _LS_RV (flsrv = 1), bottom topography,
 the 3-D forcing `qforc`, ENERGY_CONSERV advection, passive tracers with an
 optional relaxation field, stochastic forcing (Euler-Maruyama, noise
 from a `torch.Generator` that the caller gives `make_step`), and the
-Froude-number field `frpg` of the PG coupling. A strl = (Fr/Ro)^2 that
-varies in x is no mode of the fused tendency (nor of the JAX package's
-kernel, pallas_rhs.strl_profile): such a configuration runs `rhs` as torch
-ops on either device, decided once at build (`QGConstants.rhs_kernel`),
-and its multigrid levels carry full fields (no K3 or K4). The wavelet
+Froude-number field `frpg` of the PG coupling, and the variable Rossby
+number (varRo: Ro = Rom / (1 + Rom beta (y - L0/2)), so strl = (Fr/Ro)^2
+and the topography's 1/(Ro dh) vary in y). A strl that varies in y only
+keeps the fused tendency and the multigrid's y-profile levels, and with
+solver="spectral" it takes the y-profile direct solve (solvers/vary.py:
+the DST in x, then block-Thomas sweeps in y, kernel KV on the card). A
+strl that varies in x is no mode of the fused tendency (nor of the JAX
+package's kernel, pallas_rhs.strl_profile): such a configuration runs
+`rhs` as torch ops on either device, decided once at build
+(`QGConstants.rhs_kernel`), its multigrid levels carry full fields (no K3
+or K4), and it has no direct solve. The wavelet
 filter's constants (the cutoff scale sig_filt from `rdpg` or the modal
 deformation radius, and the sig_lev pyramid) and its state leaves (the
 filter-mean PV flux `qof` and its count `nbar`) are built here; the filter
 event itself is `ops/wavelet.wavelet_filter_step`, fired by `driver.run_qg`.
-
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-queue-1 item): varRo, and solver="spectral" with a strl that varies in y
-only, which needs the y-profile direct solve (item 10).
 """
 
 from __future__ import annotations
@@ -57,17 +59,17 @@ from msom_tpu_torch.ops.stencil import laplacian
 from msom_tpu_torch.ops.stretch import layer_metrics, stretch
 from msom_tpu_torch.ops.wavelet import sig_lev_pyramid
 from msom_tpu_torch.params import QGConfig
-from msom_tpu_torch.solvers import mg, spectral
+from msom_tpu_torch.solvers import mg, spectral, vary
 
 
 @dataclasses.dataclass(frozen=True)
 class QGConstants:
     """Time-independent fields derived at setup (set_const, reference
     msqg/qg.h:931-1116), on one device, under the JAX package's names.
-    wind and Ro vary in y only here, and so does strl unless a frpg input
-    varies in x, so they are kept as contiguous y-profiles with a unit x
-    axis: they broadcast against (nl, N, N) fields, and the fused RHS
-    kernel reads them as they are. An x-varying strl is a full field, and
+    wind and Ro (varRo) vary in y only here, and so does strl unless a
+    frpg input varies in x, so they are kept as contiguous y-profiles with
+    a unit x axis: they broadcast against (nl, N, N) fields, and the fused
+    RHS kernel reads them as they are. An x-varying strl is a full field, and
     `rhs_kernel` is then False: the tendency runs as torch ops. `pp`, `topo`
     and `iro` are what the fused kernels read beside the padded fields: the
     contiguous interiors (the kernels apply the ghost rules themselves) and
@@ -80,7 +82,9 @@ class QGConstants:
     wind: torch.Tensor            # (N, 1) surface forcing term for layer 0
     idh0: tuple                   # host floats (layer metrics)
     idh1: tuple
-    spec: spectral.SpectralData | None   # direct spectral inversion
+    # direct inversion: the modal spectral solve, or with a strl that
+    # varies in y only the y-profile solve
+    spec: spectral.SpectralData | vary.VarySpectralData | None
     Ro: torch.Tensor | None = None          # (N, 1) Rossby number
     pp_pad: torch.Tensor | None = None      # (nl, N+2, N+2) large-scale psi
     zetap_pad: torch.Tensor | None = None   # (nl, N+2, N+2) lap(pp), flsrv
@@ -138,13 +142,10 @@ def _bc_psi(cfg: QGConfig) -> BC:
 
 
 def _check_slice(cfg: QGConfig) -> None:
-    """Raise NotImplementedError for any configuration not ported yet."""
+    """Raise ValueError for a wall law that the model does not have."""
     if cfg.sbc < 0 and cfg.sbc != -1:
         raise ValueError(f"sbc = {cfg.sbc}: -1 (doubly periodic) or >= 0 "
                          "(walls)")
-    if cfg.varRo > 0:
-        raise NotImplementedError(
-            "varRo (item 10) is not ported yet (ROADMAP.md queue 1)")
 
 
 def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
@@ -213,7 +214,13 @@ def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
             if zetap_pad is not None:
                 zetap_t = F.pad(zetap_pad, (3, 3)).contiguous()
 
-    Ro = dev(np.full((N, 1), cfg.Rom))     # uniform: varRo is item 10
+    # the Rossby number, with varRo a y-profile (msqg/qg.h:1032-1037)
+    if cfg.varRo > 0:
+        Ro_np = cfg.Rom / (1.0 + cfg.Rom * cfg.beta * (y - 0.5 * cfg.L0))
+    else:
+        Ro_np = np.full(N, float(cfg.Rom))
+    Ro_np = Ro_np[:, None]
+    Ro = dev(Ro_np)
     strl = s_np = None
     rhs_kernel = True
     if nl > 1:
@@ -229,7 +236,7 @@ def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
             Fr = np.asarray(cfg.Fr[:nl - 1], np.float64)[:, None, None]
         # at the working precision, as the JAX package's routing and modal
         # solves read it
-        s_np = torch.as_tensor((Fr / cfg.Rom) ** 2, dtype=dtype) \
+        s_np = torch.as_tensor((Fr / Ro_np) ** 2, dtype=dtype) \
             .double().numpy()
         rhs_kernel = bool(np.array_equal(
             s_np, np.broadcast_to(s_np[..., :1], s_np.shape)))
@@ -248,7 +255,7 @@ def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
             raise ValueError(f"topo has shape {tuple(topo_in.shape)}, the "
                              f"config needs {(N, N)}")
         topo_pad = pad(topo_in, BC.NEUMANN)
-        iro = dev(np.full((N, 1), 1.0 / (cfg.Rom * float(cfg.dh[nl - 1]))))
+        iro = dev(1.0 / (Ro_np * float(cfg.dh[nl - 1])))
 
     def field(a, name, shape):
         if a is None:
@@ -299,17 +306,22 @@ def build_constants(cfg: QGConfig, *, device="cuda", fused_mm: bool = False,
         sig_lev = tuple(dev(s_) for s_ in sig_lev_pyramid(sig_filt, cfg.L0))
 
     spec = levels = iBu = l2m = m2l = mlevels = None
-    if cfg.solver == "spectral":
-        if s_np is not None and not np.all(s_np == s_np[:, :1, :1]):
-            if rhs_kernel and cfg.sbc != -1:
-                raise NotImplementedError(
-                    "solver='spectral' with a stretching that varies in y "
-                    "only needs the y-profile direct solve (solvers/vary.py"
-                    "), not ported yet (ROADMAP.md queue 1, item 10)")
+    if cfg.solver == "spectral" and s_np is not None \
+            and not np.all(s_np == s_np[:, :1, :1]):
+        # strl varies: the y-profile direct solve (DST in x, block Thomas
+        # in y), for walls and a strl constant along x only
+        if not rhs_kernel or cfg.sbc == -1:
             raise ValueError(
                 "solver='spectral' requires stretching uniform or varying "
                 "in y only, walled BCs (x-varying frpg or periodic varRo: "
                 "use solver='mg')")
+        if fused_mm:
+            raise ValueError("fused_mm needs a uniform stretching (the "
+                             "y-profile solve has no basis-matmul form)")
+        spec = vary.build_spectral_vary(
+            nl=nl, N=N, L0=cfg.L0, s_prof=s_np[:, :, 0], idh0=idh0,
+            idh1=idh1, dtype=dtype, transform=cfg.transform, device=device)
+    elif cfg.solver == "spectral":
         spec = spectral.build_spectral(
             nl=nl, N=N, L0=cfg.L0, dh=dh,
             s_profile=None if s_np is None else s_np[:, 0, 0],
@@ -376,8 +388,11 @@ def invert_q(cfg: QGConfig, const: QGConstants,
     multigrid (no vertical coupling: the line solve is a diagonal) and
     projects back."""
     if const.spec is not None:
-        return (spectral.solve_spectral(const.spec, q),
-                mg.MGStats(iters=0, resb=0.0, resa=0.0, nrelax=0))
+        if isinstance(const.spec, vary.VarySpectralData):
+            psi = vary.solve_spectral_vary(const.spec, q)
+        else:
+            psi = spectral.solve_spectral(const.spec, q)
+        return psi, mg.MGStats(iters=0, resb=0.0, resa=0.0, nrelax=0)
     if const.mlevels is not None:
         cols = {2: "", 3: "y", 4: "yx"}[const.l2m.ndim]
         qm = torch.einsum(f"{cols}ml,lyx->myx", const.l2m, q)

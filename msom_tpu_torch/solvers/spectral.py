@@ -150,14 +150,17 @@ def idst2(X: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def build_spectral(*, nl: int, N: int, L0: float, dh=None, s_profile=None,
-                   periodic: bool = False, dtype=torch.float32,
+                   lam=None, periodic: bool = False, dtype=torch.float32,
                    transform: str = "auto", refine: str | bool = "auto",
                    fused_mm: bool = False,
                    device="cuda") -> SpectralData:
     """Precompute the modal inverse denominators (JAX `build_spectral`).
 
     s_profile holds the (nl-1,) uniform stretching values (Fr/Ro)^2 that
-    the vertical modes diagonalise; nl = 1 is the plain Poisson case.
+    the vertical modes diagonalise; or `lam` holds (nl,) per-layer
+    Helmholtz coefficients of layers that are already uncoupled (newqg's
+    -1/Rd^2 in the bottom layer, reference newqg/qg.h:148-157), with no
+    mode matrices; nl = 1 with neither is the plain Poisson case.
     `periodic` takes the doubly periodic basis (rfft2, or with the matmul
     transform `fourier_matrix`). `fused_mm` sends the basis-matmul solve
     through kernel K7: it needs the matmul transform and a size and type
@@ -172,7 +175,10 @@ def build_spectral(*, nl: int, N: int, L0: float, dh=None, s_profile=None,
                              f"{transform!r}")
         fused_spectral.check_gate(dtype, N)
     h = L0 / N
-    if nl > 1:
+    if lam is not None:
+        iBu = np.asarray(lam, np.float64).reshape(nl)
+        l2m = m2l = None
+    elif nl > 1:
         vm = modes.eigmod(np.asarray(dh, np.float64)[:nl],
                           np.asarray(s_profile, np.float64))
         iBu = np.asarray(vm.iBu, np.float64)

@@ -13,7 +13,10 @@ wavelet filter, the energy budget and an OutputWriter) on the card
 against the CPU, walled, coupled and periodic; and the qg-node driver
 (run_node with the masked wavelet filter and a NodeOutput) on the card
 against the CPU, walled, coastline-masked, periodic and stochastic at
-amp_stoch = 0, and the card's node noise draw in distribution. Every test
+amp_stoch = 0, and the card's node noise draw in distribution; and the
+y-profile direct solve's sweeps (KV) against their plain version with the
+wrapper's checks, the varRo step (spectral and mg), the newqg step and the
+SQG step on the card against the CPU. Every test
 needs a card
 and nvcc, is marked
 `cuda` and skips without a card. The file imports neither jax nor
@@ -30,7 +33,8 @@ cuBLAS chain: 1e-5 of max|psi_m| in f32 (two f32 roundings of N-term sums),
 max|out|; the kernels fuse a*b+c into one rounding and multiply by
 1/delta^2 where the plain version divides. K5 as K1 (the same stacked
 Laplacians), K6 (after four sweeps, or a relaxation of five) as K3; a
-five-sweep relaxation equals five one-sweep launches bitwise. K7 in f32
+five-sweep relaxation equals five one-sweep launches bitwise. KV: 1e-11
+(f64) and 1e-5 (f32) of max|psi| (the same sums, contracted). K7 in f32
 runs a 3-pass TF32 split: its error against the f64 chain stays within 4
 times the FP32 cuBLAS chain's."""
 
@@ -1207,3 +1211,114 @@ def test_node_noise_draw_on_the_card(cuda, periodic):
         assert not (noise * (1 - const.mask)).any()
     with pytest.raises(ValueError, match="generator"):
         qg_node.draw_white(cfg, const, torch.Generator(), (4, n, n))
+
+
+# ---------------------------------------------------------------------------
+# the y-profile direct solve's sweeps (KV), varRo, newqg and SQG
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("N,nl", [(64, 2), (100, 3), (256, 4), (33, 8)])
+def test_vary_sweep_matches_plain_version(cuda, dtype, N, nl):
+    """KV against the row loop on block inverses whose chain is stable
+    (|a W| row sums 1/2): 1e-11 (f64) and 1e-5 (f32) of max|psi|."""
+    from msom_tpu_torch.solvers import fused_vary
+    rng = np.random.default_rng(N + nl)
+    a = (N / 80.0) ** 2
+    tdt = getattr(torch, dtype)
+    W = torch.as_tensor(rng.uniform(-0.5, 0.5, (nl, nl, N, N)) / (a * nl),
+                        dtype=tdt, device=cuda)
+    X = torch.as_tensor(rng.standard_normal((nl, N, N)), dtype=tdt,
+                        device=cuda)
+    before = fused_vary.launches
+    got = fused_vary.sweep(W, X, a)
+    assert fused_vary.launches == before + 1
+    want = fused_vary.sweep_reference(W, X, a)
+    lim = {torch.float32: 1e-5, torch.float64: 1e-11}[tdt]
+    assert (got - want).abs().max() <= lim * want.abs().max()
+
+
+def test_vary_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from msom_tpu_torch.solvers import fused_vary
+    W = torch.zeros((3, 3, 16, 16), device=cuda)
+    X = torch.zeros((3, 16, 16), device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        fused_vary.sweep(W.half(), X.half(), 1.0)
+    with pytest.raises(ValueError, match="W must"):
+        fused_vary.sweep(W.double(), X, 1.0)
+    with pytest.raises(ValueError, match="X must"):
+        fused_vary.sweep(W, X.transpose(1, 2), 1.0)
+    with pytest.raises(ValueError, match="nl = 9"):
+        fused_vary.sweep(torch.zeros((9, 9, 4, 4), device=cuda),
+                         torch.zeros((9, 4, 4), device=cuda), 1.0)
+
+
+@pytest.mark.parametrize("solver", ["spectral", "mg"])
+def test_varro_cuda_step_matches_cpu_step(cuda, solver):
+    """varRo, f64, 64^2 x 3, 10 steps: q and psi to 1e-10 with the same
+    V-cycles; KV twice a step with the spectral solve, K1 twice a step."""
+    from msom_tpu_torch.solvers import fused_vary
+    cfg = _config(64, 3, "float64", varRo=1)
+    cfg = dataclasses.replace(cfg, solver=solver).validate()
+    psi0 = 1e-3 * np.random.default_rng(3).uniform(-1, 1, (3, 64, 64))
+    out = {}
+    for where in ("cpu", "cuda"):
+        const = qg.build_constants(cfg, device=where)
+        state = qg.init_state(cfg, const, psi0=psi0)
+        step = qg.make_step(cfg)
+        n0, k0 = fused_vary.launches, fused_rhs.launches
+        cycles = []
+        for _ in range(10):
+            state, diag = step(state, const, 1e9)
+            cycles.append(diag.mg_iters)
+        out[where] = (state, cycles, fused_vary.launches - n0,
+                      fused_rhs.launches - k0)
+    (cs, cc, cv, ck), (gs, gc, gv, gk) = out["cpu"], out["cuda"]
+    assert gc == cc and cv == ck == 0 and gk == 20
+    assert gv == (20 if solver == "spectral" else 0)
+    for name in ("q", "psi"):
+        want = getattr(cs, name)
+        assert (getattr(gs, name).cpu() - want).abs().max() \
+            <= 1e-10 * want.abs().max()
+
+
+def test_newqg_and_sqg_cuda_steps_match_cpu_steps(cuda):
+    """newqg (nl = 2 with gp_low, mg, walled: K3/K4 on the card) and SQG
+    (K6 on the card), f64, 64^2, 10 steps: the fields to 1e-10 with the
+    same V-cycles."""
+    from msom_tpu_torch.models import newqg, sqg
+    from msom_tpu_torch.models.qg_node import NodeQGConfig
+    from msom_tpu_torch.solvers import fused_vmg
+    ncfg = newqg.NewQGConfig(N=64, nl=2, L0=100.0, tau0=1e-3, nu=5.0,
+                             beta=0.5, gp_low=2.0, dh=(0.5, 0.5), f0=2.0,
+                             DT=5e-2, CFL=0.2, TOLERANCE=1e-8)
+    scfg = NodeQGConfig(N=64, nl=3, L0=1.0, f0=1.0, beta=0.5, nu=1e-4,
+                        dh=(0.2, 0.3, 0.5), N2=(1.0, 0.5, 0.25),
+                        noise_init=1e-2, DT=1e-3, CFL=0.4, TOLERANCE=1e-10,
+                        dtype="float64")
+    rng = np.random.default_rng(4)
+    psi_n = 1e-2 * rng.uniform(-1, 1, (2, 64, 64))
+    psi_s = 1e-2 * rng.uniform(-1, 1, (3, 65, 65))
+    bs = 1e-2 * rng.uniform(-1, 1, (65, 65))
+    bs[0] = bs[-1] = bs[:, 0] = bs[:, -1] = 0.0
+    out = {}
+    for where in ("cpu", "cuda"):
+        _, lam = newqg.build_levels(ncfg, where)
+        ns = newqg.init_state(ncfg, lam, psi0=psi_n, device=where)
+        nstep = newqg.make_step(ncfg, device=where)
+        sc = sqg.build_constants(scfg, device=where)
+        ss = sqg.init_state(scfg, sc, psi0=psi_s, bs0=bs)
+        sstep = sqg.make_step(scfg)
+        k0, v0 = fused_mg.sweep_launches, fused_vmg.launches
+        cycles = []
+        for _ in range(10):
+            ns, nd = nstep(ns, 1e9)
+            ss, sd = sstep(ss, sc, 1e9)
+            cycles.append((nd.mg_iters, sd.mg_iters))
+        out[where] = (ns, ss, cycles, fused_mg.sweep_launches - k0,
+                      fused_vmg.launches - v0)
+    (cn, cs, cc, ck3, ck6), (gn, gs, gc, gk3, gk6) = out["cpu"], out["cuda"]
+    assert gc == cc and ck3 == ck6 == 0 and gk3 > 0 and gk6 > 0
+    for got, want in ((gn.q, cn.q), (gn.psi, cn.psi), (gs.q, cs.q),
+                      (gs.bs, cs.bs), (gs.psi, cs.psi)):
+        assert (got.cpu() - want).abs().max() <= 1e-10 * want.abs().max()

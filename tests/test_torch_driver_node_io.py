@@ -256,8 +256,8 @@ def test_cli_matches_jax_main(tmp_path, capfd, monkeypatch):
 
 
 @pytest.mark.parametrize("args,match", [
-    (["--model", "newqg"], "item 13"),
-    (["--model", "sqg"], "item 12f"),
+    (["--model", "newqg", "--sharded"], "item 15"),
+    (["--model", "sqg", "--sharded"], "item 15"),
     (["--sharded"], "item 15"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, args, match):

@@ -34,6 +34,7 @@ from msom_tpu_torch.models import qg as tqg
 from msom_tpu_torch.models import qg_energy as ten
 from msom_tpu_torch.ops import wavelet as twv
 from msom_tpu_torch.params import QGConfig as TConfig
+from msom_tpu_torch.solvers import vary as tvary
 
 torch.set_num_threads(1)
 
@@ -173,13 +174,14 @@ def test_output_writer_backs_up_the_2d_frpg(coupled, tmp_path):
 
 def test_spectral_refusals():
     """x-varying strl: the JAX package's ValueError; y-varying with walls:
-    the direct y-profile solve is item 10; periodic: ValueError; a frpg of
+    the direct y-profile solve (solvers/vary.py, tested against the JAX
+    package in tests/test_torch_vary.py); periodic: ValueError; a frpg of
     the wrong size: ValueError."""
     _, tcfg = configs(solver="spectral")
     with pytest.raises(ValueError, match="use solver='mg'"):
         tqg.build_constants(tcfg, device="cpu", frpg=frpg_field())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tqg.build_constants(tcfg, device="cpu", frpg=frpg_field("y"))
+    tc = tqg.build_constants(tcfg, device="cpu", frpg=frpg_field("y"))
+    assert tc.rhs_kernel and isinstance(tc.spec, tvary.VarySpectralData)
     _, pcfg = configs(solver="spectral", sbc=-1.0)
     with pytest.raises(ValueError, match="use solver='mg'"):
         tqg.build_constants(pcfg, device="cpu", frpg=frpg_field("y"))

@@ -214,11 +214,14 @@ def test_step_on_cpu_launches_no_kernel():
 
 
 @pytest.mark.parametrize("override,match", [
-    (dict(varRo=1), "item 10"),
+    (dict(varRo=1, sbc=-1.0), "use solver='mg'"),
 ])
 def test_configs_outside_the_slice_raise(override, match):
+    """varRo is ported (tests/test_torch_vary.py); the spectral solve of a
+    periodic varRo has no direct form, and raises the JAX package's
+    ValueError."""
     _, tcfg = verron(16, **override)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         tqg.build_constants(tcfg, device="cpu")
 
 
