@@ -6,7 +6,7 @@
 Needs one CUDA card, nvcc and the repository checkout; imports nothing of
 JAX or msom_tpu. With no argument every phase runs; with phase names
 (kernels, steps, paths, fused_mm, mg, node, periodic, stochastic, driver,
-driver_node, mspg, coupling, varro, newqg, sqg)
+driver_node, mspg, coupling, varro, newqg, sqg, rows)
 the build and those phases only (for work on one part: the kernels' record
 then lists what ran). Phases, in order; any failure exits non-zero:
 
@@ -192,6 +192,24 @@ then lists what ran). Phases, in order; any failure exits non-zero:
    mask, numpy psi and bs): 40 spin-up steps, the same protocol, K6's
    launches and V-cycles a solve, bs2, K6 alone on the final state.
 
+18. the rows-sharded msqg step (phase name rows): K1's rows mode (every
+   option set, walled, slip, periodic, stochastic) and K2's (1-3 tracers,
+   walled and periodic) on 4 virtual shards of one field, f64 and f32, at
+   256^2 with nl = 1, 3, 4, 160^2 x 3 (shards of 40 rows: a 32-row strip
+   and an 8-row one) and 2048^2 x 4: put together, bit for bit the
+   whole-domain kernel (within 4 ulp where the rows build contracts a
+   multiply-add differently), and within LIMITS of the plain rows
+   version; then
+   a process group of world size 1 under NCCL (a file:// store): the rows
+   step on the card against the unsharded CPU step (128^2 x 3 f64,
+   coupled, two tracers, 20 steps), run_qg(sharded="rows") against
+   run_qg (the filter, the energy budget, the files), and bench.py's
+   sharded_rows row at 2048^2 x 4 f32, uncoupled and coupled, beside the
+   unsharded step in turns (five rounds of 20 steps each, the medians'
+   ratio, device busy and idle share of each, the rows launches, the two
+   states after the same steps); K1's and K2's rows launch on a 512-row
+   shard timed against its bound, beside the whole-domain launch.
+
 TF32 is switched off for matmuls and convolutions before anything runs:
 1-pass reduced-precision transforms give O(1) solution error at N = 2048.
 The last lines are the kernels' JSON record, the card's name and power
@@ -223,7 +241,7 @@ MG_SOLVE_LIMIT = 1e-10                    # CUDA solve vs CPU solve, f64
 MG_MAX_CYCLES = 20      # a solve that needs more at tol 1e-3 is spinning
 PHASES = ("kernels", "steps", "paths", "fused_mm", "mg", "node", "periodic",
           "stochastic", "driver", "driver_node", "mspg", "coupling", "varro",
-          "newqg", "sqg")
+          "newqg", "sqg", "rows")
 K1_OPTIONS = ("pg", "pg_flsrv", "topo", "qforc", "energy_conserv", "slip",
               "all")
 # the periodic kernel's option sets (no slip: the domain has no wall), and
@@ -3330,6 +3348,471 @@ def sqg_path(NodeQGConfig, rows):
     return True
 
 
+ROWS_SHARDS = 4                          # virtual shards of the checks
+# the rows kernels are their own build of the same source; where the two
+# builds contract a multiply-add differently (one FFMA of the f32 coupled
+# periodic kernel with a run-time nl, on one H100), the shards put together
+# differ from the whole-domain launch by an ulp: within ROWS_ULPS units in
+# the last place of max|out| there, bit for bit everywhere else
+ROWS_ULPS = 4
+# the rows kernels' check sizes: nl = 1, 3, 4 at 256 (shards of 64 rows),
+# N = 160 (shards of 40: a 32-row strip and an 8-row one) and the path's
+ROWS_SIZES = [(256, 1), (256, 3), (256, 4), (160, 3), (2048, 4)]
+# one f32 step from the same state, rows and unsharded, each against the
+# f64 step: the rows step's error at most ROWS_F32_RATIO times the
+# unsharded step's. At 2048^2 the biharmonic multiplies psi's grid-scale
+# f32 rounding (the two order the transforms' stages differently) by about
+# iRe4 (8/delta^2)^3 = 2e5, so the two f32 steps differ by far more than
+# f32's epsilon (5.5e-3 of max|q| on one H100) while each is as far from
+# the f64 step; a wrong slab or wall is O(1) in f64 too
+ROWS_F32_RATIO = 2.0
+
+
+def _rows_checks(label, lim, dtype, cases):
+    """Each case (name, kernel(psi_ext, q_ext, row0, ny), plain(...),
+    whole(), fields): the rows launches on ROWS_SHARDS virtual shards put
+    together against the whole-domain launch (bitwise, or within ROWS_ULPS
+    ulp of max|out|) and against the plain rows version (within `lim` of
+    max|out|); returns (ok, the worst max abs error against the plain rows
+    version, the number of cases that were not bitwise)."""
+    import torch
+    from msom_tpu_torch.parallel import halo
+    ok, worst, n_ulp = True, 0.0, 0
+    for name, kernel, plain, whole, fields, wrap in cases:
+        exts = [halo.split_rows8(f, ROWS_SHARDS, wrap) for f in fields]
+        N = fields[0].shape[-2]
+        n = N // ROWS_SHARDS
+        got, ref = [], []
+        for d in range(ROWS_SHARDS):
+            args = [e[d] for e in exts] + [d * n, n]
+            got.append(kernel(*args))
+            ref.append(plain(*args))
+        want = whole()
+        torch.cuda.synchronize()
+        parts = list(zip(*got))
+        eps = torch.finfo(want[0].dtype).eps
+        bitwise, ulps = True, 0.0
+        for k, (g, w) in enumerate(zip(parts, want)):
+            g = torch.cat(list(g), dim=-2) if k == 0 \
+                else torch.stack(list(g)).amax(0)
+            bitwise &= torch.equal(g, w)
+            ulps = max(ulps, ((g - w).abs().max()
+                              / (eps * w.abs().max())).item())
+        n_ulp += not bitwise
+        errs = []
+        for k, (g, r) in enumerate(zip(parts, zip(*ref))):
+            g = torch.cat(list(g), dim=-2) if k == 0 \
+                else torch.stack(list(g)).amax(0)
+            r = torch.cat(list(r), dim=-2) if k == 0 \
+                else torch.stack(list(r)).amax(0)
+            errs.append(((g - r).abs().max().item(), r.abs().max().item()))
+        rel = max(e / m for e, m in errs)
+        good = ulps <= ROWS_ULPS and rel <= lim
+        ok &= good
+        worst = max(worst, errs[0][0])
+        print(f"{label} {name} {dtype} N={N}, {ROWS_SHARDS} shards of {n} "
+              f"rows: bitwise equal to the whole-domain launch {bitwise}"
+              + ("" if bitwise else f" ({ulps:.2f} ulp of max|out|, limit "
+                 f"{ROWS_ULPS})")
+              + f", against the plain rows version {rel:.3e} of max|out| "
+              f"(limit {lim:g}) {'ok' if good else 'FAIL'}")
+    return ok, worst, n_ulp
+
+
+def rows_kernel_checks(QGConfig):
+    """K1's and K2's rows mode on ROWS_SHARDS virtual shards of one field
+    (halo slabs cut from it, row0 = d * n_loc), f64 and f32, every K1
+    option set (walled, slip, periodic, stochastic walled and periodic)
+    and K2 with 1-3 tracers (walled and periodic) at ROWS_SIZES: each put
+    together must equal the whole-domain kernel bit for bit (or within
+    ROWS_ULPS ulp, see there) and lie within LIMITS of the plain rows
+    version. Returns (ok, {"K1": worst max abs error at 2048^2 x 4 f32,
+    "K2": ...})."""
+    import torch
+    from msom_tpu_torch.models import fused_rhs, fused_tracer, qg
+    ok, main_err, n_ulp, n_cases = True, {"K1": 0.0, "K2": 0.0}, 0, 0
+    for dtype in ("float64", "float32"):
+        lim = LIMITS[8 if dtype == "float64" else 4]
+        tdt = getattr(torch, dtype)
+        for N, nl in ROWS_SIZES:
+            rng = np.random.default_rng(N + nl + 1)
+            psi = torch.as_tensor(1e-3 * rng.uniform(-1, 1, (nl, N, N)),
+                                  dtype=tdt, device="cuda")
+            k1_cases = []
+            for periodic, names in (
+                    (False, ("uncoupled",) + K1_OPTIONS
+                     + K1_STOCHASTIC_OPTIONS),
+                    (True, ("uncoupled",) + K1_PERIODIC_OPTIONS
+                     + K1_STOCHASTIC_OPTIONS)):
+                flow = {k: v[:nl] for k, v in PG_FLOW.items()} \
+                    if periodic else {}
+                cfg = bench_config(QGConfig, N, nl, dtype, Re=1000.0,
+                                   Eks=0.001, flsrv=1,
+                                   sbc=-1.0 if periodic else 0.0, **flow)
+                full = qg.build_constants(
+                    cfg, device="cuda", **coupled_fields(cfg, 1e-3, N + nl))
+                q = qg.comp_q(cfg, full, psi).contiguous()
+                for name in names:
+                    vcfg, vc = k1_variant(cfg, full, name)
+                    need = vcfg.energy_conserv or vcfg.stochastic
+
+                    def kern(pe, qe, r0, n, vcfg=vcfg, vc=vc, need=need):
+                        return fused_rhs.rhs_fused(
+                            vcfg, vc, pe[:, 8:8 + n], psi_ext=pe,
+                            q_ext=qe if need else None, row0=r0)
+
+                    def plain(pe, qe, r0, n, vcfg=vcfg, vc=vc):
+                        return fused_rhs.rhs_fused_reference(
+                            vcfg, vc, pe[:, 8:8 + n], psi_ext=pe, q_ext=qe,
+                            row0=r0)
+
+                    def whole(vcfg=vcfg, vc=vc, need=need, q=q):
+                        return fused_rhs.rhs_fused(vcfg, vc, psi,
+                                                   q if need else None)
+
+                    k1_cases.append((f"{'periodic' if periodic else 'walled'}"
+                                     f" {name} nl={nl}", kern, plain, whole,
+                                     (psi, q), periodic))
+            good, err, nu = _rows_checks("K1 rows", lim, dtype, k1_cases)
+            ok &= good
+            n_ulp, n_cases = n_ulp + nu, n_cases + len(k1_cases)
+            k2_cases = []
+            for periodic in (False, True):
+                for nptr in (1, 2, 3):
+                    cfg = bench_config(QGConfig, N, nl, dtype,
+                                       sbc=-1.0 if periodic else 0.0,
+                                       nptr=nptr, Pe=(1e3, 2e3, 7e2)[:nptr],
+                                       ptr_r=(100.0, 0.0, 13.0)[:nptr])
+                    shape = (nl, nptr, N, N)
+                    tr = torch.as_tensor(1e-3 * rng.uniform(-1, 1, shape),
+                                         dtype=tdt, device="cuda")
+                    const = qg.build_constants(
+                        cfg, device="cuda",
+                        ptr_relax=1e-3 * rng.uniform(-1, 1, shape))
+
+                    def kern(pe, te, r0, n, cfg=cfg, const=const, tr=tr):
+                        return (fused_tracer.tracer_fused(
+                            cfg, const, pe[:, 8:8 + n], tr[..., r0:r0 + n, :]
+                            .contiguous(), psi_ext=pe, tr_ext=te,
+                            row0=r0).reshape(-1, n, cfg.N),)
+
+                    def plain(pe, te, r0, n, cfg=cfg, const=const, tr=tr):
+                        return (fused_tracer.tracer_fused_reference(
+                            cfg, const, pe[:, 8:8 + n], tr[..., r0:r0 + n, :],
+                            psi_ext=pe, tr_ext=te, row0=r0)
+                            .reshape(-1, n, cfg.N),)
+
+                    def whole(cfg=cfg, const=const, tr=tr):
+                        return (fused_tracer.tracer_fused(cfg, const, psi, tr)
+                                .reshape(-1, cfg.N, cfg.N),)
+
+                    k2_cases.append((
+                        f"{'periodic' if periodic else 'walled'} nptr={nptr}"
+                        f" nl={nl}", kern, plain, whole,
+                        (psi, tr.reshape(-1, N, N)), periodic))
+            good2, err2, nu = _rows_checks("K2 rows", lim, dtype, k2_cases)
+            ok &= good2
+            n_ulp, n_cases = n_ulp + nu, n_cases + len(k2_cases)
+            if dtype == "float32" and (N, nl) == (2048, 4):
+                main_err = {"K1": err, "K2": err2}
+            del psi, k1_cases, k2_cases
+            torch.cuda.empty_cache()
+    print(f"rows kernel checks: {n_cases - n_ulp} of {n_cases} bit for bit "
+          f"the whole-domain launch, {n_ulp} within {ROWS_ULPS} ulp "
+          f"{'ok' if ok else 'FAIL'}")
+    return ok, main_err
+
+
+def _rows_group():
+    """A process group of world size 1 under NCCL on a file:// store in a
+    temporary directory (the card runs one rank)."""
+    import tempfile
+    from msom_tpu_torch.parallel import dist
+    tmp = tempfile.mkdtemp()
+    dist.init("cuda", init_method=f"file://{tmp}/store", world_size=1,
+              rank=0)
+    return tmp
+
+
+def rows_step_check(QGConfig):
+    """The rows step under NCCL at world size 1 on the card against the
+    port's unsharded step on the CPU: 128^2 x 3 f64, coupled (bench's
+    fields, a weak forcing) with two tracers, 20 steps, q, psi and the
+    tracers within STEP_LIMIT, dt to 1e-12, two K1 and two K2 rows
+    launches a step."""
+    import torch
+    from msom_tpu_torch.models import fused_rhs, fused_tracer, qg
+    from msom_tpu_torch.parallel.step import make_qg_step_sharded
+    cfg = verron(QGConfig, 128, **TRACERS)
+    rng = np.random.default_rng(42)
+    psi0 = 1e-3 * rng.uniform(-1, 1, (cfg.nl, cfg.N, cfg.N))
+    fields = coupled_fields(cfg)
+    fields["qforc"] = 1e-5 * rng.standard_normal(psi0.shape)
+    tr0 = 1e-3 * rng.uniform(-1, 1, (cfg.nl, cfg.nptr, cfg.N, cfg.N))
+    steps, out = 20, {}
+    for where in ("cpu", "cuda"):
+        const = qg.build_constants(cfg, device=where, **fields)
+        state = qg.init_state(cfg, const, psi0=psi0, tracers0=tr0)
+        if where == "cpu":
+            step = qg.make_step(cfg)
+        else:
+            rs = make_qg_step_sharded(cfg, device="cuda")
+            step, const, state = rs.step, rs.shard(const), rs.shard(state)
+            fused_rhs.rows_launches = fused_tracer.rows_launches = 0
+        for _ in range(steps):
+            state, diag = step(state, const, 1e9)
+        out[where] = (state, diag)
+    n1, n2 = fused_rhs.rows_launches, fused_tracer.rows_launches
+    (cs, cd), (gs, gd) = out["cpu"], out["cuda"]
+    rels = {n: _rel(getattr(gs, n), getattr(cs, n))
+            for n in ("q", "psi", "tracers")}
+    dt_rel = abs(gd.dt.item() - cd.dt.item()) / cd.dt.item()
+    good = (all(r <= STEP_LIMIT for r in rels.values()) and dt_rel <= 1e-12
+            and n1 == n2 == 2 * steps)
+    print(f"rows step check 128^2 x 3 f64 coupled, world size 1 under NCCL, "
+          f"{steps} steps cuda vs the unsharded cpu step: "
+          + ", ".join(f"rel {k} = {v:.3e}" for k, v in rels.items())
+          + f" (limit {STEP_LIMIT:g}), rel dt {dt_rel:.3e}, K1 rows "
+          f"launches {n1}, K2 rows launches {n2} (expected {2 * steps} "
+          f"each) {'ok' if good else 'FAIL'}")
+    return good
+
+
+def rows_driver_check(QGConfig):
+    """run_qg(sharded="rows") at world size 1 on the card against the
+    unsharded run_qg on the card, 128^2 x 3 f64, coupled with two tracers,
+    the filter, the energy budget and an OutputWriter each: the final
+    state within STEP_LIMIT, the same files, each .bas within float32
+    rounding (2^-23 of its max|value|), the mode returned."""
+    import os
+    import tempfile
+    from msom_tpu_torch import driver
+    from msom_tpu_torch.io.bas import read_bas
+    from msom_tpu_torch.models import qg
+    cfg = verron(QGConfig, 128, dtflt=0.25, dtout=0.5, tend=0.75, ediag=0,
+                 afilt=7.0, **TRACERS)
+    rng = np.random.default_rng(42)
+    psi0 = 1e-3 * rng.uniform(-1, 1, (cfg.nl, cfg.N, cfg.N))
+    tr0 = 1e-3 * rng.uniform(-1, 1, (cfg.nl, cfg.nptr, cfg.N, cfg.N))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in (False, "rows"):
+            const = qg.build_constants(cfg, device="cuda",
+                                       **coupled_fields(cfg))
+            state = qg.init_state(cfg, const, psi0=psi0, tracers0=tr0)
+            hooks = driver.RunHooks(on_output=driver.OutputWriter(
+                cfg, const, outdir=os.path.join(tmp, str(mode))))
+            out[mode] = driver.run_qg(cfg, const=const, state=state,
+                                      hooks=hooks, sharded=mode)
+        files = sorted(os.listdir(os.path.join(tmp, "False")))
+        same = files == sorted(os.listdir(os.path.join(tmp, "rows")))
+        bas = max(_rel(read_bas(os.path.join(tmp, "rows", n))[0],
+                       read_bas(os.path.join(tmp, "False", n))[0])
+                  for n in files if n.endswith(".bas")) if same else np.inf
+    (s0, _), (s1, _, mode) = out[False], out["rows"]
+    rels = {n: _rel(getattr(s1, n), getattr(s0, n))
+            for n in ("q", "psi", "qof", "tracers")}
+    good = (mode == "rows" and same and bas <= 2.0 ** -23
+            and all(r <= STEP_LIMIT for r in rels.values())
+            and int(s1.i) == int(s0.i) and int(s1.nbar) == 2)
+    print(f"rows driver check 128^2 x 3 f64 coupled, run_qg(sharded='rows') "
+          f"at world size 1 vs run_qg on the card, {int(s1.i)} steps, "
+          f"mode {mode!r}: " + ", ".join(f"rel {k} = {v:.3e}"
+                                         for k, v in rels.items())
+          + f"; {len(files)} files, same names {same}, .bas {bas:.3e} of "
+          f"max (limit 2^-23) {'ok' if good else 'FAIL'}")
+    return good
+
+
+def _rows_one_step(QGConfig, cfg, coupled, state, unsharded, rows_step):
+    """From the f32 `state`, one step each: (f64 rows against f64
+    unsharded, f32 unsharded against f64 unsharded, f32 rows against f64
+    unsharded), as max|d q| over max|q|."""
+    import torch
+    from msom_tpu_torch.models import qg
+    from msom_tpu_torch.parallel.step import make_qg_step_sharded
+    step, const = unsharded
+    rs, rconst = rows_step
+    cfg64 = dataclasses.replace(cfg, dtype="float64").validate()
+    const64 = qg.build_constants(
+        cfg64, device="cuda", **(coupled_fields(cfg64) if coupled else {}))
+    s64 = dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).double()
+        for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)
+        and getattr(state, f.name).is_floating_point()})
+    u64, _ = qg.make_step(cfg64)(s64, const64, 1e18)
+    rs64 = make_qg_step_sharded(cfg64, device="cuda")
+    r64, _ = rs64.step(rs64.shard(s64), rs64.shard(const64), 1e18)
+    u32, _ = step(state, const, 1e18)
+    r32, _ = rs.step(rs.shard(state), rconst, 1e18)
+    return (_rel(rs64.gather(r64).q, u64.q), _rel(u32.q, u64.q),
+            _rel(rs.gather(r32).q, u64.q))
+
+
+def rows_path(QGConfig, rows, rows_err):
+    """bench.py's sharded_rows row (bench.py:127-163) at world size 1 under
+    NCCL: 2048^2 x 4 f32, uncoupled and coupled (bench's fields and two
+    tracers, so that K2 rows runs), the rows step beside the unsharded
+    step from the same IC: 20 warm-up steps each, then five rounds of 20
+    steps of each in turns (timed_rounds), the ratio of the medians, the
+    device busy time and idle share of each (a four-step profile), the
+    rows launches a step; a finite state; from the unsharded run's final
+    state one rows and one unsharded step in f64 (within STEP_LIMIT of
+    each other) and in f32 (each against the f64 step: the rows step's
+    error within ROWS_F32_RATIO of the unsharded one's); and how far the
+    two runs drifted apart beside how far an unsharded run from an IC one
+    f32 ulp away drifts in the same steps (f32 rounding that the flow's
+    growth amplifies; printed, not held to a limit). On the coupled
+    path K1's and K2's rows launches on a 512-row shard (rows 512-1023 of
+    the final state) are timed beside the whole-domain launch and their
+    plain rows versions, against their bounds; their records go to
+    `rows`. Returns False if the path failed."""
+    import torch
+    from msom_tpu_torch.models import fused_rhs, fused_tracer, qg
+    from msom_tpu_torch.parallel import halo
+    from msom_tpu_torch.parallel.step import make_qg_step_sharded
+    N, nl, warm = 2048, 4, 20
+    shape = (nl, N, N)
+    for label in ("uncoupled", "coupled"):
+        coupled = label == "coupled"
+        cfg = bench_config(QGConfig, N, nl, "float32",
+                           **(TRACERS if coupled else {}))
+        const = qg.build_constants(
+            cfg, device="cuda", **(coupled_fields(cfg) if coupled else {}))
+        rng = np.random.default_rng(0)
+        psi0 = 1e-3 * rng.uniform(-1, 1, shape)
+        tr0 = 1e-3 * rng.uniform(-1, 1, (nl, cfg.nptr, N, N)) \
+            if coupled else None
+        rs = make_qg_step_sharded(cfg, device="cuda")
+        rconst = rs.shard(const)
+        steps = {"unsharded": qg.make_step(cfg), "rows": rs.step}
+        consts = {"unsharded": const, "rows": rconst}
+        box = {k: [qg.init_state(cfg, const, psi0=psi0, tracers0=tr0), None]
+               for k in steps}
+        box["rows"][0] = rs.shard(box["rows"][0])
+        # the yardstick of the drift: psi0 one f32 ulp up
+        p32 = psi0.astype(np.float32)
+        ulp = qg.init_state(cfg, const, psi0=np.nextafter(p32, np.inf),
+                            tracers0=tr0)
+
+        def stepper(k):
+            def one():
+                box[k][0], box[k][1] = steps[k](box[k][0], consts[k], 1e18)
+            return one
+
+        for k in steps:
+            for _ in range(warm):
+                stepper(k)()
+        torch.cuda.synchronize()
+        ms = {k: [] for k in steps}
+        counts = {}
+        for r in range(ROUNDS):
+            for k in ("unsharded", "rows"):
+                reset_counts()
+                fused_rhs.rows_launches = fused_tracer.rows_launches = 0
+                ms[k].append(cuda_ms(stepper(k), ROUND_STEPS))
+                if k == "rows":
+                    counts[r] = (fused_rhs.rows_launches,
+                                 fused_tracer.rows_launches,
+                                 kernel_counts())
+        med = {k: float(np.median(v)) for k, v in ms.items()}
+        busy = {k: sum(x[0] for x in kernel_profile(
+            f"sharded_rows {label} {k}", stepper(k), 4, med[k]))
+            for k in steps}
+        n_rows = steps_done = ROUNDS * ROUND_STEPS
+        k1r = sum(c[0] for c in counts.values())
+        k2r = sum(c[1] for c in counts.values())
+        others = {n: sum(c[2][n] for c in counts.values())
+                  for n in ("K3", "K4", "K5", "K6", "K7", "KV")}
+        whole = rs.gather(box["rows"][0])
+        finite = state_ok(whole, box["rows"][1], shape)
+        final = box["unsharded"][0]
+        drift = _rel(whole.q, final.q)
+        for _ in range(warm + steps_done + 4):
+            ulp, _ = steps["unsharded"](ulp, const, 1e18)
+        drift_ulp = _rel(ulp.q, final.q)
+        del ulp
+        err = _rows_one_step(QGConfig, cfg, coupled, final,
+                             (steps["unsharded"], const), (rs, rconst))
+        want2 = 2 * steps_done if coupled else 0
+        ok = (finite and err[0] <= STEP_LIMIT
+              and err[2] <= ROWS_F32_RATIO * err[1] and k1r == 2 * n_rows
+              and k2r == want2 and not any(others.values()))
+        for k in steps:
+            print(f"sharded_rows {label} {k} {N}^2 x {nl} f32 after {warm} "
+                  f"warm-up steps: " + rounds_line(ms[k], med[k], busy[k]))
+        print(f"sharded_rows {label} path at world size 1 under NCCL: rows "
+              f"{med['rows']:.4f} ms/step against unsharded "
+              f"{med['unsharded']:.4f} (ratio "
+              f"{med['rows'] / med['unsharded']:.4f}; device busy ratio "
+              f"{busy['rows'] / busy['unsharded']:.4f}), K1 rows launches "
+              f"{k1r} (expected {2 * n_rows}), K2 rows launches {k2r} "
+              f"(expected {want2}), other kernels {others}; ke "
+              f"{box['rows'][1].ke.item():.6e}, dt "
+              f"{box['rows'][1].dt.item():.6e}, finite {finite}; one step "
+              f"from the unsharded final state: in f64 rows against "
+              f"unsharded max|d q|/max|q| = {err[0]:.3e} (limit "
+              f"{STEP_LIMIT:g}), in f32 against the f64 step unsharded "
+              f"{err[1]:.3e}, rows {err[2]:.3e} (at most "
+              f"{ROWS_F32_RATIO:g} x unsharded); the two runs after "
+              f"{warm + steps_done + 4} steps {drift:.3e} apart, an "
+              f"unsharded run from psi0 one f32 ulp up {drift_ulp:.3e} "
+              f"apart {'ok' if ok else 'FAIL'}")
+        if not ok:
+            return False
+        if coupled:
+            state = box["unsharded"][0]
+            psi, q, tr = state.psi, state.q, state.tracers
+            n, r0 = N // ROWS_SHARDS, N // ROWS_SHARDS
+            sl = slice(r0, r0 + n)
+            pe = halo.split_rows8(psi, ROWS_SHARDS)[1]
+            te = halo.split_rows8(tr.reshape(-1, N, N), ROWS_SHARDS)[1]
+            ps, ts = pe[:, 8:8 + n], tr[..., sl, :].contiguous()
+            for name, kern, plain, wfn, bw, launched, src, err in (
+                    ("fused_rhs rows",
+                     lambda: fused_rhs.rhs_fused(cfg, const, ps, psi_ext=pe,
+                                                 row0=r0)[0],
+                     lambda: fused_rhs.rhs_fused_reference(
+                         cfg, const, ps, psi_ext=pe, row0=r0)[0],
+                     lambda: fused_rhs.rhs_fused(cfg, const, psi)[0],
+                     lambda rows_: fused_rhs.bound_work(cfg, const, 4,
+                                                        rows_),
+                     k1r, fused_rhs.ROWS_SOURCE, rows_err["K1"]),
+                    ("fused_tracer rows",
+                     lambda: fused_tracer.tracer_fused(
+                         cfg, const, ps, ts, psi_ext=pe, tr_ext=te,
+                         row0=r0),
+                     lambda: fused_tracer.tracer_fused_reference(
+                         cfg, const, ps, ts, psi_ext=pe, tr_ext=te,
+                         row0=r0),
+                     lambda: fused_tracer.tracer_fused(cfg, const, psi, tr),
+                     lambda rows_: fused_tracer.bound_work(cfg, const, 4,
+                                                           rows_),
+                     k2r, fused_tracer.ROWS_SOURCE, rows_err["K2"])):
+                row = _kernel_row(
+                    "sharded_rows coupled", name, kern, plain,
+                    bw((r0, n)), launched, src,
+                    "msom_tpu/models/pallas_rhs.py:"
+                    + ("441" if name.startswith("fused_rhs") else "778"),
+                    f"rows mode, a {n}-row shard (rows {r0}-{r0 + n - 1})")
+                if row is None:
+                    return False
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                w_ms = cuda_ms(wfn, 50)
+                wb = roofline(*bw(None), 4)[0]
+                print(f"{name}: the whole-domain launch on the same state "
+                      f"{w_ms:.4f} ms (bound {wb:.4f} ms); the {n}-row "
+                      f"shard's launch {row['ms']:.4f} ms (bound "
+                      f"{row['bound_ms']:.4f} ms), {ROWS_SHARDS} such "
+                      f"launches {ROWS_SHARDS * row['ms']:.4f} ms")
+                rows.append(row)
+            del pe, te, ps, ts
+        del const, rconst, box
+        torch.cuda.empty_cache()
+    return True
+
+
 def k7_checks(periodic, shapes):
     """K7 against its plain version, the cuBLAS chain, f64 and f32, at each
     (N, nl) of `shapes`, on the DST-II basis or (periodic) the Fourier
@@ -3723,6 +4206,31 @@ def main() -> int:
         if not sqg_path(NodeQGConfig, rows):
             return 17
         print(f"sqg path done at {time.perf_counter() - t_start:.0f} s")
+
+    # 18. the rows-sharded step: K1's and K2's rows mode on virtual shards,
+    # then at world size 1 under NCCL the step and run_qg against the
+    # unsharded ones, and bench's sharded_rows row at full width
+    if wanted("rows"):
+        good, rows_err = rows_kernel_checks(QGConfig)
+        if not good:
+            return 18
+        print(f"rows kernel checks done at "
+              f"{time.perf_counter() - t_start:.0f} s")
+        import shutil
+        from msom_tpu_torch.parallel import dist
+        tmp = _rows_group()
+        try:
+            if not (rows_step_check(QGConfig)
+                    and rows_driver_check(QGConfig)):
+                return 18
+            print(f"rows checks done at {time.perf_counter() - t_start:.0f}"
+                  " s")
+            if not rows_path(QGConfig, rows, rows_err):
+                return 18
+            print(f"rows path done at {time.perf_counter() - t_start:.0f} s")
+        finally:
+            dist.shutdown()
+            shutil.rmtree(tmp, ignore_errors=True)
 
     print(f"total {time.perf_counter() - t_start:.0f} s")
     print("kernels: " + json.dumps(sorted({r["name"] for r in rows})))

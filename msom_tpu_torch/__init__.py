@@ -20,7 +20,10 @@ readers and the checkpoint in io/); the planetary-geostrophic model mspg
 (models/mspg.py, its barotropic solver mg.solve_bt, driver.run_pg and
 PGOutputWriter, `--model pg`); and the offline PG <-> QG coupling loop
 (coupling.py, analysis.py; msqg takes the 2-D Froude field frpg, whose
-tendency then runs as torch ops). Seven hand-written Hopper kernels:
+tendency then runs as torch ops); and the rows-sharded msqg step over
+torch.distributed (parallel/: the process group, the 8-row halo slabs,
+the pencil spectral solve, make_qg_step_sharded; driver.run_qg(sharded=)),
+whose shards run K1's and K2's rows mode. Seven hand-written Hopper kernels:
 the fused tendency (models/fused_rhs.py, csrc/fused_rhs.cu), the fused
 tracer tendency (models/fused_tracer.py, csrc/fused_tracer.cu), the fused
 basis-matmul spectral solve (solvers/fused_spectral.py,

@@ -81,6 +81,22 @@
 // the kernel and the plain version differ in the order of a few sums only.
 // The scalars are rounded to T on the host.
 //
+// Rows mode (the TPU kernel's SMEM `row0`, pallas_rhs.py:462, :481): the
+// block computes the output rows [row0, row0 + ny) of the N x N domain, a
+// shard of a rows decomposition. The march runs in global row indices, so
+// every wall rule keys on the global row; only the address of a row of psi
+// and q changes (`in_row`): they come as one (nl, ny + 16, N) tensor, the
+// shard with the 8-row halo slabs of its y-neighbours above and below
+// (parallel/halo.ext_rows8), wrapped when periodic. pp, pp_t, zetap_t,
+// topo, qforc and the y-profiles stay whole and are read at the global
+// row; dq is (nl, ny, N). Rows mode is the compile-time constant EXT: this
+// file builds the whole-domain kernels, and csrc/fused_rhs_rows.cu, which
+// defines FUSED_RHS_ROWS and includes it, the rows kernels, a library of
+// their own with the same C entries. As a run-time branch the rows
+// addressing slowed the whole-domain kernels 2.5-6% on one H100 (PERF.md,
+// PR 15); as a second translation unit it leaves their code as it was,
+// and the two nvcc runs go side by side.
+//
 // Where it is likely to go wrong, and how the march meets it:
 //  1. Wall ghosts of DERIVED fields: the ghost ring of zeta, tmp and zetap
 //     is a rule applied to the field's own interior (pallas_rhs.py `_yfix`
@@ -131,6 +147,11 @@
 //     and between row N - 1 and row 0, through the wrapped neighbours.
 // 11. Stochastic (either kernel): layer 0 loses its self-advection only;
 //     beta and the pp terms stay, and -q / tr_stoch applies at nl > 1.
+// 12. Rows mode: the slabs of a shard at a wall are never read (load skips
+//     rows outside [0, N) unless periodic, and the wall rules fire at the
+//     global rows 0 and N - 1); a shard reads at most 3 rows of a slab, so
+//     any ny >= 1 works (the step keeps ny % 8 == 0, the JAX gate); a
+//     partial last strip of ny % 32 rows ends the march as at N % 32.
 //
 // Bound. At 2048^2 x 4 in f32 the compulsory traffic of the uncoupled
 // tendency is psi in and dq out, 2 * 4 * 2048^2 * 4 B = 134 MB, about 40 us
@@ -147,7 +168,13 @@
 
 #include <type_traits>
 
+#ifndef FUSED_RHS_ROWS
+#define FUSED_RHS_ROWS 0
+#endif
+
 namespace {
+
+constexpr bool EXT = FUSED_RHS_ROWS;     // the rows mode (see above)
 
 constexpr int TX = 128;                  // output columns of a strip
 constexpr int NTH = TX;                  // threads: one a column
@@ -169,13 +196,14 @@ constexpr int MW = TX + 2;               // tmp ring row:   col c = x0 - 1 + c
 enum Ptr { PSI, STRL, WIND, DQ, UMAX, PP, Q, TOPO, IRO, QFORC, ZETAP, NPTRS };
 
 // Bits of the launch's `flags`.
-enum Flag { FLSRV = 1, PERIODIC = 2, STOCHASTIC = 4 };
+enum Flag { FLSRV = 1, PERIODIC = 2, STOCHASTIC = 4, ROWS = 8 };
 
 // The scalars of a launch, rounded to T once on the host, and flags for
 // the terms that are on.
 template <typename T>
 struct Params {
   int N, nl, flsrv, vec, has_re, has_re4, has_ekt, has_ekb;
+  int row0, ny;        // rows mode: the output rows [row0, row0 + ny)
   T id2, i12d2, i2d, beta, iRe, iRe4, ek_top, ek_bot, cslip, itr_stoch;
   T idh0[MAXL], idh1[MAXL];
 };
@@ -265,6 +293,30 @@ __device__ __forceinline__ void issue_row_wrap(T* ring,
     if (gx >= N + XH) continue;
     const int gw = gx < 0 ? gx + N : (gx >= N ? gx - N : gx);
     cp_async<int(V * sizeof(T))>(dst + l * PW + j * V, s + l * NN + gw);
+  }
+}
+
+// Rows mode (hazard 12): the copies of input row r of psi or q from `s`,
+// its row in the slab tensor's first plane, the planes `plane` apart; with
+// XWRAP (periodic) the x-halo chunks of the first and the last strip from
+// the other end of the row, as issue_row_wrap takes them.
+template <typename T, int V, bool XWRAP>
+__device__ __forceinline__ void issue_slab_row(T* ring,
+                                               const T* __restrict__ s,
+                                               size_t plane, int np, int r,
+                                               int x0, int N, int tid) {
+  constexpr int CW = PW / V;
+  T* dst = ring + slot(r, RP) * np * PW;
+  for (int k = tid; k < np * CW; k += NTH) {
+    const int l = k / CW, j = k - l * CW;
+    int gx = x0 - XH + j * V;
+    if constexpr (XWRAP) {
+      if (gx >= N + XH) continue;
+      gx = gx < 0 ? gx + N : (gx >= N ? gx - N : gx);
+    } else if (gx < 0 || gx >= N) {
+      continue;
+    }
+    cp_async<int(V * sizeof(T))>(dst + l * PW + j * V, s + l * plane + gx);
   }
 }
 
@@ -476,9 +528,14 @@ rhs_kernel(const Fields<T> F, const Params<T> p) {
   const int ncells = static_cast<int>(smax - sp) + nl * NTH;
 
   const int tid = threadIdx.x;
-  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * SY;
-  const int y1 = min(y0 + SY, N);                   // output rows [y0, y1)
+  const int row0 = EXT ? p.row0 : 0, ny = EXT ? p.ny : N;
+  const int x0 = blockIdx.x * TX, y0 = row0 + blockIdx.y * SY;
+  const int y1 = min(y0 + SY, row0 + ny);           // output rows [y0, y1)
   const size_t NN = (size_t)N * N;
+  // psi and q: whole planes, or in rows mode (hazard 12) the shard's
+  // ny + 16 rows, global row r at row r - row0 + 8; dq: the ny rows
+  const size_t IN = EXT ? (size_t)(ny + 16) * N : NN;
+  const size_t ON = EXT ? (size_t)ny * N : NN;
   const T id2 = p.id2, i12d2 = p.i12d2, i2d = p.i2d;
   const T cslip = COUPLED ? p.cslip : T(0);
   // a strip whose rings reach a wall's first ghost cell; xwall: an x-wall,
@@ -504,19 +561,25 @@ rhs_kernel(const Fields<T> F, const Params<T> p) {
     if (r > y1 + 2 || (!PER && (r < 0 || r >= N))) return;
     with_v([&](auto v) {
       constexpr int V = decltype(v)::value;
+      if constexpr (EXT) {   // psi and q from the slabs (hazard 12)
+        const size_t ro = (size_t)(r - row0 + 8) * N;
+        issue_slab_row<T, V, PER>(sp, F.psi + ro, IN, nl, r, x0, N, tid);
+        if (has_q)
+          issue_slab_row<T, V, PER>(sq, F.q + ro, IN, nl, r, x0, N, tid);
+      }
       if constexpr (PER) {
-        issue_row_wrap<T, V>(sp, F.psi, nl, r, x0, N, tid);
+        if constexpr (!EXT) issue_row_wrap<T, V>(sp, F.psi, nl, r, x0, N, tid);
         if (has_pg && r >= -1 && r <= N) {
           issue_row_pad<T, V>(spp, F.pp, nl, r, x0, N, tid);
           if (flsrv) issue_row_pad<T, V>(szp, F.zetap, nl, r, x0, N, tid);
         }
-        if (has_q) issue_row_wrap<T, V>(sq, F.q, nl, r, x0, N, tid);
+        if (!EXT && has_q) issue_row_wrap<T, V>(sq, F.q, nl, r, x0, N, tid);
         if (has_topo && interior(r, N))
           issue_row<T, V>(st, F.topo, 1, r, x0, N, tid);
       } else {
-        issue_row<T, V>(sp, F.psi, nl, r, x0, N, tid);
+        if constexpr (!EXT) issue_row<T, V>(sp, F.psi, nl, r, x0, N, tid);
         if (has_pg) issue_row<T, V>(spp, F.pp, nl, r, x0, N, tid);
-        if (has_q) issue_row<T, V>(sq, F.q, nl, r, x0, N, tid);
+        if (!EXT && has_q) issue_row<T, V>(sq, F.q, nl, r, x0, N, tid);
         if (has_topo) issue_row<T, V>(st, F.topo, 1, r, x0, N, tid);
       }
     });
@@ -667,7 +730,7 @@ rhs_kernel(const Fields<T> F, const Params<T> p) {
           res[l] = acc;
           spd[l] = speed;
         } else {
-          F.dq[o] = acc;
+          F.dq[EXT ? l * ON + (size_t)(gy - row0) * N + gx : o] = acc;
           smax[l * NTH + tid] = fmax(smax[l * NTH + tid], speed);
         }
         sprev = scur;
@@ -675,7 +738,8 @@ rhs_kernel(const Fields<T> F, const Params<T> p) {
       if constexpr (NL > 0) {
 #pragma unroll
         for (int l = 0; l < NL; ++l) {
-          F.dq[l * NN + (size_t)gy * N + gx] = res[l];
+          F.dq[EXT ? l * ON + (size_t)(gy - row0) * N + gx
+                   : l * NN + (size_t)gy * N + gx] = res[l];
           umx[l] = fmax(umx[l], spd[l]);
         }
       }
@@ -707,7 +771,7 @@ int run(void (*kernel)(const Fields<T>, const Params<T>),
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.N + TX - 1) / TX, (p.N + SY - 1) / SY), block(NTH);
+  const dim3 grid((p.N + TX - 1) / TX, (p.ny + SY - 1) / SY), block(NTH);
   kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(F, p);
   return (int)cudaGetLastError();
 }
@@ -719,10 +783,11 @@ bool aligned16(const void* ptr) {
 template <typename T>
 int launch(const void* const* ptrs, int N, int nl, int flags,
            const double* scal, const double* idh0, const double* idh1,
-           void* stream) {
+           int row0, int ny, void* stream) {
   const bool flsrv = flags & FLSRV, per = flags & PERIODIC,
-             stoch = flags & STOCHASTIC;
-  if (nl < 1 || nl > MAXL || N < 1 || (per && N < 4))
+             stoch = flags & STOCHASTIC, rows = flags & ROWS;
+  if (nl < 1 || nl > MAXL || N < 1 || (per && N < 4) || ny < 1 || row0 < 0
+      || row0 + ny > N || rows != EXT || (!rows && (row0 != 0 || ny != N)))
     return (int)cudaErrorInvalidValue;
   if (!ptrs[PSI] || !ptrs[WIND] || !ptrs[DQ] || !ptrs[UMAX]
       || (nl > 1 && !ptrs[STRL]) || (flsrv && !ptrs[PP])
@@ -745,6 +810,8 @@ int launch(const void* const* ptrs, int N, int nl, int flags,
   p.N = N;
   p.nl = nl;
   p.flsrv = flsrv;
+  p.row0 = row0;
+  p.ny = ny;
   // 16-byte copies need every input row to start on 16 bytes
   p.vec = N % (16 / (int)sizeof(T)) == 0 && aligned16(F.psi)
        && (!F.pp || aligned16(F.pp)) && (!F.q || aligned16(F.q))
@@ -795,9 +862,10 @@ int launch(const void* const* ptrs, int N, int nl, int flags,
 
 extern "C" {
 
-// Number of strips (TX columns by SY rows), the rows of `umax_part`.
-int fused_rhs_num_blocks(int N) {
-  return ((N + TX - 1) / TX) * ((N + SY - 1) / SY);
+// Number of strips (TX columns by SY rows) of ny output rows of width N,
+// the rows of `umax_part`.
+int fused_rhs_num_blocks(int N, int ny) {
+  return ((N + TX - 1) / TX) * ((ny + SY - 1) / SY);
 }
 
 // Dynamic shared memory of one block, in bytes, for an option set (periodic
@@ -815,20 +883,26 @@ long long fused_rhs_smem_bytes(int nl, int itemsize, int has_pg, int flsrv,
 // stochastic variant, topo (with iro) the topography, qforc the forcing,
 // zetap (periodic with FLSRV only) zetap_t. flags: FLSRV adds _LS_RV
 // (needs pp), PERIODIC the doubly periodic kernel (N >= 4, no slip),
-// STOCHASTIC the stochastic variant (needs q). scal = {delta, beta, iRe,
-// iRe4, ek_top, ek_bot, cslip, itr_stoch}; idh0/idh1 host arrays of nl
-// doubles. Launches on `stream` and returns the CUDA error code of the
+// STOCHASTIC the stochastic variant (needs q), ROWS the rows mode (the
+// library of fused_rhs_rows.cu takes it, this one refuses it): the
+// output rows [row0, row0 + ny) of the N x N domain, psi and q the
+// shard's (nl, ny + 16, N) halo-extended slabs, dq (nl, ny, N), the other
+// fields whole (without ROWS, row0 = 0 and ny = N). scal = {delta, beta,
+// iRe, iRe4, ek_top, ek_bot, cslip, itr_stoch}; idh0/idh1 host arrays of
+// nl doubles. Launches on `stream` and returns the CUDA error code of the
 // launch (0 on success).
 int fused_rhs_f32(const void* const* ptrs, int N, int nl, int flags,
                   const double* scal, const double* idh0, const double* idh1,
-                  void* stream) {
-  return launch<float>(ptrs, N, nl, flags, scal, idh0, idh1, stream);
+                  int row0, int ny, void* stream) {
+  return launch<float>(ptrs, N, nl, flags, scal, idh0, idh1, row0, ny,
+                       stream);
 }
 
 int fused_rhs_f64(const void* const* ptrs, int N, int nl, int flags,
                   const double* scal, const double* idh0, const double* idh1,
-                  void* stream) {
-  return launch<double>(ptrs, N, nl, flags, scal, idh0, idh1, stream);
+                  int row0, int ny, void* stream) {
+  return launch<double>(ptrs, N, nl, flags, scal, idh0, idh1, row0, ny,
+                        stream);
 }
 
 const char* fused_rhs_error_string(int code) {

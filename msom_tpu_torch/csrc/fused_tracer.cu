@@ -80,6 +80,21 @@
 //     inputs into ring slots of their own: rows are slotted by their
 //     unwrapped index, -1 .. N. The other strips run the interior march.
 //     N >= 4: the halo wraps once.
+//  7. Rows mode (the TPU kernel's SMEM `row0`, pallas_rhs.py:778-795): the
+//     output rows [row0, row0 + ny) of a shard of a rows decomposition. The
+//     march keeps global row indices, so the wall rules, the edge strips
+//     and the slots are those of the whole grid; only the address of a row
+//     of psi and the tracers changes: they come as the shard with the 8-row
+//     halo slabs of its y-neighbours (parallel/halo.ext_rows8, wrapped
+//     when periodic, which the WRAP march then reads in place of the
+//     modulo), global row r at row r - row0 + 8. A wall shard's slab is
+//     never read. relax stays whole, read at the global row; dtr is the
+//     shard's. Rows mode is the compile-time constant EXT: this file builds
+//     the whole-domain kernels, csrc/fused_tracer_rows.cu (which defines
+//     FUSED_TRACER_ROWS and includes it) the rows kernels, a library of
+//     their own with the same C entries. As a run-time branch the rows
+//     addressing slowed the whole-domain kernel 4-8% on one H100 (PERF.md,
+//     PR 15).
 //
 // Bound. Bytes: psi (nl planes) and the tracers (nl * nptr) read, dtr
 // (nl * nptr) written, the relaxation field (nl * nptr) read where there is
@@ -96,7 +111,13 @@
 
 #include <type_traits>
 
+#ifndef FUSED_TRACER_ROWS
+#define FUSED_TRACER_ROWS 0
+#endif
+
 namespace {
+
+constexpr bool EXT = FUSED_TRACER_ROWS;  // the rows mode (hazard 7)
 
 constexpr int TX = 128;            // columns of a strip
 constexpr int NTH = TX;            // threads: one a column
@@ -110,6 +131,7 @@ static_assert(R >= DEPTH + 3, "the ring's rows (hazard 3)");
 template <typename T>
 struct Params {
   int N, nptr, vec, rows;
+  int row0, ny;        // rows mode: the output rows [row0, row0 + ny)
   T id2, i12d2;
   T iPe[MAXTR], ir[MAXTR];
 };
@@ -161,15 +183,18 @@ struct Chunks {
 
 // Issue the copies of input row r of the np planes (psi_l, then the
 // tracers of layer l, NN apart) into its ring slot.
-// WRAP (hazard 6): row r and the columns taken modulo N.
-template <typename T, int V, bool WRAP>
+// WRAP (hazard 6): row r and the columns taken modulo N. SLAB (rows mode,
+// hazard 7): row r is row r - row0 + 8 of the slab tensors, whose planes
+// are NN apart (NN the slab's plane there), and only the columns wrap.
+template <typename T, int V, bool WRAP, bool SLAB = false>
 __device__ __forceinline__ void issue_row(T* ring, const T* __restrict__ psi,
                                           const T* __restrict__ tr, int np,
                                           int r, int x0, int N, size_t NN,
-                                          int tid) {
+                                          int tid, int row0 = 0) {
   using C = Chunks<V>;
   T* dst = ring + slot(r) * np * PW;
-  const int rw = !WRAP ? r : r < 0 ? r + N : (r >= N ? r - N : r);
+  const int rw = SLAB ? r - row0 + 8
+               : !WRAP ? r : r < 0 ? r + N : (r >= N ? r - N : r);
   const size_t ro = (size_t)rw * N;
   for (int k = tid; k < np * C::CW; k += NTH) {
     const int pl = k / C::CW, j = C::J0 + k - pl * C::CW;
@@ -261,9 +286,14 @@ __device__ __forceinline__ void march(const Fields<T>& F, const Params<T>& p,
   static_assert(!(WALLS && WRAP), "a strip has walls or wraps");
   const int N = p.N, nptr = NPT > 0 ? NPT : p.nptr, np = 1 + nptr;
   const int tid = threadIdx.x;
-  const size_t NN = (size_t)N * N;
-  const T* psi = F.psi + l * NN;
-  const T* tr = F.tr + (size_t)l * nptr * NN;
+  const size_t NN = (size_t)N * N;                 // relax: whole planes
+  // psi and the tracers: whole planes, or in rows mode (hazard 7) the
+  // shard's ny + 16 rows; dtr: the ny rows
+  const int row0 = EXT ? p.row0 : 0;
+  const size_t IN = EXT ? (size_t)(p.ny + 16) * N : NN;
+  const size_t ON = EXT ? (size_t)p.ny * N : NN;
+  const T* psi = F.psi + l * IN;
+  const T* tr = F.tr + (size_t)l * nptr * IN;
   const T id2 = p.id2, i12d2 = p.i12d2;
 
   // f(std::integral_constant<int, V>) with this launch's copy width V
@@ -278,8 +308,8 @@ __device__ __forceinline__ void march(const Fields<T>& F, const Params<T>& p,
   auto load = [&](int r) {
     if ((!WRAP && (r < 0 || r >= N)) || r > y1) return;
     with_v([&](auto v) {
-      issue_row<T, decltype(v)::value, WRAP>(ring, psi, tr, np, r, x0, N, NN,
-                                             tid);
+      issue_row<T, decltype(v)::value, WRAP, EXT>(ring, psi, tr, np, r, x0,
+                                                  N, IN, tid, row0);
     });
   };
   auto fix = [&](int r) {
@@ -314,6 +344,7 @@ __device__ __forceinline__ void march(const Fields<T>& F, const Params<T>& p,
     Nb<T> pn = nb3(Pm, P0, Pp, Pm[0], Pp[0]);
     if constexpr (WALLS) wall_x(pn, P0[0], gx, N, T(-1));
     const size_t row = (size_t)s * N + gx;
+    const size_t orow = (size_t)(s - row0) * N + gx;    // dtr, rows mode
     if constexpr (NPT > 0) {
       T res[NPT];
 #pragma unroll
@@ -331,7 +362,8 @@ __device__ __forceinline__ void march(const Fields<T>& F, const Params<T>& p,
       if (gx < N) {
 #pragma unroll
         for (int j = 0; j < NPT; ++j)
-          F.dtr[((size_t)l * NPT + j) * NN + row] = res[j];
+          F.dtr[EXT ? ((size_t)l * NPT + j) * ON + orow
+                    : ((size_t)l * NPT + j) * NN + row] = res[j];
       }
     } else {
       for (int j = 0; j < nptr; ++j) {
@@ -343,7 +375,8 @@ __device__ __forceinline__ void march(const Fields<T>& F, const Params<T>& p,
         const size_t k = ((size_t)l * nptr + j) * NN + row;
         if (gx < N) {
           const T tgt = F.relax != nullptr ? __ldcs(F.relax + k) - cc : -cc;
-          F.dtr[k] = mjac(pn, cn, i12d2) + p.iPe[j] * lap + p.ir[j] * tgt;
+          F.dtr[EXT ? ((size_t)l * nptr + j) * ON + orow : k] =
+              mjac(pn, cn, i12d2) + p.iPe[j] * lap + p.ir[j] * tgt;
         }
       }
     }
@@ -364,8 +397,9 @@ tracer_kernel(const Fields<T> F, const Params<T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);      // (R, 1 + nptr, PW)
   const int N = p.N, l = blockIdx.z;
-  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * p.rows;
-  const int y1 = min(y0 + p.rows, N);             // output rows [y0, y1)
+  const int row0 = EXT ? p.row0 : 0, ny = EXT ? p.ny : N;
+  const int x0 = blockIdx.x * TX, y0 = row0 + blockIdx.y * p.rows;
+  const int y1 = min(y0 + p.rows, row0 + ny);      // output rows [y0, y1)
   // a strip that reads a ghost row or holds column 0 or N - 1 (hazard 5)
   const bool edge = x0 == 0 || x0 + TX >= N || y0 == 0 || y1 == N;
   if (PER && edge)
@@ -395,14 +429,16 @@ template <typename T>
 int launch(const void* psi, const void* tr, const void* relax, void* dtr,
            int N, int nl, int nptr, double delta, const double* iPe,
            const double* ir, int rows, int grid_x, int grid_y,
-           long long smem, int periodic, void* stream) {
-  // the caller's geometry must cover the planes with whole strips of TX
-  // columns and `rows` rows, the last keeping the remainder, and give the
-  // ring its shared memory
+           long long smem, int periodic, int row0, int ny, int ext,
+           void* stream) {
+  // the caller's geometry must cover the planes' ny output rows with whole
+  // strips of TX columns and `rows` rows, the last keeping the remainder,
+  // and give the ring its shared memory
   if (nl < 1 || nl > 65535 || nptr < 1 || nptr > MAXTR || N < 1
-      || (periodic && N < 4)
+      || (periodic && N < 4) || ny < 1 || row0 < 0 || row0 + ny > N
+      || (ext != 0) != EXT || (!ext && (row0 != 0 || ny != N))
       || !psi || !tr || !dtr || rows < 1
-      || grid_x != (N + TX - 1) / TX || grid_y != (N + rows - 1) / rows
+      || grid_x != (N + TX - 1) / TX || grid_y != (ny + rows - 1) / rows
       || smem < (long long)(sizeof(T) * smem_cells(nptr)))
     return (int)cudaErrorInvalidValue;
   Fields<T> F;
@@ -414,6 +450,8 @@ int launch(const void* psi, const void* tr, const void* relax, void* dtr,
   p.N = N;
   p.nptr = nptr;
   p.rows = rows;
+  p.row0 = row0;
+  p.ny = ny;
   // 16-byte copies need every input row to start on 16 bytes
   p.vec = N % (16 / (int)sizeof(T)) == 0 && aligned16(psi) && aligned16(tr);
   p.id2 = T(1.0 / (delta * delta));
@@ -443,23 +481,29 @@ int fused_tracer_max_nptr() { return MAXTR; }
 // iPe and ir host arrays of nptr doubles; device pointers on `stream`;
 // strips of `rows` rows on a grid_x x grid_y x nl grid with `smem` bytes
 // of shared memory a block; periodic != 0 wraps every field (N >= 4).
-// Returns the CUDA error code of the launch (0 on success).
+// ext != 0 is the rows mode (the library of fused_tracer_rows.cu takes it,
+// this one refuses it): the output rows [row0, row0 + ny), psi and tr
+// the shard's halo-extended (.., ny + 16, N) slabs, dtr (nl * nptr, ny, N),
+// relax whole (without it row0 = 0 and ny = N). Returns the CUDA error
+// code of the launch (0 on success).
 int fused_tracer_f32(const void* psi, const void* tr, const void* relax,
                      void* dtr, int N, int nl, int nptr, double delta,
                      const double* iPe, const double* ir, int rows,
                      int grid_x, int grid_y, long long smem, int periodic,
-                     void* stream) {
+                     int row0, int ny, int ext, void* stream) {
   return launch<float>(psi, tr, relax, dtr, N, nl, nptr, delta, iPe, ir,
-                       rows, grid_x, grid_y, smem, periodic, stream);
+                       rows, grid_x, grid_y, smem, periodic, row0, ny, ext,
+                       stream);
 }
 
 int fused_tracer_f64(const void* psi, const void* tr, const void* relax,
                      void* dtr, int N, int nl, int nptr, double delta,
                      const double* iPe, const double* ir, int rows,
                      int grid_x, int grid_y, long long smem, int periodic,
-                     void* stream) {
+                     int row0, int ny, int ext, void* stream) {
   return launch<double>(psi, tr, relax, dtr, N, nl, nptr, delta, iPe, ir,
-                        rows, grid_x, grid_y, smem, periodic, stream);
+                        rows, grid_x, grid_y, smem, periodic, row0, ny, ext,
+                        stream);
 }
 
 const char* fused_tracer_error_string(int code) {

@@ -4,6 +4,8 @@
 
     python -m msom_tpu_torch.driver --config params.in [--model qg|pg]
         [--steps N] [--deck DIR] [--outdir DIR] [--no-output] [--cpu]
+    torchrun --nproc_per_node=W -m msom_tpu_torch.driver --config
+        params.in --sharded [--sharded-mode auto|rows]
 
 Basilisk's event system (run()/event blocks) becomes an explicit host loop
 around the step: output every dtout (and at t = 0), the wavelet filter
@@ -14,8 +16,13 @@ stays on the state's device. The mspg loop (`run_pg`) is the same with its
 own events: the running means every 10 steps, the state dump at t = 0 and
 every dtout (`PGOutputWriter`).
 
-Not ported yet (raises NotImplementedError naming its ROADMAP.md queue-1
-item): the sharded runs (`sharded=`, `--sharded`, item 15).
+The sharded msqg run (`run_qg(sharded=True|"auto"|"rows")`, `--sharded`)
+is the rows decomposition of parallel/step.py over torch.distributed: each
+rank steps its rows; the events gather the whole state (the filter runs on
+it on every rank, the writers on the master only). Not ported yet (raises
+NotImplementedError naming what is left of ROADMAP.md queue 1, item 15):
+`sharded="gspmd"` and the configurations the rows path does not take, and
+the sharded mspg run (`run_pg(sharded=)`, `--model pg --sharded`).
 """
 
 from __future__ import annotations
@@ -35,12 +42,16 @@ from msom_tpu_torch.io.bas import write_bas
 from msom_tpu_torch.io.deck import load_pg_deck, load_qg_deck
 from msom_tpu_torch.models import mspg, qg, qg_energy
 from msom_tpu_torch.ops.wavelet import wavelet_filter_step
+from msom_tpu_torch.parallel import dist
+from msom_tpu_torch.parallel.step import (GSPMD_UNPORTED, check_rows,
+                                          make_qg_step_sharded)
 from msom_tpu_torch.params import (PGConfig, QGConfig, load_pg_config,
                                    load_qg_config)
 
 
-SHARDED_UNPORTED = ("the sharded msqg and mspg runs are not ported yet "
-                    "(ROADMAP.md queue 1, item 15)")
+PG_SHARDED_UNPORTED = ("the sharded mspg run (the JAX package's GSPMD "
+                       "run_pg(sharded=)) is not ported yet (ROADMAP.md "
+                       "queue 1, item 15)")
 
 
 @dataclasses.dataclass
@@ -73,7 +84,8 @@ def run_qg(cfg: QGConfig, *, const=None, state=None, hooks: RunHooks = None,
            generator: torch.Generator | None = None, seed: int = 0,
            sharded=False, device="cuda"):
     """Integrate the msqg model to cfg.tend; returns (state, energy), the
-    energy accumulator None when ediag = -1.
+    energy accumulator None when ediag = -1; with `sharded`
+    (state, energy, mode).
 
     The reference driver loop (msqg/qg.c): the KE heartbeat each step
     (writestdout), the output event at t = 0 and every dtout (the energy
@@ -83,17 +95,50 @@ def run_qg(cfg: QGConfig, *, const=None, state=None, hooks: RunHooks = None,
     energy budget summed every step (comp_diag, qg_energy.h:286-288).
     `const` and `state` default to `build_constants(cfg, device=device)`
     and its `init_state`. A stochastic run draws from `generator` (on the
-    state's device), else from one made here and seeded with `seed`."""
+    state's device), else from one made here and seeded with `seed`.
+
+    `sharded` (True, "auto" or "rows") runs the rows decomposition of
+    parallel/step.py on the ranks of the running process group (world size
+    1 without one; `dist.init` starts it), each rank calling run_qg with
+    the whole `const` and `state`; the mode taken is returned, "rows". A
+    configuration the rows path does not take, and "gspmd", raise
+    NotImplementedError: there is no silent fallback to another mode. The
+    events gather the whole state on every rank (`dist.fetch_global`): the
+    filter and the energy budget run on it on every rank, the hooks'
+    writers and the log on the master only. The state returned is the
+    whole state, on every rank. A stochastic run draws from a generator of
+    each rank's own, seeded from (seed, rank), unless `generator` is
+    given."""
+    mode = None
     if sharded:
-        raise NotImplementedError(SHARDED_UNPORTED)
+        mode = sharded if isinstance(sharded, str) else "auto"
+        if mode not in ("auto", "rows", "gspmd"):
+            raise ValueError(f"sharded={mode!r}: use 'auto', 'rows' or "
+                             "'gspmd'")
+        if mode == "gspmd":
+            raise NotImplementedError("sharded='gspmd' " + GSPMD_UNPORTED)
+        check_rows(cfg, dist.world_size())
     hooks = hooks or RunHooks()
     if const is None:
         const = qg.build_constants(cfg, device=device)
     if state is None:
         state = qg.init_state(cfg, const)
-    if cfg.stochastic and generator is None:
-        generator = torch.Generator(device=state.q.device).manual_seed(seed)
-    step = qg.make_step(cfg, generator)
+    if mode is not None:
+        rs = make_qg_step_sharded(cfg, device=state.q.device,
+                                  generator=generator, seed=seed)
+        mode, const_step, state = rs.mode, rs.shard(const), rs.shard(state)
+        step = rs.step
+        whole = rs.gather
+    else:
+        if cfg.stochastic and generator is None:
+            generator = torch.Generator(
+                device=state.q.device).manual_seed(seed)
+        step, const_step = qg.make_step(cfg, generator), const
+
+        def whole(x):
+            return x
+    if mode is not None and not dist.is_master():
+        hooks = RunHooks()          # the writers and the log: master only
     energy = None
     if cfg.ediag > -1:
         energy = qg_energy.init_energy(cfg, device=state.q.device)
@@ -106,24 +151,26 @@ def run_qg(cfg: QGConfig, *, const=None, state=None, hooks: RunHooks = None,
     next_flt = _next_event(0.0, cfg.dtflt, eps)
     while t < tend - eps:
         if t >= next_out - eps:
+            g = whole(state)      # on every rank: a collective when sharded
             if hooks.on_output is not None:
-                hooks.on_output(state, t)
+                hooks.on_output(g, t)
             if energy is not None:
                 if write_energy is not None:
                     write_energy(energy, int(state.i))
                 energy = qg_energy.reset_window(energy)
             next_out = _next_event(t, cfg.dtout, eps)
         if cfg.dtflt > 0 and t >= next_flt - eps:
+            g = whole(state)
             if energy is not None:
-                energy = qg_energy.filter_de(cfg, const, energy, state.q,
-                                             state.psi)
-            state = wavelet_filter_step(cfg, const, state)
+                energy = qg_energy.filter_de(cfg, const, energy, g.q, g.psi)
+            g = wavelet_filter_step(cfg, const, g)
+            state = g if mode is None else rs.shard(g)
             if hooks.on_filter is not None:
-                hooks.on_filter(state, t)
+                hooks.on_filter(g, t)
             next_flt = _next_event(t, cfg.dtflt, eps)
 
         tnext = min(next_out, next_flt, tend)
-        state, diag = step(state, const, tnext)
+        state, diag = step(state, const_step, tnext)
         t = float(state.t)
         i = int(state.i)
         eps = _time_eps(t, state.t.dtype)
@@ -134,8 +181,8 @@ def run_qg(cfg: QGConfig, *, const=None, state=None, hooks: RunHooks = None,
                 f"non-finite model time after step {i}: blow-up or NaN in "
                 "the state (check DT/CFL; resume from the last checkpoint)")
         if energy is not None:
-            energy = qg_energy.energy_tend(cfg, const, energy, state.psi,
-                                           diag.dt)
+            energy = qg_energy.energy_tend(cfg, const, energy,
+                                           whole(state.psi), diag.dt)
         if hooks.on_log is not None and i % log_every == 0:
             ke = float(diag.ke)
             if ke != ke:
@@ -145,9 +192,12 @@ def run_qg(cfg: QGConfig, *, const=None, state=None, hooks: RunHooks = None,
         if max_steps is not None and i >= max_steps:
             break
 
+    state = whole(state)
     if hooks.on_output is not None and t >= next_out - eps:
         hooks.on_output(state, t)
-    return state, energy
+    if mode is None:
+        return state, energy
+    return state, energy, mode
 
 
 def run_pg(cfg: PGConfig, *, const=None, state=None, hooks: RunHooks = None,
@@ -160,7 +210,7 @@ def run_pg(cfg: PGConfig, *, const=None, state=None, hooks: RunHooks = None,
     `state` default to `mspg.build_constants(cfg, device=device)` and its
     `init_state`; `hooks.on_log` gets (i, dt, t, 0.0) every step."""
     if sharded:
-        raise NotImplementedError(SHARDED_UNPORTED)
+        raise NotImplementedError(PG_SHARDED_UNPORTED)
     hooks = hooks or RunHooks()
     if const is None:
         const = mspg.build_constants(cfg, device=device)
@@ -339,22 +389,32 @@ def main(argv=None) -> dict:
     p.add_argument("--no-output", action="store_true",
                    help="skip file output (stdout KE log only)")
     p.add_argument("--sharded", action="store_true",
-                   help="domain decomposition over the local devices")
+                   help="rows decomposition over the ranks of torchrun "
+                        "(torchrun --nproc_per_node=W -m "
+                        "msom_tpu_torch.driver ...)")
+    p.add_argument("--sharded-mode", choices=["auto", "rows", "gspmd"],
+                   default="auto",
+                   help="'rows' (and 'auto'): the rows-sharded step; "
+                        "'gspmd' is not ported")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the CUDA card")
     args = p.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError(SHARDED_UNPORTED)
     device = "cpu" if args.cpu else "cuda"
+    if args.sharded and args.model == "pg":
+        raise NotImplementedError(PG_SHARDED_UNPORTED)
+    if args.sharded:
+        dist.init(device)
+    master = dist.is_master()
 
     with open(args.config) as f:
         params_text = f.read()
     deckdir = args.deck or os.path.dirname(os.path.abspath(args.config))
+    log = print if master else (lambda *a, **k: None)
     t0 = time.time()
     hooks = stdout_hooks()
     if args.model == "pg":
         cfg = load_pg_config(params_text)
-        deck = load_pg_deck(cfg, deckdir, log=print)
+        deck = load_pg_deck(cfg, deckdir, log=log)
         const = mspg.build_constants(cfg, device=device, **deck["const"])
         state = mspg.init_state(cfg, const, **deck["init"])
         if not args.no_output:
@@ -364,20 +424,26 @@ def main(argv=None) -> dict:
                        max_steps=args.steps)
     else:
         cfg = load_qg_config(params_text)
-        deck = load_qg_deck(cfg, deckdir, log=print)
+        deck = load_qg_deck(cfg, deckdir, log=log)
         const = qg.build_constants(cfg, device=device, **deck["const"])
         state = qg.init_state(cfg, const, **deck["init"])
-        if not args.no_output:
+        if not args.no_output and master:
             hooks.on_output = OutputWriter(cfg, const, outdir=args.outdir,
                                            params_text=params_text)
-        state, _ = run_qg(cfg, const=const, state=state, hooks=hooks,
-                          max_steps=args.steps)
+        out = run_qg(cfg, const=const, state=state, hooks=hooks,
+                     max_steps=args.steps,
+                     sharded=args.sharded_mode if args.sharded else False)
+        state = out[0]
     wall = time.time() - t0
     n_steps = int(state.i)
     result = {"steps": n_steps, "t": float(state.t), "wall_s": wall,
               "points_per_s": cfg.N * cfg.N * cfg.nl * n_steps
               / max(wall, 1e-9)}
-    print(json.dumps(result))
+    if args.sharded:
+        result["ranks"] = dist.world_size()
+        dist.shutdown()
+    if master:
+        print(json.dumps(result))
     return result
 
 

@@ -24,9 +24,9 @@ record of psi and q every dtout (at t = 0 too), the restart.nc pickup
 same events with the surface buoyancy bs as a third vars.nc variable, and
 psi and bs read from restart.nc (qg-node/qg.h:492-495).
 
-One process (the port has no multi-process run yet). Not ported yet: the
-sharded run (`sharded=`, `--sharded`, ROADMAP.md queue 1, item 15), which
-raises NotImplementedError.
+One process. Not ported yet: the sharded run (`sharded=`, `--sharded`:
+the owned-node vertex step parallel/vshard.py and run_node(sharded=),
+ROADMAP.md queue 1, item 15), which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -46,8 +46,9 @@ from msom_tpu_torch.models import qg_node as node
 from msom_tpu_torch.ops import vertex
 
 UNPORTED = {
-    "sharded": "the sharded qg-node run is not ported yet (ROADMAP.md "
-               "queue 1, item 15)",
+    "sharded": "the sharded qg-node run (the owned-node vertex step "
+               "parallel/vshard.py, run_node(sharded=)) is not ported yet "
+               "(ROADMAP.md queue 1, item 15)",
 }
 
 

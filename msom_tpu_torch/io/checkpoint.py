@@ -6,8 +6,9 @@ controller's smoothing state and the filter mean included, so a resumed
 run continues bit for bit. The port's stochastic step draws from a
 torch.Generator instead of a state leaf: given one, `save_state` stores its
 state (`generator`, a uint8 array) and `load_state` restores it, so a
-restarted stochastic run continues the same stream. One process writes
-(the port has no multi-process run yet, ROADMAP.md queue 1, item 15).
+restarted stochastic run continues the same stream. One process writes:
+in a rows-sharded run the master, from the gathered state
+(parallel/step.py `gather`).
 """
 
 from __future__ import annotations

@@ -585,12 +585,15 @@ def cfl_dtmax(cfg: QGConfig, const: QGConstants, psi_g: Ghosted, dtmax0,
 
 def cfl_from_umax(cfg: QGConfig, umax_psi: torch.Tensor,
                   umax_pp: torch.Tensor | None, dtmax0: float,
-                  prev: torch.Tensor):
+                  prev: torch.Tensor, reduce_fn=None):
     """The scalar tail of the CFL chain (Basilisk timestep() called per
     layer for psi then pp, sharing the `previous` smoothing state,
     msqg/qg.h:383-391), given the (nl,) per-layer face-speed maxima.
     Without a pp its iterations are exact no-ops and are skipped. 0-d
-    tensors throughout."""
+    tensors throughout. `reduce_fn` takes the maxima of one shard to the
+    whole domain's (the rows step's parallel.halo.pmax)."""
+    if reduce_fn is not None:
+        umax_psi = reduce_fn(umax_psi)
     d = cfg.delta
     dtype = umax_psi.dtype
     big = torch.finfo(dtype).max / 4
@@ -624,12 +627,18 @@ def dtnext(t, tnext, dt):
     return torch.where(n == 0, dd, torch.minimum(dt, dt1))
 
 
-def kinetic_energy(cfg: QGConfig, psi: torch.Tensor) -> torch.Tensor:
+def kinetic_energy(cfg: QGConfig, psi: torch.Tensor, ghost_fn=ghosted,
+                   reduce_fn=None) -> torch.Tensor:
     """Surface-layer KE as logged every step: -sum 0.5*psi*lap(psi)*Delta^2
-    (msqg/qg.c:101-109)."""
+    (msqg/qg.c:101-109). On a shard of rows, `ghost_fn` gives it its ghost
+    ring and `reduce_fn` sums the shards' partial sums (the rows step's
+    parallel.halo.ghosted_rows and psum)."""
     p0 = psi[0]
-    lap = laplacian_g(ghosted(p0, _bc_psi(cfg)), cfg.delta)
-    return -torch.sum(0.5 * p0 * lap) * cfg.delta ** 2
+    lap = laplacian_g(ghost_fn(p0, _bc_psi(cfg)), cfg.delta)
+    part = torch.sum(0.5 * p0 * lap)
+    if reduce_fn is not None:
+        part = reduce_fn(part)
+    return -part * cfg.delta ** 2
 
 
 def update(cfg: QGConfig, const: QGConstants, q: torch.Tensor,

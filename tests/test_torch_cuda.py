@@ -16,7 +16,8 @@ against the CPU, walled, coastline-masked, periodic and stochastic at
 amp_stoch = 0, and the card's node noise draw in distribution; and the
 y-profile direct solve's sweeps (KV) against their plain version with the
 wrapper's checks, the varRo step (spectral and mg), the newqg step and the
-SQG step on the card against the CPU. Every test
+SQG step on the card against the CPU; and K1's and K2's rows mode on
+virtual shards against the whole-domain launch. Every test
 needs a card
 and nvcc, is marked
 `cuda` and skips without a card. The file imports neither jax nor
@@ -1322,3 +1323,85 @@ def test_newqg_and_sqg_cuda_steps_match_cpu_steps(cuda):
     for got, want in ((gn.q, cn.q), (gn.psi, cn.psi), (gs.q, cs.q),
                       (gs.bs, cs.bs), (gs.psi, cs.psi)):
         assert (got.cpu() - want).abs().max() <= 1e-10 * want.abs().max()
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("sbc", [0.0, 1.0, -1.0])
+@pytest.mark.parametrize("N,nl,world", [(64, 3, 4), (160, 4, 4), (96, 1, 2)])
+def test_rows_kernels_equal_the_whole_domain_launch(cuda, dtype, sbc, N, nl,
+                                                    world):
+    """K1's rows mode (pp, _LS_RV, topography, qforc, ENERGY_CONSERV) and
+    K2's (two tracers, a relaxation field) on `world` virtual shards
+    (shards of 16, 40: a 32-row strip and an 8-row one, and 48 rows),
+    walled, partial slip and periodic: put together, the whole-domain
+    launch within 4 ulp of max|out| (bit for bit but where the rows build
+    contracts a multiply-add differently), within LIMITS of the plain rows
+    version, one rows launch a shard each."""
+    from msom_tpu_torch.parallel import halo
+    cfg = _config(N, nl, dtype, 1000.0, flsrv=1, energy_conserv=True,
+                  sbc=sbc, nptr=2, Pe=(1e3, 2e3), ptr_r=(100.0, 0.0))
+    const = qg.build_constants(cfg, device=cuda, **_fields(
+        cfg, N, "psipg", "topo", "qforc", "ptr_relax"))
+    psi = _psi(cfg, cuda, N + nl)
+    q = qg.comp_q(cfg, const, psi).contiguous()
+    tr = _psi(cfg, cuda, N)[:, None].expand(nl, 2, N, N) \
+        * torch.tensor([1.0, -0.5], dtype=psi.dtype, device=cuda)[:, None,
+                                                                   None]
+    tr = tr.contiguous()
+    wrap = sbc == -1.0
+    n = N // world
+    pe, qe = (halo.split_rows8(f, world, wrap) for f in (psi, q))
+    te = halo.split_rows8(tr.reshape(-1, N, N), world, wrap)
+    before = fused_rhs.rows_launches, fused_tracer.rows_launches
+    got, dtrs = [], []
+    for d in range(world):
+        rows = slice(d * n, (d + 1) * n)
+        got.append(fused_rhs.rhs_fused(cfg, const, psi[:, rows],
+                                       psi_ext=pe[d], q_ext=qe[d],
+                                       row0=d * n))
+        dtrs.append(fused_tracer.tracer_fused(
+            cfg, const, psi[:, rows], tr[..., rows, :], psi_ext=pe[d],
+            tr_ext=te[d], row0=d * n))
+        dq_r, um_r = fused_rhs.rhs_fused_reference(
+            cfg, const, psi[:, rows], psi_ext=pe[d], q_ext=qe[d], row0=d * n)
+        dtr_r = fused_tracer.tracer_fused_reference(
+            cfg, const, psi[:, rows], tr[..., rows, :], psi_ext=pe[d],
+            tr_ext=te[d], row0=d * n)
+        lim = LIMITS[psi.dtype]
+        assert (got[-1][0] - dq_r).abs().max() <= lim * dq_r.abs().max()
+        assert ((got[-1][1] - um_r).abs() <= lim * um_r).all()
+        assert (dtrs[-1] - dtr_r).abs().max() <= lim * dtr_r.abs().max()
+    torch.cuda.synchronize()
+    assert (fused_rhs.rows_launches - before[0],
+            fused_tracer.rows_launches - before[1]) == (world, world)
+    # the rows kernels are their own build of the same source: bit for bit
+    # the whole-domain launch, or within 4 ulp of max|out| where the two
+    # builds contract a multiply-add differently (chip_smoke.ROWS_ULPS)
+    ulp = 4 * torch.finfo(psi.dtype).eps
+    dq, umax = fused_rhs.rhs_fused(cfg, const, psi, q)
+    dtr = fused_tracer.tracer_fused(cfg, const, psi, tr)
+    for g, w in ((torch.cat([g[0] for g in got], dim=1), dq),
+                 (torch.stack([g[1] for g in got]).amax(0), umax),
+                 (torch.cat(dtrs, dim=2), dtr)):
+        assert (g - w).abs().max() <= ulp * w.abs().max()
+
+
+def test_rows_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """Rows mode needs slabs of n_loc + 16 rows, q_ext where q is read,
+    tr_ext, and a row0 that keeps the shard in the domain."""
+    cfg = _config(64, 3, "float32", energy_conserv=True, nptr=1, Pe=(1e3,),
+                  ptr_r=(10.0,))
+    const = qg.build_constants(cfg, device=cuda)
+    psi = _psi(cfg, cuda, 0)[:, :32]
+    ext = torch.zeros((3, 48, 64), dtype=psi.dtype, device=cuda)
+    with pytest.raises(ValueError, match="psi_ext"):
+        fused_rhs.rhs_fused(cfg, const, psi, psi_ext=ext[:, :40],
+                            q_ext=ext, row0=0)
+    with pytest.raises(ValueError, match="q_ext"):
+        fused_rhs.rhs_fused(cfg, const, psi, psi_ext=ext, row0=0)
+    with pytest.raises(ValueError, match="row0"):
+        fused_rhs.rhs_fused(cfg, const, psi, psi_ext=ext, q_ext=ext,
+                            row0=40)
+    tr = torch.zeros((3, 1, 32, 64), dtype=psi.dtype, device=cuda)
+    with pytest.raises(ValueError, match="tr_ext"):
+        fused_tracer.tracer_fused(cfg, const, psi, tr, psi_ext=ext, row0=0)

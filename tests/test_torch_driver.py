@@ -304,7 +304,7 @@ def test_cli_matches_jax_main(tmp_path, capsys):
 
 @pytest.mark.parametrize("args,match", [
     (["--model", "pg", "--sharded"], "item 15"),
-    (["--sharded"], "item 15"),
+    (["--sharded", "--sharded-mode", "gspmd"], "item 15"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, args, match):
     cfgpath = write_deck(str(tmp_path / "deck"))
@@ -313,9 +313,11 @@ def test_cli_refuses_what_is_not_ported(tmp_path, args, match):
 
 
 def test_run_qg_sharded_raises():
+    """The GSPMD mode has no port: it raises rather than running another
+    mode (the rows mode runs, tests/test_torch_rows_step.py)."""
     _, tcfg = configs()
     with pytest.raises(NotImplementedError, match="item 15"):
-        tdriver.run_qg(tcfg, sharded=True, device="cpu")
+        tdriver.run_qg(tcfg, sharded="gspmd", device="cpu")
 
 
 def test_output_writer_picks_the_next_free_outdir(tmp_path, monkeypatch):

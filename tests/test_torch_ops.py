@@ -254,6 +254,8 @@ names = ["msom_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
     msom_tpu_torch.__path__, "msom_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"msom_tpu_torch.parallel." + m for m in
+        ("dist", "halo", "spectral_shard", "step")} <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "msom_tpu."))
              or m == "msom_tpu")
@@ -263,8 +265,8 @@ print(len(names))
 
 
 def test_port_imports_no_jax_and_no_reference_package():
-    """Importing the port and every module in it leaves jax and msom_tpu
-    out of sys.modules."""
+    """Importing the port and every module in it, the distributed step's
+    `parallel/` among them, leaves jax and msom_tpu out of sys.modules."""
     out = subprocess.run([sys.executable, "-c", _ISOLATION],
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

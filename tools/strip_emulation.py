@@ -18,8 +18,9 @@ limit (1e-11, 1e-4 of max|dtr|). The kernel's ring needs DEPTH + 3 = 6 rows: the
 shipped ring, 6 and 5, and 5 must go wrong. `--tsan` also builds each ring
 with ThreadSanitizer, its copies landing early, into a program that runs
 the cases and prints how many races it reported (a copy into a slot that
-another thread reads in the same step is one). Builds go to
-build/strip_emulation/.
+another thread reads in the same step is one). Last it runs the rows mode
+on virtual shards against the plain rows version (`rows_worst_error`).
+Builds go to build/strip_emulation/.
 """
 
 import argparse
@@ -122,14 +123,14 @@ TSAN_MAIN = r"""
 #include <vector>
 extern "C" int fused_tracer_f32(const void*, const void*, const void*, void*,
     int, int, int, double, const double*, const double*, int, int, int,
-    long long, int, void*);
+    long long, int, int, int, int, void*);
 extern "C" int fused_tracer_f64(const void*, const void*, const void*, void*,
     int, int, int, double, const double*, const double*, int, int, int,
-    long long, int, void*);
+    long long, int, int, int, int, void*);
 template <class T>
 int run(int (*fn)(const void*, const void*, const void*, void*, int, int,
                   int, double, const double*, const double*, int, int, int,
-                  long long, int, void*),
+                  long long, int, int, int, int, void*),
         int N, int nl, int nptr, int rows, int gx, int gy, long long smem,
         int periodic) {
   const size_t n = (size_t)nl * nptr * N * N;
@@ -139,7 +140,7 @@ int run(int (*fn)(const void*, const void*, const void*, void*, int, int,
   double iPe[16], ir[16];
   for (int j = 0; j < 16; ++j) { iPe[j] = 1e-3 * (j + 1); ir[j] = 1e-2; }
   return fn(psi.data(), tr.data(), relax.data(), out.data(), N, nl, nptr,
-            0.1, iPe, ir, rows, gx, gy, smem, periodic, nullptr);
+            0.1, iPe, ir, rows, gx, gy, smem, periodic, 0, N, 0, nullptr);
 }
 int main() {
   int rc = 0;
@@ -230,18 +231,19 @@ def _config(N, nl, nptr, dtype, periodic=False):
                                 for j in range(nptr))).validate()
 
 
+def _load(lib_path: Path):
+    lib = ctypes.CDLL(str(lib_path))
+    for fn in (lib.fused_tracer_f32, lib.fused_tracer_f64):
+        fn.argtypes = fused_tracer.ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def worst_error(lib_path: Path, cases=CASES, periodic=(False, True)) -> float:
     """The largest error of the emulated kernel against the plain version
     over `cases`, walled and periodic, f64 and f32, relaxation field on and
     off, as a share of its limit (above 1: wrong)."""
-    lib = ctypes.CDLL(str(lib_path))
-    ptr, dbl = ctypes.c_void_p, ctypes.POINTER(ctypes.c_double)
-    for fn in (lib.fused_tracer_f32, lib.fused_tracer_f64):
-        fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_double, dbl, dbl, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_int, ptr]
-        fn.restype = ctypes.c_int
+    lib = _load(lib_path)
     worst = 0.0
     for dtype, per in ((d, p) for d in ("float64", "float32")
                        for p in periodic):
@@ -269,12 +271,74 @@ def worst_error(lib_path: Path, cases=CASES, periodic=(False, True)) -> float:
                         None if relax is None else relax.ctypes.data,
                         out.ctypes.data, N, nl, nptr, cfg.delta,
                         arr(*cfg.iPe[:nptr]), arr(*cfg.ptr_ir[:nptr]),
-                        fused_tracer.SY, gx, gy, smem, int(per), None)
+                        fused_tracer.SY, gx, gy, smem, int(per), 0, N, 0,
+                        None)
                 if rc != 0:
                     raise RuntimeError(f"strip_emulation: launch refused "
                                        f"({rc}) at N = {N}")
                 err = float(np.abs(out - ref).max() / np.abs(ref).max())
                 # a NaN (a ring cell never written) is as wrong as can be
+                worst = max(worst, err / LIMITS[dtype]
+                            if np.isfinite(err) else np.inf)
+    return worst
+
+
+# (N, nl, nptr, shards) of the rows mode: shards of 24 rows (one partial
+# strip) and of 16
+ROWS_CASES = [(48, 2, 2, 2), (64, 1, 3, 4)]
+# the rows mode's build (csrc/fused_tracer_rows.cu): the source with its
+# rows constant on
+ROWS = [("#include <cuda_runtime.h>",
+         "#define FUSED_TRACER_ROWS 1\n#include <cuda_runtime.h>")]
+
+
+def rows_worst_error(lib_path: Path, cases=ROWS_CASES,
+                     periodic=(False, True)) -> float:
+    """The emulated rows kernel (built with the ROWS patch) on virtual
+    shards (each shard's launch with its halo slabs cut from the whole
+    field,
+    parallel/halo.split_rows8) against the plain rows version, walled and
+    periodic, f64 and f32, the relaxation field on; the largest error as a
+    share of its limit."""
+    from msom_tpu_torch.parallel import halo
+    lib = _load(lib_path)
+    worst = 0.0
+    for dtype, per in ((d, p) for d in ("float64", "float32")
+                       for p in periodic):
+        npt = np.dtype(dtype)
+        for N, nl, nptr, W in cases:
+            cfg = _config(N, nl, nptr, dtype, per)
+            rng = np.random.default_rng(N + nl + W)
+            psi = torch.as_tensor(
+                (1e-3 * rng.uniform(-1, 1, (nl, N, N))).astype(npt))
+            tr = torch.as_tensor(
+                rng.uniform(-1, 1, (nl, nptr, N, N)).astype(npt))
+            const = qg.build_constants(
+                cfg, device="cpu",
+                ptr_relax=rng.uniform(-1, 1, tr.shape).astype(npt))
+            n = N // W
+            p_ext = halo.split_rows8(psi, W, per)
+            t_ext = halo.split_rows8(tr.reshape(nl * nptr, N, N), W, per)
+            (gx, gy, _), _, smem = fused_tracer.launch_geometry(
+                N, nl, nptr, npt.itemsize, n)
+            fn = (lib.fused_tracer_f64 if dtype == "float64"
+                  else lib.fused_tracer_f32)
+            arr = ctypes.c_double * nptr
+            for d in range(W):
+                rows = slice(d * n, (d + 1) * n)
+                ref = fused_tracer.tracer_fused_reference(
+                    cfg, const, psi[:, rows], tr[..., rows, :],
+                    psi_ext=p_ext[d], tr_ext=t_ext[d], row0=d * n)
+                out = torch.full_like(ref, float("nan"))
+                rc = fn(p_ext[d].data_ptr(), t_ext[d].data_ptr(),
+                        const.ptr_relax.data_ptr(), out.data_ptr(), N, nl,
+                        nptr, cfg.delta, arr(*cfg.iPe[:nptr]),
+                        arr(*cfg.ptr_ir[:nptr]), fused_tracer.SY, gx, gy,
+                        smem, int(per), d * n, n, 1, None)
+                if rc != 0:
+                    raise RuntimeError(f"strip_emulation: rows launch "
+                                       f"refused ({rc}) at N = {N}")
+                err = ((out - ref).abs().max() / ref.abs().max()).item()
                 worst = max(worst, err / LIMITS[dtype]
                             if np.isfinite(err) else np.inf)
     return worst
@@ -308,7 +372,10 @@ def main():
                   for m in ("late", "early"))
           and (wrong[5, "late"] or wrong[5, "early"]))
     print("ring sizes as the rule says" if ok else "ring rule NOT shown")
-    return 0 if ok else 1
+    w = rows_worst_error(build("rows", ROWS))
+    print(f"rows mode on virtual shards: worst error {w:.3e} of the limit, "
+          f"{'WRONG' if w > 1 else 'right'}")
+    return 0 if ok and w <= 1 else 1
 
 
 if __name__ == "__main__":
