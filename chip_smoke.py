@@ -6,7 +6,7 @@
 Needs one CUDA card, nvcc and the repository checkout; imports nothing of
 JAX or msom_tpu. With no argument every phase runs; with phase names
 (kernels, steps, paths, fused_mm, mg, node, periodic, stochastic, driver,
-driver_node, mspg, coupling, varro, newqg, sqg, rows)
+driver_node, mspg, coupling, varro, newqg, sqg, rows, api, f32val)
 the build and those phases only (for work on one part: the kernels' record
 then lists what ran). Phases, in order; any failure exits non-zero:
 
@@ -209,6 +209,26 @@ then lists what ran). Phases, in order; any failure exits non-zero:
    ratio, device busy and idle share of each, the rows launches, the two
    states after the same steps); K1's and K2's rows launch on a 512-row
    shard timed against its bound, beside the whole-domain launch.
+19. the tendency API (phase name api): api.qg_tendency on the card through
+   K1 (with tracers K2) against the same call through their plain
+   versions, at bench's uncoupled and coupled 2048^2 x 4 f32, direction
+   +1 and -1 (the irreversible half large enough to show a missed flip),
+   and against the CPU at 128^2 x 3 f64; bfn_integrate at bench's
+   uncoupled 2048^2 x 4 f32, forward and then backward from the
+   forward's end (dt < 0), nudged toward the bare step's final q: five
+   rounds of one call of 20 AB3 steps each (median and range), K1's
+   launches a step (1), device busy and idle share, beside the bare
+   make_step's rounds in the same phase; K1 alone on the backward's
+   final state (the flipped config); pg_steady_state at 8^2 x 3 f64 on
+   the card and the CPU (seconds, Newton iterations, final max|F|); the
+   native AsyncBasWriter on the forward's 2048^2 x 4 psi beside
+   io/bas.write_bas, read back equal.
+20. the f32 validation (phase name f32val): the Verron 256^2 x 3 double gyre
+   in f32 on the card from the committed f64 truth's q at step 100
+   (tools/f32val_float64_cpu.npz) to step 3000: the KE mean of the last
+   1000 steps within 1% of the truth's and the final surface KE
+   spectrum's ratio to the truth's, median within 0.97-1.03 (GOLDEN.md's
+   bar); q's drift at the truth's snapshots.
 
 TF32 is switched off for matmuls and convolutions before anything runs:
 1-pass reduced-precision transforms give O(1) solution error at N = 2048.
@@ -241,7 +261,7 @@ MG_SOLVE_LIMIT = 1e-10                    # CUDA solve vs CPU solve, f64
 MG_MAX_CYCLES = 20      # a solve that needs more at tol 1e-3 is spinning
 PHASES = ("kernels", "steps", "paths", "fused_mm", "mg", "node", "periodic",
           "stochastic", "driver", "driver_node", "mspg", "coupling", "varro",
-          "newqg", "sqg", "rows")
+          "newqg", "sqg", "rows", "api", "f32val")
 K1_OPTIONS = ("pg", "pg_flsrv", "topo", "qforc", "energy_conserv", "slip",
               "all")
 # the periodic kernel's option sets (no slip: the domain has no wall), and
@@ -3870,6 +3890,443 @@ def k7_checks(periodic, shapes):
     return ok, errs
 
 
+# ---------------------------------------------------------------------------
+# the tendency API (api) and the f32 validation of the main path (f32val)
+# ---------------------------------------------------------------------------
+
+# every irreversible term on, so that direction = -1 flips each of them
+API_PHYSICS = dict(Re=500.0, Eks=0.001)
+# AB3's stability interval on the negative real axis ends near -0.545; the
+# clamped DT puts the biharmonic's fastest mode at -1, so bfn_integrate
+# steps a quarter of it
+BFN_DT_FRAC = 0.25
+BFN_NUDGE = 0.5           # nudging rate toward the observed q
+PG_NK = dict(N=8, nl=3, ys=0.3, r=0.05, tau_s=3e-2, tau0=0.05, kv=5e-4,
+             kh=5e-4, omega=0.2, DT=5e-3, dtype="float64")
+PG_NK_SPINUP = 400        # tests/test_api_analysis.py's warm start
+BAS_SNAPSHOTS = 3
+# GOLDEN.md:169-208: the f32 run's KE mean over the last 1000 steps within
+# 1% of the f64 truth's, the final spectrum's ratio median in 0.97-1.03
+F32VAL_TRUTH = "tools/f32val_float64_cpu.npz"
+F32VAL_START, F32VAL_STEPS, F32VAL_WINDOW = 100, 3000, 1000
+F32VAL_KE_BAR, F32VAL_SPEC_BAR = 0.01, (0.97, 1.03)
+
+
+def api_kernel_checks(QGConfig, rows):
+    """K1 (and with tracers K2) on the tendency route: api.qg_tendency on
+    the card against the same call routed to K1's plain version
+    (const.rhs_kernel False) and K2's plain version of the same psi, at
+    bench's uncoupled 2048^2 x 4 f32 and the coupled configuration with
+    two tracers, direction = +1 and -1, within LIMITS; the irreversible
+    half (fwd - bwd)/2 must be large enough that a flip the kernel missed
+    would show. Then qg_tendency on the card against the CPU in f64 at
+    128^2 x 3 (the Verron physics with Re and Eks on; with the coupling
+    and two tracers too), each direction, within STEP_LIMIT. Appends K2's
+    record on the route; returns (ok, K1's largest f32 error)."""
+    import torch
+    from msom_tpu_torch import api
+    from msom_tpu_torch.models import fused_tracer, qg
+    N, nl = 2048, 4
+    ok, k1_err = True, 0.0
+    for label in ("uncoupled", "coupled"):
+        coupled = label == "coupled"
+        cfg = bench_config(QGConfig, N, nl, "float32", **API_PHYSICS,
+                           **(TRACERS if coupled else {}))
+        const = qg.build_constants(
+            cfg, device="cuda", **(coupled_fields(cfg) if coupled else {}))
+        plain = dataclasses.replace(const, rhs_kernel=False)
+        rng = np.random.default_rng(1)
+        psi0 = 1e-3 * rng.uniform(-1, 1, (nl, N, N))
+        tr0 = 1e-3 * rng.uniform(-1, 1, (nl, cfg.nptr, N, N)) \
+            if coupled else None
+        state = qg.init_state(cfg, const, psi0=psi0, tracers0=tr0)
+        q, tr = state.q, state.tracers
+        out = {}
+        reset_counts()
+        for d in (1.0, -1.0):
+            out[d] = api.qg_tendency(cfg, const, q, d, tracers=tr)
+        launched = kernel_counts()
+        torch.cuda.synchronize()
+        want = {"K1": 2, "K2": 2 if coupled else 0}
+        good = all(launched[k] == want.get(k, 0) for k in launched)
+        for d in (1.0, -1.0):
+            got = out[d] if coupled else (out[d],)
+            c = api.signed_config(cfg, d)
+            ref = [api.qg_tendency(cfg, plain, q, d)]
+            if coupled:
+                ref.append(fused_tracer.tracer_fused_reference(
+                    c, const, api.q_to_psi(c, const, q), tr))
+            for name, g, r in zip(("K1", "K2"), got, ref):
+                err = (g - r).abs().max().item()
+                rel = err / r.abs().max().item()
+                good &= rel <= LIMITS[4]
+                if name == "K1":
+                    k1_err = max(k1_err, err)
+                print(f"api {name} {label} {N}^2 x {nl} f32 direction "
+                      f"{d:+.0f}: max|d out|/max|out| = {rel:.3e} (limit "
+                      f"{LIMITS[4]:g})")
+        fwd, bwd = (out[d][0] if coupled else out[d] for d in (1.0, -1.0))
+        share = (0.5 * (fwd - bwd)).abs().max().item() \
+            / fwd.abs().max().item()
+        good &= share >= 10 * LIMITS[4]
+        print(f"api tendency route {label}: launches "
+              + ", ".join(f"{k} {v}" for k, v in launched.items())
+              + f" in two calls; irreversible share max|fwd - bwd|/2 / "
+              f"max|fwd| = {share:.3e} (at least {10 * LIMITS[4]:g}) "
+              f"{'ok' if good else 'FAIL'}")
+        ok &= good
+        if good and coupled:
+            psi = api.q_to_psi(cfg, const, q)
+            row = _kernel_row(
+                "api coupled", "fused_tracer",
+                lambda: fused_tracer.tracer_fused(cfg, const, psi, tr),
+                lambda: fused_tracer.tracer_fused_reference(cfg, const, psi,
+                                                            tr),
+                fused_tracer.bound_work(cfg, const, 4), launched["K2"],
+                fused_tracer.SOURCE, "msom_tpu/models/pallas_rhs.py:778",
+                "qg_tendency with tracers, directions +1 and -1")
+            if row is None:
+                return False, k1_err
+            rows.append(row)
+            del psi
+        del const, plain, state, q, tr, out, fwd, bwd
+        torch.cuda.empty_cache()
+    if not ok:
+        return False, k1_err
+
+    # the card against the CPU, f64, 128^2 x 3
+    for label, coupled in (("uncoupled", False), ("coupled", True)):
+        cfg = verron(QGConfig, 128, **API_PHYSICS,
+                     **(TRACERS if coupled else {}))
+        rng = np.random.default_rng(2)
+        psi0 = 1e-3 * rng.uniform(-1, 1, (cfg.nl, 128, 128))
+        tr0 = 1e-3 * rng.uniform(-1, 1, (cfg.nl, cfg.nptr, 128, 128)) \
+            if coupled else None
+        res = {}
+        for where in ("cpu", "cuda"):
+            const = qg.build_constants(
+                cfg, device=where, **(coupled_fields(cfg) if coupled
+                                      else {}))
+            state = qg.init_state(cfg, const, psi0=psi0, tracers0=tr0)
+            res[where] = {d: api.qg_tendency(cfg, const, state.q, d,
+                                             tracers=state.tracers)
+                          for d in (1.0, -1.0)}
+        rels = []
+        for d in (1.0, -1.0):
+            pairs = zip(res["cuda"][d], res["cpu"][d]) if coupled \
+                else [(res["cuda"][d], res["cpu"][d])]
+            rels += [_rel(g, w) for g, w in pairs]
+        good = max(rels) <= STEP_LIMIT
+        print(f"api qg_tendency {label} 128^2 x 3 f64 cuda vs cpu, "
+              f"directions +1 and -1: rel " + ", ".join(f"{r:.3e}"
+                                                        for r in rels)
+              + f" (limit {STEP_LIMIT:g}) {'ok' if good else 'FAIL'}")
+        ok &= good
+    return ok, k1_err
+
+
+def bfn_path(QGConfig, rows, k1_err):
+    """bfn_integrate at bench's uncoupled 2048^2 x 4 f32: the bare
+    make_step first (20 warm-up steps, timed_rounds, a four-step profile),
+    whose final q is the observation; then from the state after the
+    warm-up, forward (direction +1, dt = BFN_DT_FRAC x the clamped DT,
+    nudged toward the observation at BFN_NUDGE) and backward from the
+    forward's end (direction -1, dt < 0, the nudge's sign flipped so that
+    it still pulls toward the observation), each as timed_rounds of one
+    bfn_integrate call of ROUND_STEPS AB3 steps, with K1's launches a
+    step and a profile of one call. K1 alone on the backward's final psi
+    (the flipped config) against its plain version and bound. Returns
+    (ok, the forward's final psi)."""
+    import torch
+    from msom_tpu_torch import api
+    from msom_tpu_torch.models import fused_rhs, qg
+    N, nl, warm = 2048, 4, 20
+    shape = (nl, N, N)
+    cfg = bench_config(QGConfig, N, nl, "float32")
+    const = qg.build_constants(cfg, device="cuda")
+    psi0 = 1e-3 * np.random.default_rng(0).uniform(-1, 1, shape)
+    state = qg.init_state(cfg, const, psi0=psi0)
+    step = qg.make_step(cfg)
+    for _ in range(warm):
+        state, diag = step(state, const, 1e18)
+    torch.cuda.synchronize()
+    q_start = state.q.clone()
+    box = [state, diag]
+
+    def one_step():
+        box[0], box[1] = step(box[0], const, 1e18)
+
+    reset_counts()
+    med_s, ms_s = timed_rounds(one_step)
+    k1_bare = kernel_counts()["K1"]
+    busy_s = sum(r[0] for r in kernel_profile("bare step", one_step, 4,
+                                              med_s))
+    finite = state_ok(box[0], box[1], shape)
+    print(f"bfn bare make_step {N}^2 x {nl} f32 after {warm} warm-up steps: "
+          + rounds_line(ms_s, med_s, busy_s)
+          + f", K1 launches {k1_bare} over {ROUNDS * ROUND_STEPS} steps, "
+          f"finite {finite}")
+    if not finite:
+        return False, None
+    q_obs = box[0].q.clone()
+    del box
+    dt = BFN_DT_FRAC * cfg.dt_clamped()
+    scale = q_obs.abs().max().item()
+
+    def dist(q):
+        return (q - q_obs).abs().max().item() / scale
+
+    ok, qbox = True, [q_start]
+    print(f"bfn: dt = {dt:.6e} ({BFN_DT_FRAC} x the clamped DT), nudging "
+          f"rate {BFN_NUDGE}, max|q - q_obs|/max|q_obs| at the start "
+          f"{dist(q_start):.4e}")
+    launched_all = 0
+    for label, d, sign in (("forward", 1.0, 1.0), ("backward", -1.0, -1.0)):
+        def nudge(q, i, sign=sign):
+            return sign * BFN_NUDGE * (q_obs - q)
+
+        def one_call(d=d, sign=sign, nudge=nudge):
+            qbox[0] = api.bfn_integrate(cfg, const, qbox[0], ROUND_STEPS,
+                                        direction=d, dt=sign * dt,
+                                        nudge_fn=nudge)
+
+        reset_counts()
+        med, ms = timed_rounds(one_call, steps=1)
+        launched = kernel_counts()
+        steps = ROUNDS * ROUND_STEPS
+        per = [m / ROUND_STEPS for m in ms]
+        busy = sum(r[0] for r in kernel_profile(f"bfn {label} (one call of "
+                                                f"{ROUND_STEPS} AB3 steps)",
+                                                one_call, 1, med))
+        q = qbox[0]
+        finite = bool(torch.isfinite(q).all())
+        good = (finite and launched["K1"] == steps
+                and all(v == 0 for k, v in launched.items() if k != "K1"))
+        launched_all += launched["K1"]
+        print(f"bfn {label} path {N}^2 x {nl} f32 (direction {d:+.0f}, "
+              f"dt {sign * dt:+.6e}): "
+              + rounds_line(per, med / ROUND_STEPS, busy / ROUND_STEPS)
+              .replace("ms/step", "ms/AB3 step")
+              + f"; K1 launches {launched['K1']} over {steps} AB3 steps "
+              f"({launched['K1'] / steps:.2f} a step; expected 1), others "
+              + ", ".join(f"{k} {v}" for k, v in launched.items()
+                          if k != "K1")
+              + f"; max|q - q_obs|/max|q_obs| {dist(q):.4e}, finite "
+              f"{finite}; bare make_step {med_s:.4f} ms/step, ratio "
+              f"{med / ROUND_STEPS / med_s:.4f} {'ok' if good else 'FAIL'}")
+        ok &= good
+    if not ok:
+        return False, None
+    c = api.signed_config(cfg, -1.0)
+    psi_b = api.q_to_psi(c, const, qbox[0]).contiguous()
+    row = _kernel_row(
+        "api bfn backward", "fused_rhs",
+        lambda: fused_rhs.rhs_fused(c, const, psi_b)[0],
+        lambda: fused_rhs.rhs_fused_reference(c, const, psi_b)[0],
+        fused_rhs.bound_work(c, const, 4), launched_all, fused_rhs.SOURCE,
+        "msom_tpu/models/pallas_rhs.py:441",
+        "qg_tendency in bfn_integrate, direction -1 (Re4 and Ekb "
+        "flipped)")
+    if row is None:
+        return False, None
+    row["max_abs_err"] = max(row["max_abs_err"], k1_err)
+    rows.append(row)
+    psi_f = api.q_to_psi(cfg, const, q_obs)
+    del const, psi_b, qbox, q_obs, q_start
+    torch.cuda.empty_cache()
+    return True, psi_f
+
+
+def pg_nk_check(PGConfig):
+    """pg_steady_state on the card and on the CPU, f64, the test's small
+    PG config (tests/test_api_analysis.py:124) warm-started by 400 CPU
+    steps, the test's call (f_tol 1e-8, 40 iterations: the convection
+    switch's Newton floor stops it first, and it returns its best
+    iterate): seconds, Newton iterations (scipy's callback), final
+    max|F| of each; pg_tendency on the card against the CPU at the start
+    within STEP_LIMIT, and the card's solution below 0.15 of the start's
+    residual (the test's contract)."""
+    import warnings
+
+    import torch
+    from msom_tpu_torch import api
+    from msom_tpu_torch.models import mspg
+    cfg = PGConfig(**PG_NK)
+    const = mspg.build_constants(cfg, device="cpu")
+    state = mspg.init_state(cfg, const)
+    step = mspg.make_step(cfg)
+    big = torch.tensor(1e9, dtype=torch.float64)
+    for _ in range(PG_NK_SPINUP):
+        state, _ = step(state, const, big)
+    x0 = api.pg_pack(state)
+    res, F0 = {}, {}
+    for where in ("cpu", "cuda"):
+        const = mspg.build_constants(cfg, device=where)
+        F0[where] = api.pg_tendency(cfg, const, x0)
+        n = [0]
+
+        def count(x, f, n=n):
+            n[0] += 1
+
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", RuntimeWarning)
+            sol = api.pg_steady_state(cfg, const, x0, f_tol=1e-8,
+                                      maxiter=40, callback=count)
+        secs = time.perf_counter() - t0
+        r = np.abs(api.pg_tendency(cfg, const, sol)).max()
+        stalled = any("best iterate" in str(w.message) for w in caught)
+        res[where] = (secs, n[0], r, stalled, np.isfinite(sol).all())
+    r0 = np.abs(F0["cpu"]).max()
+    rel = np.abs(F0["cuda"] - F0["cpu"]).max() / r0
+    good = (rel <= STEP_LIMIT and res["cuda"][4]
+            and res["cuda"][2] < 0.15 * r0)
+    print(f"api pg_steady_state {cfg.N}^2 x {cfg.nl} f64 (f_tol 1e-8, "
+          f"maxiter 40, from {PG_NK_SPINUP} CPU steps, max|F| {r0:.6e}): "
+          + "; ".join(f"{w} {s:.3f} s, {it} Newton iterations, final "
+                      f"max|F| {r:.6e}, stalled at the Newton floor "
+                      f"{st}" for w, (s, it, r, st, _) in res.items())
+          + f"; pg_tendency cuda vs cpu at the start rel {rel:.3e} (limit "
+          f"{STEP_LIMIT:g}) {'ok' if good else 'FAIL'}")
+    return good
+
+
+def async_writer_check(psi, L0):
+    """AsyncBasWriter on the forward run's psi (4 x 2048^2 f32):
+    BAS_SNAPSHOTS submissions (each a copy to the host, then the writer's
+    copy) and a flush, beside io/bas.write_bas of one snapshot: seconds a
+    snapshot, the submit's own seconds (what the step loop would wait),
+    each file read back equal and byte for byte write_bas's."""
+    import shutil
+    import tempfile
+
+    from msom_tpu_torch import native
+    from msom_tpu_torch.io.bas import read_bas, write_bas
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_api_")
+    try:
+        ref = f"{tmp}/write_bas.bas"
+        t0 = time.perf_counter()
+        host = psi.cpu().numpy()
+        write_bas(ref, host, L0)
+        sync_s = time.perf_counter() - t0
+        w = native.AsyncBasWriter()
+        paths = [f"{tmp}/async{k}.bas" for k in range(BAS_SNAPSHOTS)]
+        t0 = time.perf_counter()
+        submit_s = 0.0
+        for p in paths:
+            t1 = time.perf_counter()
+            w.submit(p, psi, L0)
+            submit_s += time.perf_counter() - t1
+        failed = w.flush()
+        async_s = (time.perf_counter() - t0) / BAS_SNAPSHOTS
+        w.close()
+        want = open(ref, "rb").read()
+        same = all(open(p, "rb").read() == want for p in paths)
+        back = native.read_bas_native(paths[0])
+        equal = bool(np.array_equal(back, host)
+                     and np.array_equal(read_bas(paths[-1])[0], host))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    good = failed == 0 and same and equal
+    print(f"api AsyncBasWriter {tuple(psi.shape)} f32 ({host.nbytes} B): "
+          f"{async_s:.4f} s a snapshot over {BAS_SNAPSHOTS} (submit "
+          f"{submit_s / BAS_SNAPSHOTS:.4f} s of it, the copy to the host "
+          f"included), io/bas.write_bas {sync_s:.4f} s; the library's "
+          f"load or build {build_s:.2f} s; failed writes {failed}, files "
+          f"byte for byte write_bas's {same}, read back equal {equal} "
+          f"{'ok' if good else 'FAIL'}")
+    return good
+
+
+def f32val_check(QGConfig):
+    """The f32 validation of the main path: the Verron 256^2 x 3 double gyre
+    (tools/f32_validation.py:33-36) in f32 on the card from the f64
+    truth's q at step 100 (tools/f32val_float64_cpu.npz; psi from
+    api.q_to_psi in f64, t = the sum of the truth's first 100 dt, dt_prev
+    = its dt[99]: the step's dt, where the state it came from held the
+    corrector's smoothed CFL value, which the truth does not store) to
+    step 3000. The KE mean over the last 1000 steps against the truth's,
+    and the surface layer's ke_spectrum against the truth's final psi's
+    over the bins above 1e-6 of its peak: GOLDEN.md's bar, KE mean within
+    1% and the ratio's median within 0.97-1.03. Also q's drift from the
+    truth's snapshots (GOLDEN.md's trajectory table), printed only: f32
+    trajectories part from f64 ones by chaos."""
+    import os
+
+    import torch
+    from msom_tpu_torch import analysis, api
+    from msom_tpu_torch.models import qg
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        F32VAL_TRUTH)
+    truth = np.load(path)
+    cfg32, cfg64 = (verron(QGConfig, 256, dtype=t, tend=1e18, dtout=1e18)
+                    for t in ("float32", "float64"))
+    q100 = torch.as_tensor(truth[f"q_{F32VAL_START}"]).cuda()
+    const64 = qg.build_constants(cfg64, device="cuda")
+    psi100 = api.q_to_psi(cfg64, const64, q100)
+    del const64
+    const = qg.build_constants(cfg32, device="cuda")
+    dts = truth["dt"]
+
+    def scalar(v, dtype=torch.float32):
+        return torch.tensor(v, dtype=dtype, device="cuda")
+
+    state = qg.QGState(q=q100.float().contiguous(),
+                       psi=psi100.float().contiguous(),
+                       t=scalar(dts[:F32VAL_START].sum()),
+                       dt_prev=scalar(dts[F32VAL_START - 1]),
+                       i=scalar(F32VAL_START, torch.int32))
+    step = qg.make_step(cfg32)
+    kes, dt_run, snaps = [], [], {}
+    n = F32VAL_STEPS - F32VAL_START
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for k in range(F32VAL_START + 1, F32VAL_STEPS + 1):
+        state, diag = step(state, const, 1e18)
+        kes.append(diag.ke)
+        dt_run.append(diag.dt)
+        if f"q_{k}" in truth.files:
+            snaps[k] = state.q.clone()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / n
+    ke = torch.stack(kes).double().cpu().numpy()
+    dt_run = torch.stack(dt_run).double().cpu().numpy()
+    w = F32VAL_WINDOW
+    ke_err = ke[-w:].mean() / truth["ke"][-w:].mean() - 1.0
+    delta = cfg32.delta
+    _, E32 = analysis.ke_spectrum(state.psi[0], delta)
+    _, E64 = analysis.ke_spectrum(truth["psi_final"][0], delta)
+    m = E64 > E64.max() * 1e-6
+    rat = E32[m] / E64[m]
+    med = float(np.median(rat))
+    finite = bool(torch.isfinite(state.q).all()) and np.isfinite(ke).all()
+    drift = {k: _rel(v, truth[f"q_{k}"]) for k, v in snaps.items()}
+    good = (finite and abs(ke_err) <= F32VAL_KE_BAR
+            and F32VAL_SPEC_BAR[0] <= med <= F32VAL_SPEC_BAR[1])
+    print(f"f32val Verron 256^2 x 3 f32 on the card, steps "
+          f"{F32VAL_START}-{F32VAL_STEPS} from the f64 truth's q_"
+          f"{F32VAL_START}: {ms:.4f} ms/step, t {state.t.item():.6f} "
+          f"(truth {float(truth['t_final']):.6f}); KE mean of the last {w} "
+          f"steps {ke[-w:].mean():.6e} against {truth['ke'][-w:].mean():.6e}"
+          f" (error {ke_err:+.4%}, bar {F32VAL_KE_BAR:.0%}), std "
+          f"{ke[-w:].std():.4e} against {truth['ke'][-w:].std():.4e}, dt "
+          f"mean {dt_run[-w:].mean():.6e} against "
+          f"{truth['dt'][-w:].mean():.6e}; surface KE spectrum ratio over "
+          f"{int(m.sum())} bins above 1e-6 of the peak: median {med:.4f} "
+          f"(bar {F32VAL_SPEC_BAR[0]}-{F32VAL_SPEC_BAR[1]}), range "
+          f"{rat.min():.4f}-{rat.max():.4f}; q's drift from the truth "
+          f"max|dq|/max|q| " + ", ".join(f"step {k} {v:.3e}"
+                                         for k, v in drift.items())
+          + f"; finite {finite} "
+          f"{'ok' if good else 'FAIL (a finding: ROADMAP.md section 3)'}")
+    return good
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4231,6 +4688,28 @@ def main() -> int:
         finally:
             dist.shutdown()
             shutil.rmtree(tmp, ignore_errors=True)
+
+    # 19. the tendency API: K1 and K2 on the tendency route, the card
+    # against the CPU, bfn_integrate at full width beside the bare step,
+    # pg_steady_state, the native AsyncBasWriter
+    if wanted("api"):
+        good, k1_err = api_kernel_checks(QGConfig, rows)
+        if not good:
+            return 19
+        print(f"api checks done at {time.perf_counter() - t_start:.0f} s")
+        good, psi = bfn_path(QGConfig, rows, k1_err)
+        if not (good and pg_nk_check(PGConfig)
+                and async_writer_check(psi, 80.0)):
+            return 19
+        del psi
+        torch.cuda.empty_cache()
+        print(f"api path done at {time.perf_counter() - t_start:.0f} s")
+
+    # 20. the f32 validation of the main path
+    if wanted("f32val"):
+        if not f32val_check(QGConfig):
+            return 20
+        print(f"f32val done at {time.perf_counter() - t_start:.0f} s")
 
     print(f"total {time.perf_counter() - t_start:.0f} s")
     print("kernels: " + json.dumps(sorted({r["name"] for r in rows})))

@@ -23,7 +23,14 @@ PGOutputWriter, `--model pg`); and the offline PG <-> QG coupling loop
 tendency then runs as torch ops); and the rows-sharded msqg step over
 torch.distributed (parallel/: the process group, the 8-row halo slabs,
 the pencil spectral solve, make_qg_step_sharded; driver.run_qg(sharded=)),
-whose shards run K1's and K2's rows mode. Seven hand-written Hopper kernels:
+whose shards run K1's and K2's rows mode; the tendency API (api.py:
+q_to_psi, psi_to_q, qg_tendency through K1 and K2, qg_energy_tendencies,
+the back-and-forth-nudging loop bfn_integrate, and mspg's flat-vector
+pg_tendency with its Newton-Krylov steady state and continuations), the
+analysis toolchain (analysis.py: spectra, budgets, .bas to NetCDF,
+regrid, modes, linear stability) and the native host library (native/:
+the .bas codec, AsyncBasWriter, eig_tridiag_batch; basio.cpp built with
+g++ at first use). Eight hand-written Hopper kernels:
 the fused tendency (models/fused_rhs.py, csrc/fused_rhs.cu), the fused
 tracer tendency (models/fused_tracer.py, csrc/fused_tracer.cu), the fused
 basis-matmul spectral solve (solvers/fused_spectral.py,
@@ -31,7 +38,9 @@ csrc/fused_spectral.cu; f32 on the tensor cores), the multigrid's
 red-black line sweep and fused residual (solvers/fused_mg.py,
 csrc/mg_sweep.cu, csrc/mg_residual.cu), and the qg-node tendency and
 masked vertex relaxation (models/fused_node_rhs.py, csrc/node_rhs.cu;
-solvers/fused_vmg.py, csrc/vmg_sweep.cu: five sweeps a launch).
+solvers/fused_vmg.py, csrc/vmg_sweep.cu: five sweeps a launch), and the
+y-profile solve's block-Thomas sweeps (solvers/fused_vary.py,
+csrc/vary_sweep.cu).
 
     from msom_tpu_torch.params import QGConfig
     from msom_tpu_torch.models import qg
@@ -65,4 +74,8 @@ solvers/fused_vmg.py, csrc/vmg_sweep.cu: five sweeps a launch).
     pstate = mspg.init_state(pcfg, pconst)
     pstate, pdiag = mspg.make_step(pcfg)(pstate, pconst, 1.0)
     pstate = driver.run_pg(pcfg, const=pconst, state=pstate)
+
+    from msom_tpu_torch import api
+    dq = api.qg_tendency(cfg, const, state.q, direction=-1.0)
+    x = api.pg_steady_state(pcfg, pconst, api.pg_pack(pstate))
 """

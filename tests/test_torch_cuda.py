@@ -17,7 +17,9 @@ amp_stoch = 0, and the card's node noise draw in distribution; and the
 y-profile direct solve's sweeps (KV) against their plain version with the
 wrapper's checks, the varRo step (spectral and mg), the newqg step and the
 SQG step on the card against the CPU; and K1's and K2's rows mode on
-virtual shards against the whole-domain launch. Every test
+virtual shards against the whole-domain launch; and the tendency API
+(qg_tendency through K1 and K2 in both directions, bfn_integrate,
+pg_tendency) on the card against the CPU. Every test
 needs a card
 and nvcc, is marked
 `cuda` and skips without a card. The file imports neither jax nor
@@ -1405,3 +1407,74 @@ def test_rows_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     tr = torch.zeros((3, 1, 32, 64), dtype=psi.dtype, device=cuda)
     with pytest.raises(ValueError, match="tr_ext"):
         fused_tracer.tracer_fused(cfg, const, psi, tr, psi_ext=ext, row0=0)
+
+
+@pytest.mark.parametrize("tracers", [False, True])
+@pytest.mark.parametrize("direction", [1.0, -1.0])
+def test_api_tendency_on_the_card_matches_the_cpu(cuda, direction, tracers):
+    """api.qg_tendency, f64, 64^2 x 3 (Re, Re4 and both Ekman terms on, so
+    that direction = -1 flips each): one K1 launch (and one K2 with two
+    tracers) on the card, none on the CPU, and the card's tendencies to
+    1e-11 of the CPU's."""
+    from msom_tpu_torch import api
+    kw = dict(nptr=2, Pe=(1e3, 2e3), ptr_r=(100.0, 0.0)) if tracers else {}
+    cfg = _config(64, 3, "float64", Re=500.0, **kw)
+    rng = np.random.default_rng(11)
+    psi0 = 1e-3 * rng.uniform(-1, 1, (3, 64, 64))
+    tr0 = rng.uniform(-1, 1, (3, 2, 64, 64)) if tracers else None
+    out, launched = {}, {}
+    for where in ("cpu", "cuda"):
+        const = qg.build_constants(cfg, device=where)
+        state = qg.init_state(cfg, const, psi0=psi0, tracers0=tr0)
+        n1, n2 = fused_rhs.launches, fused_tracer.launches
+        got = api.qg_tendency(cfg, const, state.q, direction,
+                              tracers=state.tracers)
+        out[where] = got if tracers else (got,)
+        launched[where] = (fused_rhs.launches - n1,
+                           fused_tracer.launches - n2)
+    assert launched == {"cpu": (0, 0), "cuda": (1, int(tracers))}
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert (g.cpu() - w).abs().max() <= 1e-11 * w.abs().max()
+
+
+def test_api_bfn_integrate_on_the_card_matches_the_cpu(cuda):
+    """bfn_integrate, f64, 64^2 x 3, four AB3 steps forward in q and four
+    backward in psi (dt < 0) with a nudge that reads the step index: one
+    K1 launch a step, the card's result to 1e-10 of the CPU's."""
+    from msom_tpu_torch import api
+    cfg = _config(64, 3, "float64", Re=500.0)
+    psi0 = 1e-3 * np.random.default_rng(12).uniform(-1, 1, (3, 64, 64))
+    out = {}
+    for where in ("cpu", "cuda"):
+        const = qg.build_constants(cfg, device=where)
+        q0 = qg.init_state(cfg, const, psi0=psi0).q
+        n0 = fused_rhs.launches
+
+        def nudge(q, i):
+            return -(0.5 + 0.25 * i) * q
+
+        q = api.bfn_integrate(cfg, const, q0, 4, dt=1e-2, nudge_fn=nudge)
+        psi = api.bfn_integrate(cfg, const, api.q_to_psi(cfg, const, q), 4,
+                                flag_q=False, direction=-1.0, dt=-1e-2,
+                                nudge_fn=nudge)
+        out[where] = (q, psi, fused_rhs.launches - n0)
+    assert out["cpu"][2] == 0 and out["cuda"][2] == 8
+    for g, w in zip(out["cuda"][:2], out["cpu"][:2]):
+        assert (g.cpu() - w).abs().max() <= 1e-10 * w.abs().max()
+
+
+def test_api_pg_tendency_on_the_card_matches_the_cpu(cuda):
+    """api.pg_tendency, f64, the 8^2 x 3 PG config: the card's numpy
+    vector to 1e-12 of the CPU's at random vectors."""
+    from msom_tpu_torch import api
+    from msom_tpu_torch.models import mspg
+    from msom_tpu_torch.params import PGConfig
+    cfg = PGConfig(N=8, nl=3, ys=0.3, r=0.05, tau_s=3e-2, tau0=0.05,
+                   kv=5e-4, kh=5e-4, omega=0.2, DT=5e-3, dtype="float64")
+    consts = {w: mspg.build_constants(cfg, device=w) for w in ("cpu", "cuda")}
+    n = 3 * 8 * 8 + 2 * 3 * 8 * 9
+    for x in np.random.default_rng(13).standard_normal((3, n)):
+        want = api.pg_tendency(cfg, consts["cpu"], x)
+        got = api.pg_tendency(cfg, consts["cuda"], x)
+        assert isinstance(got, np.ndarray) and got.shape == (n,)
+        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()

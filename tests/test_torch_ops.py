@@ -256,6 +256,7 @@ for name in names:
     importlib.import_module(name)
 assert {"msom_tpu_torch.parallel." + m for m in
         ("dist", "halo", "spectral_shard", "step")} <= set(names), names
+assert {"msom_tpu_torch.api", "msom_tpu_torch.native"} <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "msom_tpu."))
              or m == "msom_tpu")
@@ -266,7 +267,8 @@ print(len(names))
 
 def test_port_imports_no_jax_and_no_reference_package():
     """Importing the port and every module in it, the distributed step's
-    `parallel/` among them, leaves jax and msom_tpu out of sys.modules."""
+    `parallel/`, the tendency API and the native bindings among them,
+    leaves jax and msom_tpu out of sys.modules."""
     out = subprocess.run([sys.executable, "-c", _ISOLATION],
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
