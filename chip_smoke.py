@@ -2721,8 +2721,18 @@ def coupling_path(PGConfig, QGConfig):
 # drivers on the card against the CPU, and the three paths at full width
 # ---------------------------------------------------------------------------
 
-# KV's check sizes: partial blocks (N = 100), the paths' width; nl 2-4
-KV_SIZES = [(N, nl) for N in (64, 100, 256, 2048) for nl in (2, 3, 4)]
+# KV's check sizes (N rows, Kx columns, nl): partial column blocks
+# (Kx = 100), the paths' width, nl 2-4; N shorter than a stage (1, 3) and
+# not a multiple of one (33, 100); Kx * itemsize not a multiple of 16
+# bytes (257, 33, 3, 1), which takes the element copies; nl 5-8 at
+# N <= 256
+KV_SIZES = ([(N, N, nl) for N in (64, 100, 256, 2048) for nl in (2, 3, 4)]
+            + [(N, K, nl) for N, K in ((1, 64), (3, 100), (33, 128),
+                                       (1, 1), (3, 3), (33, 33), (64, 257))
+               for nl in (2, 3, 4)]
+            + [(256, 257, 4)]
+            + [(N, K, nl) for N, K in ((33, 100), (256, 256), (100, 257))
+               for nl in (5, 6, 7, 8)])
 KV_LIMITS = {4: 1e-5, 8: 1e-11}          # KV vs plain, of max|psi|
 # the f32 vary solve against the f64 solve of the same q at 2048^2 x 4, of
 # max|psi|: f32 rounding through the folded transform and 4096 dependent
@@ -2760,24 +2770,34 @@ def rounds_line(ms, med, busy):
             f"{busy:.4f} ms/step, idle share {1 - busy / med:.4f}")
 
 
+def kv_problem(N, K, nl, dtype, seed=None):
+    """(W, X, a) on the card for KV: block inverses W (nl, nl, N, K) drawn
+    so that the chain is stable (|a W| row sums 1/2, as the real factors'
+    are at most), a standard normal X (nl, N, K)."""
+    import torch
+    tdt = getattr(torch, dtype)
+    if seed is None:   # the square cases keep their earlier seeds
+        seed = N + nl if K == N else (N, K, nl)
+    rng = np.random.default_rng(seed)
+    a = (N / 80.0) ** 2
+    W = torch.as_tensor(rng.uniform(-0.5, 0.5, (nl, nl, N, K)) / (a * nl),
+                        dtype=tdt).cuda()
+    X = torch.as_tensor(rng.standard_normal((nl, N, K)), dtype=tdt).cuda()
+    return W, X, a
+
+
 def kv_checks():
     """KV against its plain version on the card, f64 and f32, at each
-    (N, nl) of KV_SIZES, with block inverses W drawn so that the chain is
-    stable (|a W| row sums 1/2, as the real factors' are at most); returns
-    (ok, max abs error at 2048 x 4 f32)."""
+    (N, Kx, nl) of KV_SIZES (kv_problem's inputs), with its geometry;
+    returns (ok, max abs error at 2048 x 4 f32)."""
     import torch
     from msom_tpu_torch.solvers import fused_vary
     ok, main_err = True, None
     for dtype in ("float64", "float32"):
-        tdt = getattr(torch, dtype)
         lim = KV_LIMITS[8 if dtype == "float64" else 4]
-        for N, nl in KV_SIZES:
-            rng = np.random.default_rng(N + nl)
-            a = (N / 80.0) ** 2
-            W = torch.as_tensor(rng.uniform(-0.5, 0.5, (nl, nl, N, N))
-                                / (a * nl), dtype=tdt).cuda()
-            X = torch.as_tensor(rng.standard_normal((nl, N, N)),
-                                dtype=tdt).cuda()
+        for N, K, nl in KV_SIZES:
+            W, X, a = kv_problem(N, K, nl, dtype)
+            g = fused_vary.geometry(nl, N, K, X.element_size())
             n0 = fused_vary.launches
             k = fused_vary.sweep(W, X, a)
             n1 = fused_vary.launches
@@ -2788,10 +2808,11 @@ def kv_checks():
             good = (rel <= lim and n1 - n0 == 1 and k.shape == X.shape
                     and bool(torch.isfinite(k).all()))
             ok &= good
-            print(f"KV check {dtype} N={N} nl={nl}: max|d psi|/max|psi| = "
-                  f"{rel:.3e} (limit {lim:g}), launches {n1 - n0} "
-                  f"{'ok' if good else 'FAIL'}")
-            if dtype == "float32" and (N, nl) == (2048, 4):
+            print(f"KV check {dtype} N={N} Kx={K} nl={nl} ({g.rows} rows x "
+                  f"{g.stages} stages, {'TMA' if g.tma else 'copies'}): "
+                  f"max|d psi|/max|psi| = {rel:.3e} (limit {lim:g}), "
+                  f"launches {n1 - n0} {'ok' if good else 'FAIL'}")
+            if dtype == "float32" and (N, K, nl) == (2048, 2048, 4):
                 main_err = err
             del W, X, k, p
         torch.cuda.empty_cache()

@@ -53,6 +53,8 @@ from msom_tpu_torch.models.qg_node import coastline_mask
 from msom_tpu_torch.params import QGConfig
 from msom_tpu_torch.solvers import fused_mg, fused_spectral, mg, spectral
 
+from chip_smoke import KV_SIZES, kv_problem
+
 pytestmark = pytest.mark.cuda
 
 LIMITS = {torch.float32: 1e-4, torch.float64: 1e-11}
@@ -1221,24 +1223,55 @@ def test_node_noise_draw_on_the_card(cuda, periodic):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("N,nl", [(64, 2), (100, 3), (256, 4), (33, 8)])
-def test_vary_sweep_matches_plain_version(cuda, dtype, N, nl):
+@pytest.mark.parametrize("N,K,nl", KV_SIZES)
+def test_vary_sweep_matches_plain_version(cuda, dtype, N, K, nl):
     """KV against the row loop on block inverses whose chain is stable
-    (|a W| row sums 1/2): 1e-11 (f64) and 1e-5 (f32) of max|psi|."""
+    (|a W| row sums 1/2): 1e-11 (f64) and 1e-5 (f32) of max|psi|, at
+    chip_smoke.py's KV_SIZES (stages longer than N and N not a multiple of
+    one, partial column blocks, the element-copy case, nl 2-8)."""
     from msom_tpu_torch.solvers import fused_vary
-    rng = np.random.default_rng(N + nl)
-    a = (N / 80.0) ** 2
-    tdt = getattr(torch, dtype)
-    W = torch.as_tensor(rng.uniform(-0.5, 0.5, (nl, nl, N, N)) / (a * nl),
-                        dtype=tdt, device=cuda)
-    X = torch.as_tensor(rng.standard_normal((nl, N, N)), dtype=tdt,
-                        device=cuda)
+    W, X, a = kv_problem(N, K, nl, dtype)
     before = fused_vary.launches
     got = fused_vary.sweep(W, X, a)
     assert fused_vary.launches == before + 1
     want = fused_vary.sweep_reference(W, X, a)
-    lim = {torch.float32: 1e-5, torch.float64: 1e-11}[tdt]
+    lim = {torch.float32: 1e-5, torch.float64: 1e-11}[X.dtype]
     assert (got - want).abs().max() <= lim * want.abs().max()
+
+
+def test_vary_sweep_refuses_a_geometry_that_does_not_fit(cuda):
+    """The C launch refuses a geometry it was not built for or whose ring
+    does not fit, with no launch counted; the same inputs with the
+    wrapper's geometry launch and match the plain version."""
+    from msom_tpu_torch.solvers import fused_vary
+    N, K, nl = 64, 257, 4
+    W, X, a = kv_problem(N, K, nl, "float32", seed=7)
+    g = fused_vary.geometry(nl, N, K, 4)
+    assert not g.tma       # Kx * 4 bytes is not a multiple of 16
+
+    def shaped(**kw):      # another geometry with its own shared memory
+        h = dataclasses.replace(g, **kw)
+        return dataclasses.replace(h, smem=fused_vary.smem_bytes(
+            nl, 4, h.cols, h.rows, h.stages))
+
+    bad = {
+        "TMA on unaligned strides": dataclasses.replace(g, tma=True),
+        "lanes": dataclasses.replace(g, lanes=2),
+        "columns the kernel was not built for": shaped(cols=16),
+        "shared memory": dataclasses.replace(g, smem=g.smem - 128),
+        "rows the kernel was not built for": shaped(rows=g.rows + 2),
+        "too many stages": shaped(stages=fused_vary.MAX_STAGES + 1),
+        "a ring over the limit": shaped(stages=25),
+    }
+    assert bad["a ring over the limit"].smem > fused_vary.MAX_SMEM
+    for label, geom in bad.items():
+        before = fused_vary.launches
+        with pytest.raises(RuntimeError, match="vary_sweep launch failed"):
+            fused_vary.sweep(W, X, a, geom)
+        assert fused_vary.launches == before, label
+    got = fused_vary.sweep(W, X, a, g)
+    want = fused_vary.sweep_reference(W, X, a)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
 
 def test_vary_wrapper_refuses_what_the_kernel_does_not_take(cuda):

@@ -147,6 +147,37 @@ def test_sweep_reference_is_the_scan():
     assert nbytes == 805306368 and nops > 0
 
 
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("nl", range(2, 9))
+def test_kv_geometry_fits(nl, itemsize):
+    """KV's launch geometry for every N, Kx in {1, 3, 100, 257, 2048}: the
+    grid covers every column, the shared memory fits a block's 232,448 B,
+    TMA is chosen exactly where the global strides are 16-byte aligned,
+    the ring holds at least one stage, and the consumer threads are whole
+    warps of whole columns."""
+    sizes = (1, 3, 100, 257, 2048)
+    for N in sizes:
+        for K in sizes:
+            g = fused_vary.geometry(nl, N, K, itemsize)
+            assert g.grid * g.cols >= K > (g.grid - 1) * g.cols
+            assert g.smem == fused_vary.smem_bytes(nl, itemsize, g.cols,
+                                                   g.rows, g.stages)
+            assert g.smem <= 232448 == fused_vary.MAX_SMEM
+            assert g.tma == ((K * itemsize) % 16 == 0)
+            assert 1 <= g.stages <= fused_vary.MAX_STAGES
+            assert g.rows == fused_vary.rows_for(nl, itemsize) >= 1
+            assert g.smem >= fused_vary.stage_bytes(nl, itemsize, g.cols,
+                                                    g.rows) * g.stages
+            assert g.lanes == fused_vary.lanes_for(nl) >= nl
+            assert 32 % g.lanes == 0 and g.cols == fused_vary.cols_for(nl)
+            assert (g.cols * g.lanes) % 32 == 0
+            assert g.threads == g.cols * g.lanes + 32 <= 384
+            if g.tma:
+                assert (g.cols * itemsize) % 16 == 0
+            assert not fused_vary.geometry(nl, N, K, itemsize,
+                                           aligned=False).tma
+
+
 # ---------------------------------------------------------------------------
 # varRo and the y-profile frpg through the msqg step
 # ---------------------------------------------------------------------------
