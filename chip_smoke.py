@@ -6,7 +6,8 @@
 Needs one CUDA card, nvcc and the repository checkout; imports nothing of
 JAX or msom_tpu. With no argument every phase runs; with phase names
 (kernels, steps, paths, fused_mm, mg, node, periodic, stochastic, driver,
-driver_node, mspg, coupling, varro, newqg, sqg, rows, api, f32val)
+driver_node, mspg, coupling, varro, newqg, sqg, rows, shard, api,
+f32val)
 the build and those phases only (for work on one part: the kernels' record
 then lists what ran). Phases, in order; any failure exits non-zero:
 
@@ -209,6 +210,22 @@ then lists what ran). Phases, in order; any failure exits non-zero:
    ratio, device busy and idle share of each, the rows launches, the two
    states after the same steps); K1's and K2's rows launch on a 512-row
    shard timed against its bound, beside the whole-domain launch.
+18b. the sharded multigrid and the general-mesh step (phase name shard),
+   world size 1 under NCCL: run_qg(sharded="auto") at 128^2 x 3 f64 on
+   spectral, mg, mode_pv_invert and varRo returns the mode the JAX
+   package's run_qg records and the unsharded run's state; then at
+   2048^2 x 4 f32 each sharded step beside its unsharded step in turns
+   (SHARD_WARM warm-up steps, SHARD_ROUNDS rounds of SHARD_STEPS steps
+   of each: medians and ranges, device busy and idle share, every
+   kernel's launches, the first solve's V-cycles a step): the rows step
+   with solver="mg" (bench's mg row), uncoupled and coupled (K1 and K2
+   rows twice a step, no K3 or K4: the sharded multigrid is torch ops),
+   and the general-mesh step ("gspmd") on the (1, 1) mesh, spectral (the
+   matmul basis), mg, mode_pv_invert and varRo (no K1-K4; KV twice a
+   step); from each unsharded run's final state one f64 step of each
+   within STEP_LIMIT; K1 and K2 rows (coupled rows mg) and KV (gspmd
+   varRo) timed on their final states against their bounds. Multi-rank
+   runs are not measured here (one card).
 19. the tendency API (phase name api): api.qg_tendency on the card through
    K1 (with tracers K2) against the same call through their plain
    versions, at bench's uncoupled and coupled 2048^2 x 4 f32, direction
@@ -261,7 +278,7 @@ MG_SOLVE_LIMIT = 1e-10                    # CUDA solve vs CPU solve, f64
 MG_MAX_CYCLES = 20      # a solve that needs more at tol 1e-3 is spinning
 PHASES = ("kernels", "steps", "paths", "fused_mm", "mg", "node", "periodic",
           "stochastic", "driver", "driver_node", "mspg", "coupling", "varro",
-          "newqg", "sqg", "rows", "api", "f32val")
+          "newqg", "sqg", "rows", "shard", "api", "f32val")
 K1_OPTIONS = ("pg", "pg_flsrv", "topo", "qforc", "energy_conserv", "slip",
               "all")
 # the periodic kernel's option sets (no slip: the domain has no wall), and
@@ -2763,9 +2780,9 @@ def timed_rounds(one_step, rounds=ROUNDS, steps=ROUND_STEPS):
     return float(np.median(ms)), ms
 
 
-def rounds_line(ms, med, busy):
+def rounds_line(ms, med, busy, steps=ROUND_STEPS):
     return (f"{med:.4f} ms/step, the median of {len(ms)} rounds of "
-            f"{ROUND_STEPS} steps (range {min(ms):.4f}-{max(ms):.4f}: "
+            f"{steps} steps (range {min(ms):.4f}-{max(ms):.4f}: "
             + ", ".join(f"{m:.4f}" for m in ms) + f"), device busy "
             f"{busy:.4f} ms/step, idle share {1 - busy / med:.4f}")
 
@@ -3669,7 +3686,6 @@ def _rows_one_step(QGConfig, cfg, coupled, state, unsharded, rows_step):
     """From the f32 `state`, one step each: (f64 rows against f64
     unsharded, f32 unsharded against f64 unsharded, f32 rows against f64
     unsharded), as max|d q| over max|q|."""
-    import torch
     from msom_tpu_torch.models import qg
     from msom_tpu_torch.parallel.step import make_qg_step_sharded
     step, const = unsharded
@@ -3677,11 +3693,7 @@ def _rows_one_step(QGConfig, cfg, coupled, state, unsharded, rows_step):
     cfg64 = dataclasses.replace(cfg, dtype="float64").validate()
     const64 = qg.build_constants(
         cfg64, device="cuda", **(coupled_fields(cfg64) if coupled else {}))
-    s64 = dataclasses.replace(state, **{
-        f.name: getattr(state, f.name).double()
-        for f in dataclasses.fields(state)
-        if isinstance(getattr(state, f.name), torch.Tensor)
-        and getattr(state, f.name).is_floating_point()})
+    s64 = _to64(state)
     u64, _ = qg.make_step(cfg64)(s64, const64, 1e18)
     rs64 = make_qg_step_sharded(cfg64, device="cuda")
     r64, _ = rs64.step(rs64.shard(s64), rs64.shard(const64), 1e18)
@@ -3850,6 +3862,276 @@ def rows_path(QGConfig, rows, rows_err):
                 rows.append(row)
             del pe, te, ps, ts
         del const, rconst, box
+        torch.cuda.empty_cache()
+    return True
+
+
+SHARD_ROUNDS, SHARD_STEPS = 3, 10        # the shard phase's protocol
+SHARD_WARM = 3
+# the gspmd configurations of the shard phase: {label: bench_config kwargs}
+SHARD_GSPMD = {"spectral": {}, "mg": dict(solver="mg", tol=1e-3),
+               "modal": dict(solver="mg", tol=1e-3, mode_pv_invert=True),
+               "varro": dict(varRo=1)}
+# the routing checks: {label: (verron kwargs, the mode JAX's run_qg records
+# at world size 1, msom_tpu/driver.py:193-240)}
+SHARD_ROUTES = {"spectral": ({}, "rows"), "mg": (dict(solver="mg"), "rows"),
+                "mode_pv_invert": (dict(solver="mg", mode_pv_invert=True),
+                                   "gspmd"),
+                "varro": (dict(varRo=1), "gspmd")}
+
+
+def _to64(state):
+    """A float64 copy of a QGState's floating-point leaves."""
+    import torch
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).double()
+        for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)
+        and getattr(state, f.name).is_floating_point()})
+
+
+def _shard_pair(label, runs, warm=SHARD_WARM):
+    """`runs` {name: (step, const, state)}: warm-up steps of each, then
+    SHARD_ROUNDS rounds of SHARD_STEPS steps of each in turns, timed with
+    CUDA events, the launches of every kernel and the first solve's
+    V-cycles of every timed step; a two-step profile of each for its
+    device busy time. Returns {name: dict(med, ms, busy, counts, cycles,
+    state, diag)}."""
+    import torch
+    from msom_tpu_torch.models import fused_rhs, fused_tracer
+    box = {k: [st, None] for k, (_, _, st) in runs.items()}
+    cycles = {k: [] for k in runs}
+
+    def stepper(k):
+        step, const, _ = runs[k]
+
+        def one():
+            box[k][0], box[k][1] = step(box[k][0], const, 1e18)
+            cycles[k].append(box[k][1].mg_iters)
+        return one
+
+    for k in runs:
+        for _ in range(warm):
+            stepper(k)()
+    torch.cuda.synchronize()
+    out = {k: dict(ms=[], counts={}) for k in runs}
+    for k in runs:
+        cycles[k].clear()
+    for _ in range(SHARD_ROUNDS):
+        for k in runs:
+            reset_counts()
+            fused_rhs.rows_launches = fused_tracer.rows_launches = 0
+            out[k]["ms"].append(cuda_ms(stepper(k), SHARD_STEPS))
+            c = dict(kernel_counts(), K1rows=fused_rhs.rows_launches,
+                     K2rows=fused_tracer.rows_launches)
+            for n, v in c.items():
+                out[k]["counts"][n] = out[k]["counts"].get(n, 0) + v
+    for k in runs:
+        r = out[k]
+        r["cycles"] = list(cycles[k])
+        r["med"] = float(np.median(r["ms"]))
+        r["busy"] = sum(x[0] for x in kernel_profile(
+            f"shard {label} {k}", stepper(k), 2, r["med"]))
+        r["state"], r["diag"] = box[k]
+    return out
+
+
+def _shard_report(label, res, want, extra=""):
+    """Print each run's rounds, launches and V-cycles; check the launches
+    against `want` {run: {counter: count}} (every other counter 0) and a
+    finite state. Returns whether all held."""
+    ok = True
+    n_steps = SHARD_ROUNDS * SHARD_STEPS
+    for k, r in res.items():
+        shape = tuple(r["state"].q.shape)
+        finite = state_ok(r["state"], r["diag"], shape)
+        good = finite and all(r["counts"][n] == want[k].get(n, 0)
+                              for n in r["counts"])
+        ok &= good
+        c = r["cycles"]
+        print(f"shard {label} {k} {shape[1]}^2 x {shape[0]}: "
+              + rounds_line(r["ms"], r["med"], r["busy"], SHARD_STEPS)
+              + f", V-cycles of the first solve a step mean "
+              f"{np.mean(c):.4f} max {max(c)}, launches over {n_steps} "
+              f"steps " + ", ".join(f"{n} {v}" for n, v in r["counts"].items()
+                                     if v)
+              + f" (expected {want[k] or 'none'}), ke "
+              f"{r['diag'].ke.item():.6e}, dt {r['diag'].dt.item():.6e}, "
+              f"finite {finite} {'ok' if good else 'FAIL'}")
+    a, b = list(res)
+    print(f"shard {label}: {b} {res[b]['med']:.4f} ms/step against {a} "
+          f"{res[a]['med']:.4f} (ratio {res[b]['med'] / res[a]['med']:.4f},"
+          f" device busy ratio {res[b]['busy'] / res[a]['busy']:.4f}); a "
+          f"multi-rank run is not measured: one card{extra}")
+    return ok
+
+
+def _shard_f64_step(cfg, fields, state, sharded):
+    """From the f32 `state`, one f64 step of the unsharded step and one of
+    the sharded step of `sharded` kwargs: max|d q|/max|q| between them."""
+    from msom_tpu_torch.models import qg
+    from msom_tpu_torch.parallel.step import make_qg_step_sharded
+    cfg64 = dataclasses.replace(cfg, dtype="float64").validate()
+    const64 = qg.build_constants(cfg64, device="cuda", **fields)
+    s64 = _to64(state)
+    u64, _ = qg.make_step(cfg64)(s64, const64, 1e18)
+    rs = make_qg_step_sharded(cfg64, device="cuda", const=const64, **sharded)
+    r64, _ = rs.step(rs.shard(s64), rs.shard(const64), 1e18)
+    return _rel(rs.gather(r64).q, u64.q)
+
+
+def shard_routing_check(QGConfig):
+    """run_qg(sharded="auto") at world size 1 on the card, 128^2 x 3 f64,
+    two steps of each of SHARD_ROUTES: the mode JAX's run_qg records, and
+    the unsharded run_qg's state within STEP_LIMIT."""
+    from msom_tpu_torch import driver
+    from msom_tpu_torch.models import qg
+    ok = True
+    for label, (over, want) in SHARD_ROUTES.items():
+        cfg = verron(QGConfig, 128, tend=1e9, dtout=1e9, **over)
+        psi0 = 1e-3 * np.random.default_rng(7).uniform(
+            -1, 1, (cfg.nl, cfg.N, cfg.N))
+        out = {}
+        for sharded in (False, "auto"):
+            const = qg.build_constants(cfg, device="cuda")
+            state = qg.init_state(cfg, const, psi0=psi0)
+            out[sharded] = driver.run_qg(cfg, const=const, state=state,
+                                         max_steps=2, sharded=sharded)
+        mode = out["auto"][2]
+        rel = _rel(out["auto"][0].q, out[False][0].q)
+        good = mode == want and rel <= STEP_LIMIT
+        ok &= good
+        print(f"shard routing {label}: run_qg(sharded='auto') at world size "
+              f"1 took {mode!r} (JAX's run_qg records {want!r}), two steps "
+              f"against the unsharded run_qg max|d q|/max|q| = {rel:.3e} "
+              f"(limit {STEP_LIMIT:g}) {'ok' if good else 'FAIL'}")
+    return ok
+
+
+def shard_path(QGConfig, rows, rows_err, kv_err):
+    """The sharded multigrid and the general-mesh step at world size 1
+    under NCCL, at 2048^2 x 4 f32. (a) The rows step with solver="mg"
+    (bench's mg row, tol 1e-3), uncoupled and coupled (bench's fields, two
+    tracers), beside the unsharded mg step (K3, K4): the rows step
+    launches K1 and K2 rows twice a step and neither K3 nor K4 (the
+    sharded multigrid is torch ops, as JAX's shard_mg is XLA ops). (b) The
+    general-mesh step ("gspmd") on the (1, 1) mesh beside the unsharded
+    step, spectral (the matmul basis), mg, mode_pv_invert and varRo
+    spectral: no K1, K2, K3 or K4 (JAX strips its kernels under GSPMD);
+    varRo launches KV twice a step. Each pair by _shard_pair; from the
+    unsharded run's final state one f64 step of each within STEP_LIMIT.
+    Appends the records of K1 rows and K2 rows (coupled rows mg) and KV
+    (gspmd varRo) to `rows`. Returns False if the path failed."""
+    import torch
+    from msom_tpu_torch.models import fused_rhs, fused_tracer, qg
+    from msom_tpu_torch.parallel import halo
+    from msom_tpu_torch.parallel.step import make_qg_step_sharded
+    from msom_tpu_torch.solvers import fused_vary
+    N, nl = 2048, 4
+    shape = (nl, N, N)
+    psi0 = 1e-3 * np.random.default_rng(0).uniform(-1, 1, shape)
+    cases = [("rows mg " + c, dict(solver="mg", tol=1e-3,
+                                   **(TRACERS if c == "coupled" else {})),
+              c == "coupled", dict(mode="rows")) for c in ("uncoupled",
+                                                            "coupled")]
+    cases += [(f"gspmd {c}", over, False, dict(mode="gspmd", mesh=(1, 1)))
+              for c, over in SHARD_GSPMD.items()]
+    for label, over, coupled, sharded in cases:
+        t0 = time.perf_counter()
+        cfg = bench_config(QGConfig, N, nl, "float32", **over)
+        fields = coupled_fields(cfg) if coupled else {}
+        const = qg.build_constants(cfg, device="cuda", **fields)
+        tr0 = 1e-3 * np.random.default_rng(1).uniform(
+            -1, 1, (nl, cfg.nptr, N, N)) if coupled else None
+        state = qg.init_state(cfg, const, psi0=psi0, tracers0=tr0)
+        rs = make_qg_step_sharded(cfg, device="cuda", const=const, **sharded)
+        mode = sharded["mode"]
+        runs = {"unsharded": (qg.make_step(cfg), const, state),
+                mode: (rs.step, rs.shard(const), rs.shard(state))}
+        torch.cuda.synchronize()
+        print(f"shard {label} set-up {time.perf_counter() - t0:.1f} s")
+        res = _shard_pair(label, runs)
+        n = 2 * SHARD_ROUNDS * SHARD_STEPS
+        if mode == "rows":
+            want = {"rows": dict(K1=n, K1rows=n,
+                                 **(dict(K2=n, K2rows=n) if coupled else {}))}
+        else:
+            want = {"gspmd": dict(KV=n) if label.endswith("varro") else {}}
+        solver_mg = cfg.solver == "mg"
+        u = dict(K1=n, **(dict(K2=n) if coupled else {}),
+                 **(dict(KV=n) if label.endswith("varro") else {}))
+        # the unsharded mg step launches K3 and K4 as its cycles need
+        want["unsharded"] = u
+        if solver_mg:
+            for k in ("K3", "K4"):
+                want["unsharded"][k] = res["unsharded"]["counts"][k]
+        err = _shard_f64_step(cfg, fields, res["unsharded"]["state"],
+                              sharded)
+        ok = _shard_report(
+            label, res, want, f"; one f64 step from the unsharded final "
+            f"state, {mode} against unsharded max|d q|/max|q| = {err:.3e} "
+            f"(limit {STEP_LIMIT:g})")
+        if solver_mg:
+            ok &= res["unsharded"]["counts"]["K3"] > 0 and all(
+                1 <= c <= MG_MAX_CYCLES for r in res.values()
+                for c in r["cycles"])
+        if not (ok and err <= STEP_LIMIT):
+            print(f"shard {label} FAIL")
+            return False
+        final = res[mode]
+        sconst = runs[mode][1]
+        if label == "rows mg coupled":
+            st = final["state"]
+            psi, tr = st.psi, st.tracers
+            pe = halo.ext_rows8(psi)
+            te = halo.ext_rows8(tr.reshape(-1, N, N))
+            for name, kern, plain, bw, launched, src, line, e in (
+                    ("fused_rhs rows",
+                     lambda: fused_rhs.rhs_fused(cfg, sconst, psi,
+                                                 psi_ext=pe, row0=0)[0],
+                     lambda: fused_rhs.rhs_fused_reference(
+                         cfg, sconst, psi, psi_ext=pe, row0=0)[0],
+                     fused_rhs.bound_work(cfg, sconst, 4, (0, N)),
+                     final["counts"]["K1rows"], fused_rhs.ROWS_SOURCE,
+                     "441", rows_err["K1"]),
+                    ("fused_tracer rows",
+                     lambda: fused_tracer.tracer_fused(
+                         cfg, sconst, psi, tr, psi_ext=pe, tr_ext=te,
+                         row0=0),
+                     lambda: fused_tracer.tracer_fused_reference(
+                         cfg, sconst, psi, tr, psi_ext=pe, tr_ext=te,
+                         row0=0),
+                     fused_tracer.bound_work(cfg, sconst, 4, (0, N)),
+                     final["counts"]["K2rows"], fused_tracer.ROWS_SOURCE,
+                     "778", rows_err["K2"])):
+                row = _kernel_row(
+                    f"shard {label}", name, kern, plain, bw, launched, src,
+                    f"msom_tpu/models/pallas_rhs.py:{line}",
+                    f"rows mode at world size 1, the {N}-row shard")
+                if row is None:
+                    return False
+                row["max_abs_err"] = max(row["max_abs_err"], e)
+                rows.append(row)
+            del pe, te
+        if label == "gspmd varro":
+            spec = sconst.spec
+            q = final["state"].q.contiguous()
+            X = torch.matmul(q, spec.S.T).contiguous()
+            row = _kernel_row(
+                f"shard {label}", "vary_sweep",
+                lambda: fused_vary.sweep(spec.W, X, spec.a),
+                lambda: fused_vary.sweep_reference(spec.W, X, spec.a),
+                fused_vary.bound_work(nl, N, spec.kb, 4),
+                final["counts"]["KV"], fused_vary.SOURCE,
+                "msom_tpu/solvers/vary.py:270",
+                "the gspmd y-profile solve's whole columns, (1, 1) mesh",
+                limit=KV_LIMITS[4], n_plain=2)
+            if row is None:
+                return False
+            row["max_abs_err"] = max(row["max_abs_err"], kv_err)
+            rows.append(row)
+            del X, q
+        del const, state, runs, res, rs, final, sconst
         torch.cuda.empty_cache()
     return True
 
@@ -4652,6 +4934,7 @@ def main() -> int:
         print(f"coupling path done at {time.perf_counter() - t_start:.0f} "
               "s")
 
+    rows_err = kv_err = None       # the shard phase's records take them
     # 15. varRo and the y-profile direct solve: KV, the solve, the steps on
     # the card against the CPU, the spectral and mg paths at full width
     if wanted("varro"):
@@ -4706,6 +4989,34 @@ def main() -> int:
             if not rows_path(QGConfig, rows, rows_err):
                 return 18
             print(f"rows path done at {time.perf_counter() - t_start:.0f} s")
+        finally:
+            dist.shutdown()
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    # 18b. the sharded multigrid and the general-mesh step at world size 1
+    # under NCCL: run_qg's routing, then the rows mg step and the gspmd
+    # step beside the unsharded steps at full width
+    if wanted("shard"):
+        import shutil
+        from msom_tpu_torch.parallel import dist
+        if rows_err is None:           # the records' check errors
+            good, rows_err = rows_kernel_checks(QGConfig)
+            if not good:
+                return 18
+        if kv_err is None:
+            good, kv_err = kv_checks()
+            if not good:
+                return 18
+        tmp = _rows_group()
+        try:
+            if not shard_routing_check(QGConfig):
+                return 18
+            print(f"shard checks done at {time.perf_counter() - t_start:.0f}"
+                  " s")
+            if not shard_path(QGConfig, rows, rows_err, kv_err):
+                return 18
+            print(f"shard path done at {time.perf_counter() - t_start:.0f} "
+                  "s")
         finally:
             dist.shutdown()
             shutil.rmtree(tmp, ignore_errors=True)

@@ -20,10 +20,13 @@ readers and the checkpoint in io/); the planetary-geostrophic model mspg
 (models/mspg.py, its barotropic solver mg.solve_bt, driver.run_pg and
 PGOutputWriter, `--model pg`); and the offline PG <-> QG coupling loop
 (coupling.py, analysis.py; msqg takes the 2-D Froude field frpg, whose
-tendency then runs as torch ops); and the rows-sharded msqg step over
-torch.distributed (parallel/: the process group, the 8-row halo slabs,
-the pencil spectral solve, make_qg_step_sharded; driver.run_qg(sharded=)),
-whose shards run K1's and K2's rows mode; the tendency API (api.py:
+tendency then runs as torch ops); and the sharded msqg run over
+torch.distributed (parallel/: the process group and its (my, mx) mesh,
+the halo exchanges, the pencil and mesh spectral solves, the sharded
+multigrid, make_qg_step_sharded; driver.run_qg(sharded=) routed as the
+JAX package's: the rows step, whose shards run K1's and K2's rows mode,
+or the general-mesh step, the port's form of JAX's GSPMD run); the
+tendency API (api.py:
 q_to_psi, psi_to_q, qg_tendency through K1 and K2, qg_energy_tendencies,
 the back-and-forth-nudging loop bfn_integrate, and mspg's flat-vector
 pg_tendency with its Newton-Krylov steady state and continuations), the

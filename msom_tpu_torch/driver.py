@@ -5,7 +5,7 @@
     python -m msom_tpu_torch.driver --config params.in [--model qg|pg]
         [--steps N] [--deck DIR] [--outdir DIR] [--no-output] [--cpu]
     torchrun --nproc_per_node=W -m msom_tpu_torch.driver --config
-        params.in --sharded [--sharded-mode auto|rows]
+        params.in --sharded [--sharded-mode auto|rows|gspmd]
 
 Basilisk's event system (run()/event blocks) becomes an explicit host loop
 around the step: output every dtout (and at t = 0), the wavelet filter
@@ -16,13 +16,14 @@ stays on the state's device. The mspg loop (`run_pg`) is the same with its
 own events: the running means every 10 steps, the state dump at t = 0 and
 every dtout (`PGOutputWriter`).
 
-The sharded msqg run (`run_qg(sharded=True|"auto"|"rows")`, `--sharded`)
-is the rows decomposition of parallel/step.py over torch.distributed: each
-rank steps its rows; the events gather the whole state (the filter runs on
-it on every rank, the writers on the master only). Not ported yet (raises
-NotImplementedError naming what is left of ROADMAP.md queue 1, item 15):
-`sharded="gspmd"` and the configurations the rows path does not take, and
-the sharded mspg run (`run_pg(sharded=)`, `--model pg --sharded`).
+The sharded msqg run (`run_qg(sharded=True|"auto"|"rows"|"gspmd")`,
+`--sharded`) steps the ranks of a torch.distributed group
+(parallel/step.py): the rows step, or the general-mesh step that is the
+port's form of the JAX package's GSPMD run, routed as the JAX driver
+routes them; the events gather the whole state (the filter runs on it on
+every rank, the writers on the master only). Not ported yet (raises
+NotImplementedError naming ROADMAP.md queue 1, item 15e): the sharded
+mspg run (`run_pg(sharded=)`, `--model pg --sharded`).
 """
 
 from __future__ import annotations
@@ -43,15 +44,14 @@ from msom_tpu_torch.io.deck import load_pg_deck, load_qg_deck
 from msom_tpu_torch.models import mspg, qg, qg_energy
 from msom_tpu_torch.ops.wavelet import wavelet_filter_step
 from msom_tpu_torch.parallel import dist
-from msom_tpu_torch.parallel.step import (GSPMD_UNPORTED, check_rows,
-                                          make_qg_step_sharded)
+from msom_tpu_torch.parallel.step import make_qg_step_sharded
 from msom_tpu_torch.params import (PGConfig, QGConfig, load_pg_config,
                                    load_qg_config)
 
 
 PG_SHARDED_UNPORTED = ("the sharded mspg run (the JAX package's GSPMD "
                        "run_pg(sharded=)) is not ported yet (ROADMAP.md "
-                       "queue 1, item 15)")
+                       "queue 1, item 15e)")
 
 
 @dataclasses.dataclass
@@ -82,7 +82,7 @@ def _time_eps(t: float, dtype: torch.dtype) -> float:
 def run_qg(cfg: QGConfig, *, const=None, state=None, hooks: RunHooks = None,
            max_steps: int | None = None, log_every: int = 1,
            generator: torch.Generator | None = None, seed: int = 0,
-           sharded=False, device="cuda"):
+           sharded=False, mesh=None, device="cuda"):
     """Integrate the msqg model to cfg.tend; returns (state, energy), the
     energy accumulator None when ediag = -1; with `sharded`
     (state, energy, mode).
@@ -97,15 +97,19 @@ def run_qg(cfg: QGConfig, *, const=None, state=None, hooks: RunHooks = None,
     and its `init_state`. A stochastic run draws from `generator` (on the
     state's device), else from one made here and seeded with `seed`.
 
-    `sharded` (True, "auto" or "rows") runs the rows decomposition of
-    parallel/step.py on the ranks of the running process group (world size
-    1 without one; `dist.init` starts it), each rank calling run_qg with
-    the whole `const` and `state`; the mode taken is returned, "rows". A
-    configuration the rows path does not take, and "gspmd", raise
-    NotImplementedError: there is no silent fallback to another mode. The
-    events gather the whole state on every rank (`dist.fetch_global`): the
-    filter and the energy budget run on it on every rank, the hooks'
-    writers and the log on the master only. The state returned is the
+    `sharded` (True, "auto", "rows" or "gspmd") runs parallel/step.py's
+    sharded step on the ranks of the running process group (world size 1
+    without one; `dist.init` starts it), each rank calling run_qg with the
+    whole `const` and `state`, and returns the mode taken, the string the
+    JAX package records in run_qg.sharded_mode (msom_tpu/driver.py:
+    193-240): "auto" takes "rows" where the rows step takes the
+    configuration (step.rows_refusal) and else "gspmd"; "rows" on another
+    configuration raises ValueError, as the JAX driver does; "gspmd" runs
+    the general-mesh step on `mesh` (my, mx), or on step.choose_mesh's,
+    which raises ValueError where no factorization of the world cuts the
+    grid. The events gather the whole state on every rank (the step's
+    `gather`): the filter and the energy budget run on it on every rank,
+    the hooks' writers and the log on the master only. The state returned is the
     whole state, on every rank. A stochastic run draws from a generator of
     each rank's own, seeded from (seed, rank), unless `generator` is
     given."""
@@ -115,9 +119,6 @@ def run_qg(cfg: QGConfig, *, const=None, state=None, hooks: RunHooks = None,
         if mode not in ("auto", "rows", "gspmd"):
             raise ValueError(f"sharded={mode!r}: use 'auto', 'rows' or "
                              "'gspmd'")
-        if mode == "gspmd":
-            raise NotImplementedError("sharded='gspmd' " + GSPMD_UNPORTED)
-        check_rows(cfg, dist.world_size())
     hooks = hooks or RunHooks()
     if const is None:
         const = qg.build_constants(cfg, device=device)
@@ -125,7 +126,8 @@ def run_qg(cfg: QGConfig, *, const=None, state=None, hooks: RunHooks = None,
         state = qg.init_state(cfg, const)
     if mode is not None:
         rs = make_qg_step_sharded(cfg, device=state.q.device,
-                                  generator=generator, seed=seed)
+                                  generator=generator, seed=seed, mesh=mesh,
+                                  mode=mode, const=const)
         mode, const_step, state = rs.mode, rs.shard(const), rs.shard(state)
         step = rs.step
         whole = rs.gather
@@ -389,13 +391,15 @@ def main(argv=None) -> dict:
     p.add_argument("--no-output", action="store_true",
                    help="skip file output (stdout KE log only)")
     p.add_argument("--sharded", action="store_true",
-                   help="rows decomposition over the ranks of torchrun "
+                   help="domain decomposition over the ranks of torchrun "
                         "(torchrun --nproc_per_node=W -m "
                         "msom_tpu_torch.driver ...)")
     p.add_argument("--sharded-mode", choices=["auto", "rows", "gspmd"],
                    default="auto",
-                   help="'rows' (and 'auto'): the rows-sharded step; "
-                        "'gspmd' is not ported")
+                   help="'rows': the rows step with the kernels' rows "
+                        "mode; 'gspmd': the general-mesh step; 'auto': "
+                        "rows where it takes the configuration, else "
+                        "gspmd")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the CUDA card")
     args = p.parse_args(argv)

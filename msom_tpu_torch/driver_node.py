@@ -26,7 +26,7 @@ psi and bs read from restart.nc (qg-node/qg.h:492-495).
 
 One process. Not ported yet: the sharded run (`sharded=`, `--sharded`:
 the owned-node vertex step parallel/vshard.py and run_node(sharded=),
-ROADMAP.md queue 1, item 15), which raises NotImplementedError.
+ROADMAP.md queue 1, item 15d), which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ from msom_tpu_torch.ops import vertex
 UNPORTED = {
     "sharded": "the sharded qg-node run (the owned-node vertex step "
                "parallel/vshard.py, run_node(sharded=)) is not ported yet "
-               "(ROADMAP.md queue 1, item 15)",
+               "(ROADMAP.md queue 1, item 15d)",
 }
 
 

@@ -471,7 +471,8 @@ def _ghost_deriv(cfg: QGConfig, field: torch.Tensor,
 
 def rhs(cfg: QGConfig, const: QGConstants, q: torch.Tensor | None,
         psi_g: Ghosted, zeta: torch.Tensor, zeta_g: Ghosted,
-        tracers: torch.Tensor | None = None):
+        tracers: torch.Tensor | None = None, *, ghost_fn=ghosted,
+        ghost_deriv_fn=None):
     """Tendencies (dq, dtracers) (update_qg, msqg/qg.h:609-650). The
     advected vorticity is zeta, with the stretching-Jacobian cascade
     supplying the rest of J(psi, q); every J(., pp) term is pruned when
@@ -479,7 +480,16 @@ def rhs(cfg: QGConfig, const: QGConstants, q: torch.Tensor | None,
     (msqg/qg_stochastic.h:17-111) drops the top layer's self-advection and
     the cascade's J(psi_l, psi_l+1), and damps with -q/tr_stoch. `q` is
     read by ENERGY_CONSERV advection and the stochastic damping only;
-    dtracers is None without tracers."""
+    dtracers is None without tracers.
+
+    On a tile of a mesh (the general-mesh step, parallel/step.py),
+    `ghost_fn(field, bc)` and `ghost_deriv_fn(field, parent_g)` give a
+    field its ghost ring (parallel.halo's sharded forms), as in the JAX
+    package's rhs; the padded constants (pp, zetap, topo) come already cut
+    to the tile's window with its ring."""
+    if ghost_deriv_fn is None:
+        def ghost_deriv_fn(f, parent_g):
+            return _ghost_deriv(cfg, f, parent_g)
     d = cfg.delta
     nl = cfg.nl
     mj = arakawa_mjac_g
@@ -494,7 +504,7 @@ def rhs(cfg: QGConfig, const: QGConstants, q: torch.Tensor | None,
             # ENERGY_CONSERV split (msqg/qg.h:310-340): the self-advection
             # carries the full PV q under psi's ghost law, so J(psi_l,
             # psi_l+1) drops out of the cascade
-            self_jac = mj(psi_g, ghosted(q, _bc_psi(cfg)), d)
+            self_jac = mj(psi_g, ghost_fn(q, _bc_psi(cfg)), d)
         else:
             self_jac = mj(psi_g, zeta_g, d)
         if cfg.stochastic:
@@ -531,7 +541,7 @@ def rhs(cfg: QGConfig, const: QGConstants, q: torch.Tensor | None,
     if cfg.iRe4 != 0.0:
         if tmp is None:
             tmp = laplacian_g(zeta_g, d)
-        bih = laplacian_g(_ghost_deriv(cfg, tmp, zeta_g), d)
+        bih = laplacian_g(ghost_deriv_fn(tmp, zeta_g), d)
         if nl > 1:
             bih = bih + stretch(tmp, const.strl, idh0, idh1)
         dq = dq + cfg.iRe4 * bih
@@ -553,17 +563,18 @@ def rhs(cfg: QGConfig, const: QGConstants, q: torch.Tensor | None,
         dq[nl - 1] += mj(psi_g[nl - 1], ghosted_from_padded(const.topo_pad),
                          d) / (const.Ro * dh[nl - 1])
 
-    dtr = None if tracers is None else tracer_rhs(cfg, const, psi_g, tracers)
+    dtr = None if tracers is None else tracer_rhs(cfg, const, psi_g, tracers,
+                                                  ghost_fn=ghost_fn)
     return dq, dtr
 
 
 def tracer_rhs(cfg: QGConfig, const: QGConstants, psi_g: Ghosted,
-               tracers: torch.Tensor) -> torch.Tensor:
+               tracers: torch.Tensor, *, ghost_fn=ghosted) -> torch.Tensor:
     """Passive-tracer tendencies (ptr_rhs, msqg/qg.h:573-588) for the
     (nl, nptr, N, N) tracers: Arakawa advection by psi, diffusion /Pe and
     relaxation, with Neumann walls (wrapped in the periodic run)."""
     d = cfg.delta
-    tr_g = ghosted(tracers, BC.PERIODIC if cfg.sbc == -1 else BC.NEUMANN)
+    tr_g = ghost_fn(tracers, BC.PERIODIC if cfg.sbc == -1 else BC.NEUMANN)
     coef = dict(dtype=tracers.dtype, device=tracers.device)
     iPe = torch.tensor(cfg.iPe[:cfg.nptr], **coef).reshape(1, -1, 1, 1)
     ir = torch.tensor(cfg.ptr_ir[:cfg.nptr], **coef).reshape(1, -1, 1, 1)
@@ -575,12 +586,13 @@ def tracer_rhs(cfg: QGConfig, const: QGConstants, psi_g: Ghosted,
 
 
 def cfl_dtmax(cfg: QGConfig, const: QGConstants, psi_g: Ghosted, dtmax0,
-              prev):
+              prev, reduce_fn=None):
     """CFL controller chain from psi (the per-layer face-speed maxima in one
     pass, then the scalar smoothing recurrence); the pp part comes from
-    const.umax_pp."""
+    const.umax_pp, the whole domain's. On a tile `reduce_fn` takes psi's
+    maxima to the whole domain's (parallel.halo.pmax)."""
     return cfl_from_umax(cfg, max_face_speed_layers(psi_g, cfg.delta),
-                         const.umax_pp, dtmax0, prev)
+                         const.umax_pp, dtmax0, prev, reduce_fn=reduce_fn)
 
 
 def cfl_from_umax(cfg: QGConfig, umax_psi: torch.Tensor,
@@ -632,7 +644,7 @@ def kinetic_energy(cfg: QGConfig, psi: torch.Tensor, ghost_fn=ghosted,
     """Surface-layer KE as logged every step: -sum 0.5*psi*lap(psi)*Delta^2
     (msqg/qg.c:101-109). On a shard of rows, `ghost_fn` gives it its ghost
     ring and `reduce_fn` sums the shards' partial sums (the rows step's
-    parallel.halo.ghosted_rows and psum)."""
+    parallel.halo.ghosted_sharded and psum)."""
     p0 = psi[0]
     lap = laplacian_g(ghost_fn(p0, _bc_psi(cfg)), cfg.delta)
     part = torch.sum(0.5 * p0 * lap)

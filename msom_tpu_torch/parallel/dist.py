@@ -11,7 +11,9 @@ its collectives run through NCCL or gloo like any other.
 
 The writers of a distributed run (the drivers' outputs) run on the master,
 rank 0, from `fetch_global`, which gathers the row shards of a field into
-the whole field on every rank.
+the whole field on every rank. `subgroup(ranks)` is the process group of
+some ranks (a row or a column of a 2-D mesh, parallel/mesh.py), made once
+and kept until `shutdown`.
 """
 
 from __future__ import annotations
@@ -52,8 +54,22 @@ def init(device="cuda", *, init_method: str | None = None,
     return True
 
 
+_groups: dict = {}
+
+
+def subgroup(ranks) -> td.ProcessGroup:
+    """The process group of `ranks` (td.new_group), made at its first call
+    and kept until `shutdown`. new_group is collective: every rank of the
+    world asks for every subgroup, in the same order."""
+    ranks = tuple(ranks)
+    if ranks not in _groups:
+        _groups[ranks] = td.new_group(list(ranks))
+    return _groups[ranks]
+
+
 def shutdown() -> None:
-    """End the process group, if one runs."""
+    """End the process group, if one runs, and its subgroups."""
+    _groups.clear()
     if td.is_initialized():
         td.destroy_process_group()
 

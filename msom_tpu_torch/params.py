@@ -8,9 +8,11 @@ in both packages. Derived values (inverse Reynolds numbers, the viscous-CFL
 clamp on DT) mirror the reference's msqg/qg.h:739-754.
 
 Two fields are JAX-runtime knobs that the port reads differently:
-`use_pallas` is ignored (the port's fused RHS runs on every CUDA tensor and
-its plain version on every CPU tensor), and `transform` keeps its meaning
-for the spectral solve.
+`use_pallas` chooses no kernel (the port's fused RHS runs on every CUDA
+tensor and its plain version on every CPU tensor) and only routes the
+sharded run as the JAX package's does (use_pallas=False takes "gspmd",
+parallel/step.py rows_refusal), and `transform` keeps its meaning for the
+spectral solve.
 """
 
 from __future__ import annotations
@@ -94,7 +96,7 @@ class QGConfig:
     tol: float = 1e-3        # PV-inversion tolerance (msqg/qg.h:159)
     mode_pv_invert: bool = False  # modal inversion path (msqg/qg.h:4,109-157)
     solver: str = "mg"       # "mg" (multigrid) or "spectral" (direct solve)
-    use_pallas: bool = True  # JAX-runtime knob; ignored by the port
+    use_pallas: bool = True  # JAX-runtime knob; routes the sharded run
     transform: str = "auto"  # spectral basis: "auto" | "fft" | "matmul" |
     #                          "factored" (see solvers/spectral.py)
     mg_extrap: bool = True   # mg warm-start extrapolation (mg solver only)

@@ -69,20 +69,28 @@ def prolong_bilinear(c: torch.Tensor, bc: BC) -> torch.Tensor:
     """Basilisk `bilinear` prolongation: child = (9*parent + 3*nx + 3*ny +
     nxy)/16 with the neighbours toward the child's quadrant; coarse ghosts
     filled with the level BC (x before y, so corner ghosts compose
-    sign_y o sign_x). Each quadrant is computed at the coarse size from the
-    padded coarse array and written into its stride-2 slots."""
-    m = c.shape[-1]
-    P = pad(c, bc)
+    sign_y o sign_x)."""
+    return prolong_padded(pad(c, bc))
+
+
+def prolong_padded(P: torch.Tensor) -> torch.Tensor:
+    """`prolong_bilinear` of a coarse field given with its ghost ring
+    (..., m+2, m'+2): each quadrant is computed at the coarse size and
+    written into its stride-2 slots. A sharded level passes its tile's
+    halo-exchanged ring (parallel/shard_mg.py)."""
+    c = P[..., 1:-1, 1:-1]
+    my, mx = c.shape[-2:]
     C9 = 9 * c
     # 3 * the west/east and south/north neighbours, and the four diagonals
     X3 = (3 * P[..., 1:-1, :-2], 3 * P[..., 1:-1, 2:])
     Y3 = (3 * P[..., :-2, 1:-1], 3 * P[..., 2:, 1:-1])
-    rows = (slice(0, m), slice(2, m + 2))
-    out = c.new_empty(*c.shape[:-2], 2 * m, 2 * m)
+    rows = (slice(0, my), slice(2, my + 2))
+    cols = (slice(0, mx), slice(2, mx + 2))
+    out = c.new_empty(*c.shape[:-2], 2 * my, 2 * mx)
     for jy in (0, 1):
         for jx in (0, 1):
             out[..., jy::2, jx::2] = (C9 + X3[jx] + Y3[jy]
-                                      + P[..., rows[jy], rows[jx]]) / 16.0
+                                      + P[..., rows[jy], cols[jx]]) / 16.0
     return out
 
 

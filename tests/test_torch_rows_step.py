@@ -13,7 +13,8 @@ here, once for the module.
   the two packages' own steps differ in dt's last bit), KE at 1e-12
   relative (a sum of the shards' partial sums, whose
   association changes with the world size, tests/test_rows_step.py:138);
-* ext_rows8 (wrapped and walled), ghosted_rows (the three laws),
+* ext_rows8 (wrapped and walled), ghosted_sharded on the (W, 1) mesh
+  (the three laws),
   solve_spectral_pencil against solve_spectral (the DST fold and basis,
   the periodic Fourier basis; nl 1 and 3; 1e-13 of max|psi|), pmax, psum,
   fetch_global and broadcast_str at 2 and 4 ranks;
@@ -21,8 +22,11 @@ here, once for the module.
   rank 0 writes the unsharded run's .bas records (1e-12 of each file's
   maximum) and rank 1 none;
 * a JAX state through convert, shard and gather at world 2, bit for bit;
-* each configuration outside the rows path raising NotImplementedError
-  that names what is left of ROADMAP.md item 15.
+* the configurations outside the rows path (solver="mg" aside, which the
+  rows step now takes) running in the mode the JAX package's run_qg
+  records: at world size 1, and a 2 x 2 mesh at world 4 against the
+  unsharded steps; the sharded mspg and qg-node runs raising
+  NotImplementedError that names their part of ROADMAP.md item 15.
 """
 
 import functools
@@ -80,6 +84,10 @@ def _job(world, tmp):
     job = {"units": world > 1,
            "steps": {name: (dict(BASE, **kw), *_inputs(kw), STEPS)
                      for name, kw in CASES.items()}}
+    if world == 4:
+        kw = CASES["slip"]
+        job["steps"]["mesh22"] = (dict(BASE, **kw), *_inputs(kw), STEPS,
+                                  (2, 2))
     if world == 2:
         fields, psi0, tr0 = _inputs(DRIVER, 5)
         job["driver"] = (DRIVER, fields, psi0, tr0, f"{tmp}/sharded")
@@ -147,8 +155,16 @@ def test_rows_step_matches_unsharded_steps(ranks, references, case, world):
     JAX package's unsharded steps."""
     q, psi, tr, dt, ke, mode = ranks[0][world]["steps"][case]
     assert mode == "rows"
-    port, jax_ = references[case]
-    assert dt == port[3]
+    _check_step((q, psi, tr, dt, ke), references[case])
+
+
+def _check_step(got, refs, exact_dt=True):
+    """(q, psi, tr, dt, ke) against (the port's unsharded step, JAX's): dt
+    equal to the port's (or, where the solve's transform differs, within
+    1e-12 of it)."""
+    q, psi, tr, dt, ke = got
+    port, jax_ = refs
+    assert dt == port[3] if exact_dt else abs(dt - port[3]) <= 1e-12 * dt
     assert abs(dt - jax_[3]) <= 1e-12 * jax_[3]
     for want in (port, jax_):
         for got, w in zip((q, psi, tr), want[:3]):
@@ -159,7 +175,7 @@ def test_rows_step_matches_unsharded_steps(ranks, references, case, world):
 @pytest.mark.parametrize("world", [2, 4])
 def test_halo_exchanges_and_reductions(ranks, world):
     """ext_rows8 of rank 0 (its up slab the last rank's rows or zeros),
-    ghosted_rows of rank 0 against the whole field's pad, pmax, psum,
+    ghosted_sharded of rank 0 against the whole field's pad, pmax, psum,
     fetch_global and broadcast_str."""
     from msom_tpu_torch.ops.bc import BC
     u = ranks[0][world]["units"]
@@ -239,31 +255,76 @@ def test_state_through_convert_shard_and_gather(ranks):
         assert np.array_equal(got[name], want), name
 
 
-@pytest.mark.parametrize("over,match", [
-    (dict(solver="mg"), "shard_mg"),
-    (dict(mode_pv_invert=True), "shard_mg"),
-    (dict(varRo=1), "GSPMD"),
-    (dict(N=20), "GSPMD"),
+def _jax_mode(kw, shape=(1, 1), sharded="auto"):
+    """The mode the JAX package's run_qg records for `kw` on a mesh of
+    `shape` (no step is taken: tend = 0)."""
+    from jax.sharding import Mesh
+    from msom_tpu import driver as jdriver
+    my, mx = shape
+    mesh = Mesh(np.array(jax.devices()[:my * mx]).reshape(my, mx),
+                ("y", "x"))
+    jdriver.run_qg(JConfig(**dict(kw, tend=0.0)).validate(), sharded=sharded,
+                   mesh=mesh)
+    return jdriver.run_qg.sharded_mode
+
+
+@pytest.mark.parametrize("over", [
+    pytest.param(dict(solver="mg"), id="over0-shard_mg"),
+    pytest.param(dict(mode_pv_invert=True), id="over1-shard_mg"),
+    pytest.param(dict(varRo=1), id="over2-GSPMD"),
+    pytest.param(dict(N=20), id="over3-GSPMD"),
 ])
-def test_refused_configurations_name_their_item(over, match):
-    """What the rows path does not take raises, naming its part of item
-    15, from make_qg_step_sharded and from run_qg(sharded=True)."""
-    cfg = TConfig(**dict(BASE, **over)).validate()
-    for call in (lambda: pstep.make_qg_step_sharded(cfg, device="cpu"),
-                 lambda: tdriver.run_qg(cfg, sharded=True, device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 15") as e:
-            call()
-        assert match in str(e.value)
+def test_refused_configurations_name_their_item(over):
+    """The configurations that item 15 once named (the sharded multigrid,
+    the modal inversion, varRo, N % 8 != 0) now run at world size 1, from
+    make_qg_step_sharded and from run_qg(sharded=True), in the mode the
+    JAX package's run_qg records: "rows" for solver="mg", else "gspmd"
+    (at N = 20, where the JAX package builds no constants, its wavelet
+    pyramid needing a power of 2, the mode of its routing rule,
+    driver.py:197-208: (N / W) % 8 != 0). One step of each matches the
+    port's unsharded step. The name, from when these were refused, is
+    kept only to keep the test ids: it checks that they run."""
+    kw = dict(BASE, **over)
+    want = "gspmd" if over.get("N") == 20 else _jax_mode(kw)
+    assert want == ("rows" if over.get("solver") == "mg" else "gspmd")
+    cfg = TConfig(**kw).validate()
+    const = tqg.build_constants(cfg, device="cpu")
+    state = tqg.init_state(cfg, const, seed=1)
+    rs = pstep.make_qg_step_sharded(cfg, device="cpu", const=const)
+    assert rs.mode == want and rs.mesh.shape == (1, 1)
+    got, _ = rs.step(rs.shard(state), rs.shard(const), 1e9)
+    one, _ = tqg.make_step(cfg)(state, const, 1e9)
+    assert _rel(rs.gather(got).q, one.q.numpy()) < 1e-12
+    s, _, mode = tdriver.run_qg(cfg, const=const, state=state, max_steps=1,
+                                sharded=True, device="cpu")
+    assert mode == want and int(s.i) == 1
 
 
-def test_refused_modes_and_runs_name_their_item():
-    """A 2-D mesh, sharded="gspmd", the sharded mspg run and the qg-node
-    driver's --sharded raise NotImplementedError naming item 15's part."""
-    cfg = TConfig(**BASE).validate()
-    with pytest.raises(NotImplementedError, match="2 x 2 mesh.*item 15"):
-        pstep.make_qg_step_sharded(cfg, device="cpu", mesh=(2, 2))
-    with pytest.raises(NotImplementedError, match="gspmd.*item 15"):
-        tdriver.run_qg(cfg, sharded="gspmd", device="cpu")
+def test_refused_modes_and_runs_name_their_item(ranks, references):
+    """A 2 x 2 mesh and sharded="gspmd" run, in the mode the JAX package's
+    run_qg records ("gspmd"): the 2 x 2 step on 4 ranks against the
+    unsharded steps, run_qg(sharded="gspmd") at world size 1 against the
+    unsharded run; the sharded mspg run and the qg-node driver's
+    --sharded raise NotImplementedError naming their part of item 15.
+    The name, from when the mesh and gspmd were refused, is kept only to
+    keep the test id."""
+    assert _jax_mode(BASE, (2, 2)) == "gspmd"
+    assert _jax_mode(BASE, sharded="gspmd") == "gspmd"
+    q, psi, tr, dt, ke, mode = ranks[0][4]["steps"]["mesh22"]
+    assert mode == "gspmd"
+    _check_step((q, psi, tr, dt, ke), references["slip"], exact_dt=False)
+    kw = dict(BASE, sbc=0.0)
+    fields, psi0, tr0 = _inputs(kw)
+    cfg = TConfig(**kw).validate()
+    out = []
+    for sharded in ("gspmd", False):
+        const = tqg.build_constants(cfg, device="cpu", **fields)
+        state = tqg.init_state(cfg, const, psi0=psi0, tracers0=tr0)
+        out.append(tdriver.run_qg(cfg, const=const, state=state,
+                                  max_steps=2, sharded=sharded,
+                                  device="cpu"))
+    assert out[0][2] == "gspmd"
+    assert _rel(out[0][0].q, out[1][0].q.numpy()) < 1e-12
     with pytest.raises(NotImplementedError, match="mspg.*item 15"):
         tdriver.run_pg(None, sharded=True)
     with pytest.raises(NotImplementedError, match="vshard.*item 15"):

@@ -7,7 +7,7 @@ in turn, so a world size costs one spawn.
 
 The job, a dict saved with torch.save: "units" (the halo, pencil and
 reduction units), "steps" ({name: (config kwargs, fields, psi0, tr0,
-steps)}), "driver" ((config kwargs, fields, psi0, tr0, outdir)),
+steps[, mesh shape])}), "driver" ((config kwargs, fields, psi0, tr0, outdir)),
 "roundtrip" (the leaves of a QGState).
 """
 
@@ -32,14 +32,16 @@ def units(rank, world):
     fetch_global, on fields made from seeds alike on every rank."""
     from msom_tpu_torch.ops.bc import BC
     from msom_tpu_torch.parallel import dist, halo, spectral_shard
+    from msom_tpu_torch.parallel.mesh import make_mesh
     from msom_tpu_torch.solvers import spectral
+    mesh = make_mesh((world, 1))
     N = 64
     n = N // world
     rows = slice(rank * n, (rank + 1) * n)
     a = torch.as_tensor(np.random.default_rng(1).standard_normal((3, N, N)))
     out = {"ext": {wrap: halo.ext_rows8(a[:, rows].contiguous(), wrap)
                    for wrap in (False, True)},
-           "ghost": {bc.value: halo.ghosted_rows(a[0, rows], bc).p
+           "ghost": {bc.value: halo.ghosted_sharded(a[0, rows], bc, mesh).p
                      for bc in (BC.DIRICHLET, BC.NEUMANN, BC.PERIODIC)}}
     v = torch.tensor([rank, -rank, 1.5 * rank], dtype=torch.float64)
     out["pmax"], out["psum"] = halo.pmax(v), halo.psum(v)
@@ -69,16 +71,17 @@ def units(rank, world):
 
 
 def steps(job):
-    """{name: (q, psi, tracers, dt, ke) of the whole state after the
-    steps}."""
+    """{name: (q, psi, tracers, dt, ke, mode) of the whole state after the
+    steps}; a job's entry may end in a mesh shape (my, mx)."""
     from msom_tpu_torch.models import qg
     from msom_tpu_torch.parallel.step import make_qg_step_sharded
     out = {}
-    for name, (kw, fields, psi0, tr0, n) in job.items():
+    for name, (kw, fields, psi0, tr0, n, *mesh) in job.items():
         cfg = _config(kw)
         const = qg.build_constants(cfg, device="cpu", **fields)
         state = qg.init_state(cfg, const, psi0=psi0, tracers0=tr0)
-        rs = make_qg_step_sharded(cfg, device="cpu")
+        rs = make_qg_step_sharded(cfg, device="cpu", mesh=(mesh or [None])[0],
+                                  const=const)
         s, c = rs.shard(state), rs.shard(const)
         for _ in range(n):
             s, diag = rs.step(s, c, 1e9)
