@@ -6,8 +6,8 @@
 Needs one CUDA card, nvcc and the repository checkout; imports nothing of
 JAX or msom_tpu. With no argument every phase runs; with phase names
 (kernels, steps, paths, fused_mm, mg, node, periodic, stochastic, driver,
-driver_node, mspg, coupling, varro, newqg, sqg, rows, shard, api,
-f32val)
+driver_node, mspg, coupling, varro, newqg, sqg, rows, shard, vshard,
+pgshard, api, f32val)
 the build and those phases only (for work on one part: the kernels' record
 then lists what ran). Phases, in order; any failure exits non-zero:
 
@@ -226,6 +226,17 @@ then lists what ran). Phases, in order; any failure exits non-zero:
    within STEP_LIMIT; K1 and K2 rows (coupled rows mg) and KV (gspmd
    varRo) timed on their final states against their bounds. Multi-rank
    runs are not measured here (one card).
+18c. the vertex-sharded qg-node run (phase name vshard), world size 1
+   under NCCL: run_node(sharded=True) on the card against the unsharded
+   run_node on the CPU (128^2 x 3 f64, the coastline, solver="vmg", the
+   filter event, the files and diag rows); then bench's masked node
+   configuration at 2048^2 x 4 f32, the sharded step (torch ops: no K5,
+   no K6) beside the unsharded step (K5, K6) in turns as in 18b, and one
+   f64 step of each from the same state within STEP_LIMIT.
+18d. the sharded mspg run (phase name pgshard), world size 1 under NCCL:
+   run_pg(sharded=True) on the card against the unsharded run_pg on the
+   CPU (32^2 x 4 f64, four output events, the files); then bench's mspg
+   row (64^2 x 30 f32) sharded beside unsharded in turns.
 19. the tendency API (phase name api): api.qg_tendency on the card through
    K1 (with tracers K2) against the same call through their plain
    versions, at bench's uncoupled and coupled 2048^2 x 4 f32, direction
@@ -278,7 +289,8 @@ MG_SOLVE_LIMIT = 1e-10                    # CUDA solve vs CPU solve, f64
 MG_MAX_CYCLES = 20      # a solve that needs more at tol 1e-3 is spinning
 PHASES = ("kernels", "steps", "paths", "fused_mm", "mg", "node", "periodic",
           "stochastic", "driver", "driver_node", "mspg", "coupling", "varro",
-          "newqg", "sqg", "rows", "shard", "api", "f32val")
+          "newqg", "sqg", "rows", "shard", "vshard", "pgshard", "api",
+          "f32val")
 K1_OPTIONS = ("pg", "pg_flsrv", "topo", "qforc", "energy_conserv", "slip",
               "all")
 # the periodic kernel's option sets (no slip: the domain has no wall), and
@@ -3907,7 +3919,7 @@ def _shard_pair(label, runs, warm=SHARD_WARM):
 
         def one():
             box[k][0], box[k][1] = step(box[k][0], const, 1e18)
-            cycles[k].append(box[k][1].mg_iters)
+            cycles[k].append(getattr(box[k][1], "mg_iters", 0))
         return one
 
     for k in runs:
@@ -3936,28 +3948,37 @@ def _shard_pair(label, runs, warm=SHARD_WARM):
     return out
 
 
-def _shard_report(label, res, want, extra=""):
+def _qg_final(r):
+    """(whether a QGState run ended finite, its shape and final numbers)."""
+    shape = tuple(r["state"].q.shape)
+    finite = state_ok(r["state"], r["diag"], shape)
+    return finite, f" {shape[1]}^2 x {shape[0]}", (
+        f", ke {r['diag'].ke.item():.6e}, dt {r['diag'].dt.item():.6e}, "
+        f"finite {finite}")
+
+
+def _shard_report(label, res, want, extra="", final=_qg_final):
     """Print each run's rounds, launches and V-cycles; check the launches
-    against `want` {run: {counter: count}} (every other counter 0) and a
-    finite state. Returns whether all held."""
+    against `want` {run: {counter: count}} (every other counter 0) and,
+    by `final(run)` -> (ok, shape text, final text), the final state.
+    Returns whether all held."""
     ok = True
     n_steps = SHARD_ROUNDS * SHARD_STEPS
     for k, r in res.items():
-        shape = tuple(r["state"].q.shape)
-        finite = state_ok(r["state"], r["diag"], shape)
+        finite, shape, tail = final(r)
         good = finite and all(r["counts"][n] == want[k].get(n, 0)
                               for n in r["counts"])
         ok &= good
         c = r["cycles"]
-        print(f"shard {label} {k} {shape[1]}^2 x {shape[0]}: "
+        print(f"shard {label} {k}{shape}: "
               + rounds_line(r["ms"], r["med"], r["busy"], SHARD_STEPS)
-              + f", V-cycles of the first solve a step mean "
-              f"{np.mean(c):.4f} max {max(c)}, launches over {n_steps} "
-              f"steps " + ", ".join(f"{n} {v}" for n, v in r["counts"].items()
-                                     if v)
-              + f" (expected {want[k] or 'none'}), ke "
-              f"{r['diag'].ke.item():.6e}, dt {r['diag'].dt.item():.6e}, "
-              f"finite {finite} {'ok' if good else 'FAIL'}")
+              + (f", V-cycles of the first solve a step mean "
+                 f"{np.mean(c):.4f} max {max(c)}" if max(c) else "")
+              + f", launches over {n_steps} steps "
+              + (", ".join(f"{n} {v}" for n, v in r["counts"].items() if v)
+                 or "none")
+              + f" (expected {want[k] or 'none'}){tail} "
+              f"{'ok' if good else 'FAIL'}")
     a, b = list(res)
     print(f"shard {label}: {b} {res[b]['med']:.4f} ms/step against {a} "
           f"{res[a]['med']:.4f} (ratio {res[b]['med'] / res[a]['med']:.4f},"
@@ -4134,6 +4155,224 @@ def shard_path(QGConfig, rows, rows_err, kv_err):
         del const, state, runs, res, rs, final, sconst
         torch.cuda.empty_cache()
     return True
+
+
+VSHARD_CHECK_EVENTS = dict(NODE_CHECK_EVENTS, tend=0.125)
+
+
+def vshard_driver_check(NodeQGConfig):
+    """driver_node.run_node(sharded=True) under NCCL at world size 1 on the
+    card against the unsharded run_node on the CPU: bench's node physics
+    at 128^2 x 3 f64 with the coastline, solver="vmg", TOLERANCE 1e-8 and
+    VSHARD_CHECK_EVENTS (records at t = 0 and 0.125, two diag rows, the
+    filter at t = 0.125), from one numpy IC: the final q and psi and the
+    diag rows within STEP_LIMIT, every vars.nc record within float32
+    rounding; K5 never
+    launched on the card (the sharded step is torch ops; K6 only in the
+    t = 0 output's re-inversion on the whole constants)."""
+    import os
+    import tempfile
+    from msom_tpu_torch import driver_node
+    from msom_tpu_torch.io.netcdf import read_nc
+    from msom_tpu_torch.models import qg_node
+    cfg = node_config(NodeQGConfig, 128, 3, "float64", TOLERANCE=1e-8,
+                      solver="vmg", **VSHARD_CHECK_EVENTS)
+    psi0 = node_noise_ic(cfg, 42)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for where in ("cpu", "cuda"):
+            const = qg_node.build_constants(
+                cfg, device=where, mask=qg_node.coastline_mask(128))
+            state = qg_node.init_state(cfg, const, psi0=psi0)
+            output = driver_node.NodeOutput(cfg, os.path.join(tmp, where))
+            rows = []
+            write_row = output.diag_row
+
+            def diag_row(*values, rows=rows, write_row=write_row):
+                rows.append(values)
+                write_row(*values)
+
+            output.diag_row = diag_row
+            reset_counts()
+            t0 = time.perf_counter()
+            state, _ = driver_node.run_node(
+                cfg, const=const, state=state, output=output, restart=None,
+                sharded=where == "cuda")
+            secs = time.perf_counter() - t0
+            nc = read_nc(os.path.join(tmp, where, "vars.nc"), ["psi", "q"],
+                         None)
+            out[where] = (state, rows, kernel_counts(), nc, secs)
+    (cs, crow, cn, cnc, csec), (gs, grow, gn, gnc, gsec) = \
+        out["cpu"], out["cuda"]
+    rels = {n: _rel(getattr(gs, n), getattr(cs, n)) for n in ("q", "psi")}
+    g, c = np.array(grow), np.array(crow)
+    rels["diag"] = max(np.abs(g[:, k] - c[:, k]).max() / np.abs(c[:, k]).max()
+                       for k in range(1, 4)) if len(c) else np.inf
+    nc_rel = max(_rel(gnc[0][n], cnc[0][n]) for n in ("psi", "q"))
+    steps = int(gs.i)
+    good = (all(r <= STEP_LIMIT for r in rels.values())
+            and nc_rel <= 2.0 ** -23 and np.array_equal(gnc[1], cnc[1])
+            and len(cnc[1]) == 2 and len(grow) == len(crow) >= 2
+            and int(cs.i) == steps and int(gs.nbar) == int(cs.nbar) == 1
+            and gn["K5"] == 0 and not any(cn.values()))
+    print(f"vshard run_node check 128^2 x 3 f64 coastline, {steps} steps, "
+          f"{len(cnc[1])} records, {len(crow)} diag rows, one filter event, "
+          f"sharded on the card (world size 1, NCCL, {gsec:.2f} s) vs "
+          f"unsharded on the cpu ({csec:.2f} s): "
+          + ", ".join(f"rel {k} = {v:.3e}" for k, v in rels.items())
+          + f" (limit {STEP_LIMIT:g}); vars.nc {nc_rel:.3e} of max (limit "
+          f"2^-23); card launches K5 {gn['K5']}, K6 {gn['K6']} (the t = 0 "
+          f"re-inversion) {'ok' if good else 'FAIL'}")
+    return good
+
+
+def vshard_path(NodeQGConfig):
+    """Bench's masked node configuration (coastline, solver="vmg") at
+    2048^2 x 4 f32: the vertex-sharded step at world size 1 beside the
+    unsharded step (K5, K6) in turns (_shard_pair: SHARD_WARM warm-up
+    steps from the same state, SHARD_ROUNDS rounds of SHARD_STEPS steps of
+    each), K5 and K6 expected 0 on the sharded side; from the unsharded
+    run's final state one f64 step of each within STEP_LIMIT."""
+    import torch
+    from msom_tpu_torch.models import qg_node
+    from msom_tpu_torch.parallel import vshard
+    from msom_tpu_torch.parallel.mesh import make_mesh
+    N, nl = 2048, 4
+    label = f"vshard node_masked {N}^2 x {nl} f32"
+    t0 = time.perf_counter()
+    cfg = node_config(NodeQGConfig, N, nl, "float32", solver="vmg")
+    mask = qg_node.coastline_mask(N)
+    const = qg_node.build_constants(cfg, mask=mask)
+    state = qg_node.init_state(cfg, const, psi0=node_noise_ic(cfg))
+    mesh = make_mesh()
+    sstep, place, csh = vshard.make_node_step_sharded(cfg, const, state.q,
+                                                      mesh)
+    runs = {"unsharded": (qg_node.make_step(cfg), const, state),
+            "vshard": (sstep, csh, place(vshard.owned_state(state)))}
+    torch.cuda.synchronize()
+    print(f"{label} set-up {time.perf_counter() - t0:.1f} s, mesh "
+          f"{mesh.shape}, {len(csh.vlevels)} levels all tiles "
+          f"{all(csh.sharded_flags)}")
+    res = _shard_pair(label, runs)
+    n = 2 * SHARD_ROUNDS * SHARD_STEPS
+    want = {"unsharded": dict(K5=n, K6=res["unsharded"]["counts"]["K6"]),
+            "vshard": {}}
+
+    def final(r):
+        st, d = r["state"], r["diag"]
+        finite = (bool(torch.isfinite(st.q).all())
+                  and bool(torch.isfinite(st.psi).all())
+                  and np.isfinite(d.ke.item()) and d.dt.item() > 0)
+        return finite, "", (f", after {int(st.i)} steps t "
+                            f"{st.t.item():.6e}, ke {d.ke.item():.6e}, "
+                            f"finite {finite}")
+
+    ok = _shard_report(label, res, want, final=final) \
+        and res["unsharded"]["counts"]["K6"] > 0
+    # one f64 step of each from the unsharded run's final state
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    const64 = qg_node.build_constants(cfg64, mask=mask)
+    u = res["unsharded"]["state"]
+    s64 = dataclasses.replace(u, **{f: getattr(u, f).double() for f in (
+        "q", "psi", "t", "dt_prev") if getattr(u, f) is not None},
+        psi_f=None if u.psi_f is None else u.psi_f.double())
+    want64, _ = qg_node.make_step(cfg64)(s64, const64, 1e18)
+    step64, place64, csh64 = vshard.make_node_step_sharded(
+        cfg64, const64, s64.q, mesh)
+    got64, _ = step64(place64(vshard.owned_state(s64)), csh64, 1e18)
+    err = _rel(vshard.full_state(got64, csh64).q, want64.q)
+    good = err <= STEP_LIMIT
+    print(f"{label}: one f64 step from the unsharded final state, vshard "
+          f"against unsharded max|d q|/max|q| = {err:.3e} (limit "
+          f"{STEP_LIMIT:g}) {'ok' if good else 'FAIL'}")
+    del const, const64, runs, res, csh, csh64
+    torch.cuda.empty_cache()
+    return ok and good
+
+
+def pgshard_driver_check(PGConfig):
+    """driver.run_pg(sharded=True) under NCCL at world size 1 on the card
+    against the unsharded run_pg on the CPU, f64, 32^2 x 4, tend = 0.3,
+    dtout = 0.1 (four output events), with a PGOutputWriter: the final
+    state and means within STEP_LIMIT, the same steps and nme, the same
+    files, each .bas within float32 rounding."""
+    import os
+    import tempfile
+    from msom_tpu_torch import driver
+    from msom_tpu_torch.io.bas import read_bas
+    from msom_tpu_torch.models import mspg
+    cfg = PGConfig(**{**PG_PHYSICS, **PG_CHECK, "nl": 4, "tend": 0.3,
+                      "dtout": 0.1})
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for where in ("cpu", "cuda"):
+            const = mspg.build_constants(cfg, device=where)
+            writer = driver.PGOutputWriter(cfg, const,
+                                           outdir=os.path.join(tmp, where))
+            t0 = time.perf_counter()
+            state = driver.run_pg(
+                cfg, const=const, state=mspg.init_state(cfg, const,
+                                                        b0=pg_ic(cfg)),
+                hooks=driver.RunHooks(on_output=writer),
+                sharded=where == "cuda")
+            out[where] = (state, time.perf_counter() - t0)
+        (cs, csec), (gs, gsec) = out["cpu"], out["cuda"]
+        rels = {n: _rel(getattr(gs, n), getattr(cs, n))
+                for n in ("b", "ux", "uy", "b_me", "ux_me", "uy_me")}
+        files = sorted(os.listdir(os.path.join(tmp, "cpu")))
+        same = files == sorted(os.listdir(os.path.join(tmp, "cuda")))
+        bas_rel = 0.0
+        for name in (n for n in files if same and n.endswith(".bas")):
+            bas_rel = max(bas_rel, _rel(
+                read_bas(os.path.join(tmp, "cuda", name))[0],
+                read_bas(os.path.join(tmp, "cpu", name))[0]))
+    good = (all(r <= STEP_LIMIT for r in rels.values()) and same
+            and bas_rel <= 2.0 ** -23 and int(gs.i) == int(cs.i)
+            and int(gs.nme) == int(cs.nme) and len(files) == 9)
+    print(f"pgshard run_pg check {cfg.N}^2 x {cfg.nl} f64, {int(gs.i)} "
+          f"steps, sharded on the card (world size 1, NCCL, {gsec:.2f} s) "
+          f"vs unsharded on the cpu ({csec:.2f} s): "
+          + ", ".join(f"rel {k} = {v:.3e}" for k, v in rels.items())
+          + f" (limit {STEP_LIMIT:g}); {len(files)} files, same names "
+          f"{same}, .bas {bas_rel:.3e} of max (limit 2^-23) "
+          f"{'ok' if good else 'FAIL'}")
+    return good
+
+
+def pgshard_path(PGConfig):
+    """bench.py's mspg row (64^2 x 30 f32) after 120 unsharded spin-up
+    steps from rest: the rows-sharded step at world size 1 beside the
+    unsharded step in turns (_shard_pair); no kernel on either side."""
+    import torch
+    from msom_tpu_torch.models import mspg
+    from msom_tpu_torch.parallel.pg_step import make_pg_step_sharded
+    cfg = PGConfig(**PG_PHYSICS, **PG_PATH)
+    label = f"pgshard mspg {cfg.N}^2 x {cfg.nl} f32"
+    const = mspg.build_constants(cfg, device="cuda")
+    state = mspg.init_state(cfg, const)
+    step = mspg.make_step(cfg)
+    for _ in range(120):
+        state, _ = step(state, const, 1e18)
+    rs = make_pg_step_sharded(cfg)
+    runs = {"unsharded": (step, const, state),
+            "pgshard": (rs.step, rs.shard(const), rs.shard(state))}
+    res = _shard_pair(label, runs)
+
+    def final(r):
+        st = r["state"]
+        finite = all(bool(torch.isfinite(getattr(st, n)).all())
+                     for n in ("b", "ux", "uy")) and r["diag"].dt.item() > 0
+        return finite, "", f", after {int(st.i)} steps finite {finite}"
+
+    ok = _shard_report(label, res, {"unsharded": {}, "pgshard": {}},
+                       final=final)
+    g = rs.gather(res["pgshard"]["state"])
+    u = res["unsharded"]["state"]
+    rels = {n: _rel(getattr(g, n), getattr(u, n)) for n in ("b", "ux", "uy")}
+    print(f"{label}: the states after the same steps, sharded against "
+          "unsharded " + ", ".join(f"rel {k} = {v:.3e}"
+                                   for k, v in rels.items()) + " (f32)")
+    return ok
 
 
 def k7_checks(periodic, shapes):
@@ -5017,6 +5256,33 @@ def main() -> int:
                 return 18
             print(f"shard path done at {time.perf_counter() - t_start:.0f} "
                   "s")
+        finally:
+            dist.shutdown()
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    # 18c and 18d. the vertex-sharded qg-node run and the sharded mspg run
+    # at world size 1 under NCCL: run_node and run_pg against the CPU, then
+    # each sharded step beside its unsharded step
+    for phase, checks, path in (
+            ("vshard", lambda: vshard_driver_check(NodeQGConfig),
+             lambda: vshard_path(NodeQGConfig)),
+            ("pgshard", lambda: pgshard_driver_check(PGConfig),
+             lambda: pgshard_path(PGConfig))):
+        if not wanted(phase):
+            continue
+        import shutil
+        from msom_tpu_torch.parallel import dist
+        t0 = time.perf_counter()
+        tmp = _rows_group()
+        try:
+            if not checks():
+                return 18
+            print(f"{phase} checks done at "
+                  f"{time.perf_counter() - t_start:.0f} s")
+            if not path():
+                return 18
+            print(f"{phase} path done at {time.perf_counter() - t_start:.0f}"
+                  f" s ({time.perf_counter() - t0:.0f} s for the phase)")
         finally:
             dist.shutdown()
             shutil.rmtree(tmp, ignore_errors=True)

@@ -20,7 +20,11 @@ with dtflt > 0, the filter mean psi_f, on the (nl, N+1, N+1) vertex grid,
 or the (nl, N, N) owned nodes of the periodic grid, bc_fac = -1).
 The node model has no learned weights either: its constants come from the
 config and the numpy mask, psi_pg, topo, q_forcing_3d and N2 arrays given
-to `qg_node.build_constants`.
+to `qg_node.build_constants`. A vertex-sharded run's owned (nl, N, N)
+fields take their ring row and column N back through
+`parallel.vshard.to_full` (q with its `VertexRing`) before this path, and
+`vshard.owned_state` cuts the port's state to the owned rep again; the
+sharded runs take and return whole states.
 
 `pg_state_from_numpy` and `pg_state_to_numpy` carry the mspg family's
 `PGState` (leaves b, ux, uy, t, dt_prev, i, b_me, ux_me, uy_me, nme), so a

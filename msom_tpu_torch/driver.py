@@ -21,9 +21,9 @@ The sharded msqg run (`run_qg(sharded=True|"auto"|"rows"|"gspmd")`,
 (parallel/step.py): the rows step, or the general-mesh step that is the
 port's form of the JAX package's GSPMD run, routed as the JAX driver
 routes them; the events gather the whole state (the filter runs on it on
-every rank, the writers on the master only). Not ported yet (raises
-NotImplementedError naming ROADMAP.md queue 1, item 15e): the sharded
-mspg run (`run_pg(sharded=)`, `--model pg --sharded`).
+every rank, the writers on the master only). The sharded mspg run
+(`run_pg(sharded=True)`, `--model pg --sharded`) steps each rank's rows
+(parallel/pg_step.py) and gathers the running means for the output.
 """
 
 from __future__ import annotations
@@ -44,14 +44,10 @@ from msom_tpu_torch.io.deck import load_pg_deck, load_qg_deck
 from msom_tpu_torch.models import mspg, qg, qg_energy
 from msom_tpu_torch.ops.wavelet import wavelet_filter_step
 from msom_tpu_torch.parallel import dist
+from msom_tpu_torch.parallel.pg_step import make_pg_step_sharded
 from msom_tpu_torch.parallel.step import make_qg_step_sharded
 from msom_tpu_torch.params import (PGConfig, QGConfig, load_pg_config,
                                    load_qg_config)
-
-
-PG_SHARDED_UNPORTED = ("the sharded mspg run (the JAX package's GSPMD "
-                       "run_pg(sharded=)) is not ported yet (ROADMAP.md "
-                       "queue 1, item 15e)")
 
 
 @dataclasses.dataclass
@@ -210,20 +206,38 @@ def run_pg(cfg: PGConfig, *, const=None, state=None, hooks: RunHooks = None,
     output event (writestate, `hooks.on_output`) fires at t = 0 and every
     dtout. Event times are compared within `_time_eps`. `const` and
     `state` default to `mspg.build_constants(cfg, device=device)` and its
-    `init_state`; `hooks.on_log` gets (i, dt, t, 0.0) every step."""
-    if sharded:
-        raise NotImplementedError(PG_SHARDED_UNPORTED)
+    `init_state`; `hooks.on_log` gets (i, dt, t, 0.0) every step.
+
+    `sharded` runs parallel/pg_step.py's rows step on the ranks of the
+    running process group (world size 1 without one), each rank calling
+    run_pg with the whole `const` and `state`: the means are accumulated
+    on the rows, an output event gathers the state on every rank and the
+    hooks run on the master only; the state returned is the whole state,
+    on every rank. A grid whose rows do not cut into the ranks raises
+    ValueError."""
     hooks = hooks or RunHooks()
     if const is None:
         const = mspg.build_constants(cfg, device=device)
     if state is None:
         state = mspg.init_state(cfg, const)
-    step = mspg.make_step(cfg)
     t = float(state.t)
     eps = _time_eps(t, state.t.dtype)
     next_out = _next_event(0.0, cfg.dtout, eps)
+    if sharded:
+        rs = make_pg_step_sharded(cfg)
+        step, whole = rs.step, rs.gather
+        const, first = rs.shard(const), state
+        state = rs.shard(state)
+        if not dist.is_master():
+            hooks = RunHooks()       # the writers and the log: master only
+    else:
+        step = mspg.make_step(cfg)
+        first = state
+
+        def whole(x):
+            return x
     if hooks.on_output is not None:
-        hooks.on_output(state, t)   # writestate fires at t = 0 (pg.c:213)
+        hooks.on_output(first, t)   # writestate fires at t = 0 (pg.c:213)
 
     while t < cfg.tend - eps:
         tnext = min(next_out, cfg.tend)
@@ -240,14 +254,15 @@ def run_pg(cfg: PGConfig, *, const=None, state=None, hooks: RunHooks = None,
         if hooks.on_log is not None:
             hooks.on_log(i, float(diag.dt), t, 0.0)
         if t >= next_out - eps:
+            g = whole(state)         # on every rank: a collective sharded
             if hooks.on_output is not None:
-                hooks.on_output(state, t)
+                hooks.on_output(g, t)
             state = dataclasses.replace(state,
                                         nme=torch.zeros_like(state.nme))
             next_out = _next_event(t, cfg.dtout, eps)
         if max_steps is not None and i >= max_steps:
             break
-    return state
+    return whole(state)
 
 
 def create_outdir(outdir: str | None, prefix: str = "outdir") -> str:
@@ -404,8 +419,6 @@ def main(argv=None) -> dict:
                    help="run on the CPU instead of the CUDA card")
     args = p.parse_args(argv)
     device = "cpu" if args.cpu else "cuda"
-    if args.sharded and args.model == "pg":
-        raise NotImplementedError(PG_SHARDED_UNPORTED)
     if args.sharded:
         dist.init(device)
     master = dist.is_master()
@@ -421,11 +434,11 @@ def main(argv=None) -> dict:
         deck = load_pg_deck(cfg, deckdir, log=log)
         const = mspg.build_constants(cfg, device=device, **deck["const"])
         state = mspg.init_state(cfg, const, **deck["init"])
-        if not args.no_output:
+        if not args.no_output and master:
             hooks.on_output = PGOutputWriter(cfg, const, outdir=args.outdir,
                                              params_text=params_text)
         state = run_pg(cfg, const=const, state=state, hooks=hooks,
-                       max_steps=args.steps)
+                       max_steps=args.steps, sharded=args.sharded)
     else:
         cfg = load_qg_config(params_text)
         deck = load_qg_deck(cfg, deckdir, log=log)

@@ -5,6 +5,8 @@ SQG (the port of `msom_tpu.driver_node`), and their command line, the
     python -m msom_tpu_torch.driver_node [--model node|newqg|sqg]
         --config params.in [--steps N] [--deck DIR] [--outdir DIR]
         [--restart PATH] [--cpu]
+    torchrun --nproc_per_node=W -m msom_tpu_torch.driver_node --config
+        params.in --sharded
 
 The reference's event schedule (qg-node/qg.c:130-179, qg.h:361-400,
 486-499) becomes a host loop around the step: a `vars.nc` NetCDF record of
@@ -24,9 +26,11 @@ record of psi and q every dtout (at t = 0 too), the restart.nc pickup
 same events with the surface buoyancy bs as a third vars.nc variable, and
 psi and bs read from restart.nc (qg-node/qg.h:492-495).
 
-One process. Not ported yet: the sharded run (`sharded=`, `--sharded`:
-the owned-node vertex step parallel/vshard.py and run_node(sharded=),
-ROADMAP.md queue 1, item 15d), which raises NotImplementedError.
+The sharded qg-node run (`run_node(sharded=True)`, `--sharded`) steps the
+owned-node vertex tiles of the ranks of a torch.distributed group
+(parallel/vshard.py); the events gather the whole fields on every rank and
+the writers run on the master. newqg and SQG ignore `--sharded` and run
+unsharded, as the JAX package's command line does.
 """
 
 from __future__ import annotations
@@ -44,13 +48,8 @@ from msom_tpu_torch.io.deck import load_node_deck
 from msom_tpu_torch.io.netcdf import NCWriter, read_nc
 from msom_tpu_torch.models import qg_node as node
 from msom_tpu_torch.ops import vertex
-
-UNPORTED = {
-    "sharded": "the sharded qg-node run (the owned-node vertex step "
-               "parallel/vshard.py, run_node(sharded=)) is not ported yet "
-               "(ROADMAP.md queue 1, item 15d)",
-}
-
+from msom_tpu_torch.parallel import dist, vshard
+from msom_tpu_torch.parallel.mesh import Mesh, make_mesh
 
 class NodeOutput:
     """vars.nc, diag_1d.dat and the config backup of the node-family
@@ -98,6 +97,30 @@ class NodeOutput:
         self.nc.close()
 
 
+class _NoOutput:
+    """The output of a rank other than the master in a sharded run: it
+    writes nothing."""
+    dir = None
+
+    def write(self, t, **fields):
+        pass
+
+    def diag_header(self):
+        pass
+
+    def diag_row(self, *values):
+        pass
+
+    def backup_restart(self, path):
+        pass
+
+    def backup_file(self, path):
+        pass
+
+    def close(self):
+        pass
+
+
 def _maybe_restart(path: str | None):
     """`path` if it names an existing file, else None."""
     if path and os.path.exists(path):
@@ -108,7 +131,7 @@ def _maybe_restart(path: str | None):
 def run_node(cfg, *, const=None, state=None, hooks: RunHooks | None = None,
              max_steps: int | None = None, outdir=None, output=None,
              restart: str | None = "restart.nc", params_text=None,
-             deck: str | None = None, sharded=False,
+             deck: str | None = None, sharded=False, mesh=None,
              generator: torch.Generator | None = None, seed: int = 0,
              device="cuda"):
     """Integrate the qg-node model to cfg.tend with the reference's event
@@ -120,15 +143,29 @@ def run_node(cfg, *, const=None, state=None, hooks: RunHooks | None = None,
     `build_constants(cfg, device=device)` and its `init_state`; an
     existing `restart` file replaces psi (and q, t) by its last record. A
     stochastic run draws from `generator` (on the state's device), else
-    from one made here and seeded with `seed`."""
-    if sharded:
-        raise NotImplementedError(UNPORTED["sharded"])
-    hooks = hooks or RunHooks()
+    from one made here and seeded with `seed`.
+
+    `sharded` runs the owned-node vertex step (parallel/vshard.py) on the
+    ranks of the running process group (world size 1 without one) laid
+    out as `mesh` (a Mesh or an (my, mx) shape; default make_mesh's),
+    each rank calling run_node with the same arguments: the vertex
+    multigrid inverts (its levels are built where `const` has the
+    spectral solve), a stochastic run draws the same noise on every rank
+    (the generators seeded alike), the events gather the whole fields on
+    every rank, the writers and the hooks run on the master (the output
+    of the other ranks writes nothing). The state returned is the whole
+    state on every rank; psi_f's ring row and column N are zero, as in
+    the JAX package's sharded run. A periodic config raises
+    NotImplementedError, as the JAX package does."""
+    if sharded and cfg.periodic:
+        raise NotImplementedError(vshard.PERIODIC_REFUSAL)
+    master = not sharded or dist.is_master()
+    hooks = hooks if hooks is not None and master else RunHooks()
     deck_nc = None
     if const is None:
         kw = {}
         if deck is not None:
-            d = load_node_deck(cfg, deck, log=print)
+            d = load_node_deck(cfg, deck, log=print if master else None)
             kw, deck_nc = d["const"], d["path"]
         const = node.build_constants(cfg, device=device, **kw)
     if state is None:
@@ -147,7 +184,9 @@ def run_node(cfg, *, const=None, state=None, hooks: RunHooks | None = None,
             state, psi=psi, q=node.comp_q(cfg, const, psi),
             t=torch.tensor(t0, dtype=dtype, device=dev))
 
-    if output is None:
+    if not master:
+        output = _NoOutput()
+    elif output is None:
         output = NodeOutput(cfg, outdir, params_text=params_text)
     if rp:
         output.backup_restart(rp)
@@ -155,6 +194,9 @@ def run_node(cfg, *, const=None, state=None, hooks: RunHooks | None = None,
         output.backup_file(deck_nc)
     if cfg.stochastic and generator is None:
         generator = torch.Generator(device=state.q.device).manual_seed(seed)
+    if sharded:
+        return _run_node_sharded(cfg, const, state, hooks, max_steps, output,
+                                 mesh, generator)
     step = node.make_step(cfg, generator)
 
     t = float(state.t)
@@ -213,6 +255,78 @@ def run_node(cfg, *, const=None, state=None, hooks: RunHooks | None = None,
             break
     output.close()
     return state, output
+
+
+def _run_node_sharded(cfg, const, state, hooks, max_steps, output, mesh,
+                      generator):
+    """run_node's event loop on the vertex-sharded step (the JAX
+    package's _run_node_sharded, msom_tpu/driver_node.py:249-325): the
+    output, diag and filter events of the unsharded loop, the first two on
+    the gathered whole fields."""
+    if not isinstance(mesh, Mesh):
+        mesh = make_mesh(mesh)
+    step, place, csh = vshard.make_node_step_sharded(
+        cfg, const, state.q, mesh=mesh, generator=generator)
+    filt = vshard.make_node_filter_sharded(cfg, mesh) if cfg.dtflt > 0 \
+        else None
+    s = place(vshard.owned_state(state))
+    master = dist.is_master()
+
+    t = float(s.t)
+    eps = _time_eps(t, s.t.dtype)
+    next_out = 0.0                               # output fires at t = 0
+    next_diag = 0.0 if cfg.dtdiag > 0 else float("inf")
+    next_flt = _next_event(t, cfg.dtflt, eps)
+    wrote_header = False
+
+    while True:
+        if t >= next_out - eps:
+            g = vshard.full_state(s, csh)        # a collective
+            if master:
+                psi = g.psi
+                if int(s.i) == 0:                # qg.c:163-166
+                    psi, _ = node.invert_q(cfg, const, g.psi, g.q)
+                output.write(t, psi=psi, q=g.q)
+                if hooks.on_output is not None:
+                    hooks.on_output(g, t)
+            s = dataclasses.replace(s, nbar=torch.zeros_like(s.nbar))
+            next_out = _next_event(t, cfg.dtout, eps)
+        if cfg.dtdiag > 0 and t >= next_diag - eps:
+            if not wrote_header:
+                output.diag_header()
+                wrote_header = True
+            else:
+                g = vshard.full_state(s, csh)
+                if master:
+                    ke, d_ke, f_ke = (float(x) for x in node.diag_1d(
+                        cfg, const, g.psi, g.q,
+                        torch.tensor(t, dtype=s.t.dtype, device=s.t.device)))
+                    output.diag_row(t, ke, d_ke, f_ke)
+            next_diag = _next_event(t, cfg.dtdiag, eps)
+        if cfg.dtflt > 0 and t >= next_flt - eps:
+            s, ring = filt(s, csh)
+            csh = dataclasses.replace(csh, ring=ring)
+            if hooks.on_filter is not None:
+                hooks.on_filter(s, t)
+            next_flt = _next_event(t, cfg.dtflt, eps)
+        if t >= cfg.tend - eps:
+            break
+
+        tnext = min(next_out, next_diag, next_flt, cfg.tend)
+        s, diag = step(s, csh, tnext)
+        t = float(s.t)
+        i = int(s.i)
+        eps = _time_eps(t, s.t.dtype)
+        if t != t:
+            raise FloatingPointError(
+                f"non-finite model time after step {i}: blow-up or NaN "
+                "(check DT/CFL; resume from the last restart.nc)")
+        if hooks.on_log is not None:
+            hooks.on_log(i, float(diag.dt), t, float(diag.ke))
+        if max_steps is not None and i >= max_steps:
+            break
+    output.close()
+    return vshard.full_state(s, csh), output
 
 
 def _event_loop(state, step, output, hooks, cadence, tend, max_steps,
@@ -348,15 +462,16 @@ def main(argv=None):
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the CUDA card")
     p.add_argument("--sharded", action="store_true",
-                   help="vertex-sharded step over the local devices")
+                   help="the vertex-sharded step over the ranks of torchrun "
+                        "(torchrun --nproc_per_node=W -m "
+                        "msom_tpu_torch.driver_node ...; qg-node model "
+                        "only, newqg and sqg ignore it)")
     args = p.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError(UNPORTED["sharded"])
+    device = "cpu" if args.cpu else "cuda"
     with open(args.config) as f:
         text = f.read()
     kw = dict(hooks=stdout_hooks(), max_steps=args.steps, outdir=args.outdir,
-              restart=args.restart, params_text=text,
-              device="cpu" if args.cpu else "cuda")
+              restart=args.restart, params_text=text, device=device)
     if args.model == "newqg":
         from msom_tpu_torch.models.newqg import load_newqg_config
         return run_newqg(load_newqg_config(text), **kw)
@@ -364,7 +479,13 @@ def main(argv=None):
     if args.model == "sqg":
         return run_sqg(cfg, **kw)
     deck = args.deck or os.path.dirname(os.path.abspath(args.config))
-    return run_node(cfg, deck=deck, **kw)
+    if not args.sharded:
+        return run_node(cfg, deck=deck, **kw)
+    dist.init(device)
+    try:
+        return run_node(cfg, deck=deck, sharded=True, **kw)
+    finally:
+        dist.shutdown()
 
 
 if __name__ == "__main__":

@@ -25,7 +25,7 @@ so the card is launch-bound there.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -267,24 +267,29 @@ def advection(cfg: PGConfig, const: PGConstants, b, ux, uy):
     """Flux-form 3-D advection with the diagnostic w from continuity
     integrated bottom up (pg.h:397-439). Returns db (nl, N, N) and w at
     each layer's top face."""
+    return _advection(cfg, _pad_b(b), ux, uy)
+
+
+def _advection(cfg: PGConfig, bp, ux, uyf):
+    """advection from the ghosted buoyancy bp (nl, ny+2, nx+2) and the
+    y-faces uyf (nl, ny+1, nx) of its ny rows of cells."""
     nl = cfg.nl
     delta = cfg.L0 / cfg.N
     ds = 1.0 / nl
-    bp = _pad_b(b)
     bC = bp[:, 1:-1, 1:-1]
     bE, bW = bp[:, 1:-1, 2:], bp[:, 1:-1, :-2]
     bN, bS = bp[:, 2:, 1:-1], bp[:, :-2, 1:-1]
     # horizontal flux convergence (pg.h:420-424)
     dbh = ((bC + bW) * ux[:, :, :-1] - (bC + bE) * ux[:, :, 1:]
-           + (bC + bS) * uy[:, :-1, :] - (bC + bN) * uy[:, 1:, :]) \
+           + (bC + bS) * uyf[:, :-1, :] - (bC + bN) * uyf[:, 1:, :]) \
         / (2 * delta)
     # w[k] at the top face of layer k, from w = 0 at the sea floor: the
     # divergence of the layers below reduces it upward (pg.h:418)
-    div = (ux[:, :, 1:] - ux[:, :, :-1] + uy[:, 1:, :] - uy[:, :-1, :]) \
+    div = (ux[:, :, 1:] - ux[:, :, :-1] + uyf[:, 1:, :] - uyf[:, :-1, :]) \
         * ds / delta
     w_top = -torch.cumsum(div.flip(0), dim=0).flip(0)
     w_bot = torch.cat([w_top[1:], torch.zeros_like(w_top[:1])])
-    bg = _vert_ghost(b)
+    bg = _vert_ghost(bC)
     b_below, b_above = bg[2:], bg[:-2]
     dbv = ((bC + b_below) * w_bot - (bC + b_above) * w_top) / (2 * ds)
     return dbh + dbv, w_top
@@ -292,8 +297,13 @@ def advection(cfg: PGConfig, const: PGConstants, b, ux, uy):
 
 def hdiffusion(cfg: PGConfig, const: PGConstants, b):
     """Explicit horizontal diffusion, face-flux form (pg.h:514-542)."""
+    return _hdiffusion(cfg, const, _pad_b(b))
+
+
+def _hdiffusion(cfg: PGConfig, const: PGConstants, bp):
+    """hdiffusion from the ghosted buoyancy; const.ky_face holds the
+    y-faces of bp's rows of cells."""
     delta = cfg.L0 / cfg.N
-    bp = _pad_b(b)
     fx = const.kx_face * (bp[:, 1:-1, 1:] - bp[:, 1:-1, :-1]) / delta
     fy = const.ky_face * (bp[:, 1:, 1:-1] - bp[:, :-1, 1:-1]) / delta
     return (fx[:, :, 1:] - fx[:, :, :-1] + fy[:, 1:, :] - fy[:, :-1, :]) \
@@ -343,25 +353,35 @@ def forcing_implicit(cfg: PGConfig, const: PGConstants, b, dt):
 def momentum(cfg: PGConfig, const: PGConstants, b, ux, uy):
     """Hydrostatic pressure and the momentum tendency du = -grad p - f
     u^perp - r u + nu lap u on the faces, f = y (pg.h:612-646)."""
+    return _momentum(cfg, const, b, ux, uy, _pad_face_x(ux),
+                     _pad_face_y(uy), _pad_b)
+
+
+def _momentum(cfg: PGConfig, const: PGConstants, b, ux, uy, Px, Py, pad_c):
+    """momentum from the ghosted faces Px (nl, ny+2, nx+3) and Py (uy's
+    rows with a ghost row each side, x-ghosted) and `pad_c`, the ghost
+    rule of a cell field; uy (and const.ubty, const.yf) hold the y-faces
+    the result is wanted on, the first ny or all ny+1 of the cells'."""
     delta = cfg.L0 / cfg.N
     ds = 1.0 / cfg.nl
+    ny, nf = b.shape[-2], uy.shape[-2]
     # hydrostatic: p[0] = -b[0] ds/2; p[l] = p[l-1] - (b[l-1]+b[l]) ds/2
     incr = torch.cat([-b[:1] * 0.5 * ds, -0.5 * (b[:-1] + b[1:]) * ds])
     p = torch.cumsum(incr, dim=0)
-    pp = _pad_b(p)
+    pp = pad_c(p)
     dpdx = (pp[:, 1:-1, 1:] - pp[:, 1:-1, :-1]) / delta      # (nl, N, N+1)
-    dpdy = (pp[:, 1:, 1:-1] - pp[:, :-1, 1:-1]) / delta      # (nl, N+1, N)
+    dpdy = (pp[:, 1:nf + 1, 1:-1] - pp[:, :nf, 1:-1]) / delta
     # v at the x-faces: the 4 y-faces of the two cells beside the x-face
     # (pg.h:641), with mirrored x-ghost columns of uy; u likewise
-    uyg = torch.cat([uy[:, :, :1], uy, uy[:, :, -1:]], dim=-1)
+    uyg = Py[:, 1:ny + 2, :]
     vbar = 0.25 * (uyg[:, :-1, :-1] + uyg[:, :-1, 1:]
                    + uyg[:, 1:, :-1] + uyg[:, 1:, 1:])       # (nl, N, N+1)
-    uxg = torch.cat([ux[:, :1, :], ux, ux[:, -1:, :]], dim=-2)
+    uxg = Px[:, :nf + 1, 1:-1]
     ubar = 0.25 * (uxg[:, :-1, :-1] + uxg[:, :-1, 1:]
                    + uxg[:, 1:, :-1] + uxg[:, 1:, 1:])       # (nl, N+1, N)
     yx = const.yc[:, :1]                                     # (N, 1) cell y
-    lap_ux = _lap_face_x(ux, delta)
-    lap_uy = _lap_face_y(uy, delta)
+    lap_ux = _lap_face(Px, ux, delta)
+    lap_uy = _lap_face(Py, uy, delta)
     dux = -dpdx + yx * vbar - cfg.r * ux + cfg.nu * lap_ux
     duy = -dpdy - const.yf * ubar - cfg.r * uy + cfg.nu * lap_uy
     return dux, duy
@@ -384,14 +404,6 @@ def _lap_face(P, u, delta):
             + P[:, :-2, 1:-1] - 4 * u) / (delta * delta)
 
 
-def _lap_face_x(ux, delta):
-    return _lap_face(_pad_face_x(ux), ux, delta)
-
-
-def _lap_face_y(uy, delta):
-    return _lap_face(_pad_face_y(uy), uy, delta)
-
-
 def adjust_bt_velocity(cfg: PGConfig, const: PGConstants, ux, uy, btfac):
     """Remove the vertical mean and add btfac ubt (pg.h:649-672)."""
     ds = 1.0 / cfg.nl
@@ -406,8 +418,16 @@ def comp_gm(cfg: PGConfig, const: PGConstants, b):
     face the Ferrari et al. (2010) Eq. 16 tridiagonal for upsilon at the
     nl-1 interior interfaces, c1 = max(cmin, sqrt|b_surf - b_bot|/pi),
     then u_gm = d upsilon/dz."""
+    return _comp_gm(cfg, _pad_b(b))
+
+
+def _comp_gm(cfg: PGConfig, bp, first=True, last=True):
+    """comp_gm from the ghosted buoyancy: the x-faces of bp's rows of
+    cells and all their y-faces; `first`/`last` say whether the bottom
+    and top y-faces are the domain's walls."""
     nl = cfg.nl
     if nl < 2:
+        b = bp[:, 1:-1, 1:-1]
         return torch.zeros_like(b[:, :, :1]), torch.zeros_like(b[:, :1, :])
     delta = cfg.L0 / cfg.N
     ds = 1.0 / nl
@@ -429,29 +449,36 @@ def comp_gm(cfg: PGConfig, const: PGConstants, b):
         zu = torch.zeros_like(ups[:1])
         return (torch.cat([zu, ups]) - torch.cat([ups, zu])) / ds
 
-    bp = _pad_b(b)
     ugm_x = gm_for(bp[:, 1:-1, :-1], bp[:, 1:-1, 1:])
     ugm_y = gm_for(bp[:, :-1, 1:-1], bp[:, 1:, 1:-1])
-    return _zero_walls(ugm_x, ugm_y)
+    return _zero_walls(ugm_x, ugm_y, first, last)
 
 
-def _zero_walls(ux, uy):
-    """No normal flow at the walls."""
+def _zero_walls(ux, uy, first=True, last=True):
+    """No normal flow at the walls: ux's first and last columns, and uy's
+    first row where it is the bottom wall (`first`) and its last where it
+    is the top wall (`last`)."""
     ux = torch.cat([torch.zeros_like(ux[..., :1]), ux[..., 1:-1],
                     torch.zeros_like(ux[..., :1])], dim=-1)
-    uy = torch.cat([torch.zeros_like(uy[..., :1, :]), uy[..., 1:-1, :],
-                    torch.zeros_like(uy[..., :1, :])], dim=-2)
+    zero = torch.zeros_like(uy[..., :1, :])
+    lo = 1 if first else 0
+    hi = uy.shape[-2] - 1 if last else uy.shape[-2]
+    uy = torch.cat([zero] * first + [uy[..., lo:hi, :]] + [zero] * last,
+                   dim=-2)
     return ux, uy
 
 
-def cfl_dtmax(cfg: PGConfig, ux, uy, dtmax0, prev):
+def cfl_dtmax(cfg: PGConfig, ux, uy, dtmax0, prev, pmax=None):
     """timestep(u) layer by layer, bottom up, sharing the `previous`
-    smoothing state (pg.h:432-436). 0-d tensors: no host sync."""
+    smoothing state (pg.h:432-436). 0-d tensors: no host sync. `pmax`
+    takes the per-layer maxima over the ranks of a sharded step."""
     delta = cfg.L0 / cfg.N
     dtype = ux.dtype
     big = torch.finfo(dtype).max / 4
     # the per-layer maxima in one pass; the recurrence stays sequential
     umax = torch.maximum(ux.abs().amax(dim=(1, 2)), uy.abs().amax(dim=(1, 2)))
+    if pmax is not None:
+        umax = pmax(umax)
     dtm = torch.as_tensor(dtmax0, dtype=dtype, device=ux.device)
     for l in range(cfg.nl - 1, -1, -1):
         dt_cfl = torch.where(umax[l] > 0, cfg.CFL * delta / umax[l], big)
@@ -465,24 +492,51 @@ def cfl_dtmax(cfg: PGConfig, ux, uy, dtmax0, prev):
 # update / advance / step (predictor-corrector, pg.h:733-800)
 # ---------------------------------------------------------------------------
 
-def update_pg(cfg: PGConfig, const: PGConstants, b, ux, uy, prev, dtmax0):
-    """One tendency evaluation: (db, dux, duy, dtm, prev)."""
-    db, _ = advection(cfg, const, b, ux, uy)
-    dtm, prev = cfl_dtmax(cfg, ux, uy, dtmax0, prev)
+@dataclasses.dataclass(frozen=True)
+class Halo:
+    """The ghost rules of the step's stencils: `cells` gives a cell field
+    its ghost ring, `x_faces` and `y_faces` an x- or y-face field its
+    ghost ring (ghost rows, the y-faces' against the field's own first and
+    last rows), `pmax` the maximum over the ranks (None: one process);
+    `first` and `last` say whether the field's first and last rows lie at
+    the south and north walls. WHOLE is the whole domain's: mirrored ghosts
+    at every wall. A rank of the rows split (parallel/pg_step.py) takes
+    its ghost rows from its neighbours."""
+    cells: Callable = _pad_b
+    x_faces: Callable = _pad_face_x
+    y_faces: Callable = _pad_face_y
+    pmax: Callable | None = None
+    first: bool = True
+    last: bool = True
+
+
+WHOLE = Halo()
+
+
+def update_pg(cfg: PGConfig, const: PGConstants, b, ux, uy, prev, dtmax0,
+              halo: Halo = WHOLE):
+    """One tendency evaluation: (db, dux, duy, dtm, prev). The ghost rings
+    of b, ux and uy are made once and shared by the stencils."""
+    bp = halo.cells(b)
+    Px, Py = halo.x_faces(ux), halo.y_faces(uy)
+    # the y-faces of b's rows of cells, both walls included
+    uyf = Py[:, 1:b.shape[-2] + 2, 1:-1]
+    db, _ = _advection(cfg, bp, ux, uyf)
+    dtm, prev = cfl_dtmax(cfg, ux, uy, dtmax0, prev, halo.pmax)
     if cfg.k_gm > 0:
-        gx, gy = comp_gm(cfg, const, b)
-        db_gm, _ = advection(cfg, const, b, gx, gy)
+        gx, gy = _comp_gm(cfg, bp, halo.first, halo.last)
+        db_gm, _ = _advection(cfg, bp, gx, gy)
         db = db + db_gm
-        dtm, prev = cfl_dtmax(cfg, gx, gy, dtm, prev)
-    db = db + hdiffusion(cfg, const, b)
+        dtm, prev = cfl_dtmax(cfg, gx, gy, dtm, prev, halo.pmax)
+    db = db + _hdiffusion(cfg, const, bp)
     if const.b_forc is not None:
         db = db + const.b_forc
-    dux, duy = momentum(cfg, const, b, ux, uy)
+    dux, duy = _momentum(cfg, const, b, ux, uy, Px, Py, halo.cells)
     return db, dux, duy, dtm, prev
 
 
 def advance_pg(cfg: PGConfig, const: PGConstants, b, ux, uy, db, dux, duy,
-               dt):
+               dt, halo: Halo = WHOLE):
     """An Euler substep, then the implicit surface relaxation, vertical
     diffusion, convection and the barotropic adjustment."""
     b = b + db * dt
@@ -492,27 +546,29 @@ def advance_pg(cfg: PGConfig, const: PGConstants, b, ux, uy, db, dux, duy,
     b = vdiff_implicit(cfg, const, b, dt)
     b = convection(b)
     ux, uy = adjust_bt_velocity(cfg, const, ux, uy, 1.0)
-    ux, uy = _zero_walls(ux, uy)
+    ux, uy = _zero_walls(ux, uy, halo.first, halo.last)
     return b, ux, uy
 
 
-def make_step(cfg: PGConfig):
+def make_step(cfg: PGConfig, halo: Halo = WHOLE):
     """step(state, const, tnext) -> (state, PGStepDiag): dt from the first
     update's CFL chain clamped by `qg.dtnext`, a half-step predictor, the
     corrector's tendency at the midpoint and the full step. The running
-    means pass through unchanged (`accumulate_means` updates them)."""
+    means pass through unchanged (`accumulate_means` updates them).
+    `halo` is the ghost rules' (a rank's rows: parallel/pg_step.py)."""
     DT = cfg.DT
 
     def step(state: PGState, const: PGConstants, tnext):
         db, dux, duy, dtm, prev = update_pg(cfg, const, state.b, state.ux,
-                                            state.uy, state.dt_prev, DT)
+                                            state.uy, state.dt_prev, DT,
+                                            halo)
         dt = dtnext(state.t, tnext, dtm)
         bh, uxh, uyh = advance_pg(cfg, const, state.b, state.ux, state.uy,
-                                  db, dux, duy, dt / 2)
+                                  db, dux, duy, dt / 2, halo)
         db2, dux2, duy2, _, prev = update_pg(cfg, const, bh, uxh, uyh, prev,
-                                             DT)
+                                             DT, halo)
         b, ux, uy = advance_pg(cfg, const, state.b, state.ux, state.uy,
-                               db2, dux2, duy2, dt)
+                               db2, dux2, duy2, dt, halo)
         new = PGState(b=b, ux=ux, uy=uy, t=state.t + dt, dt_prev=prev,
                       i=state.i + 1, b_me=state.b_me, ux_me=state.ux_me,
                       uy_me=state.uy_me, nme=state.nme)

@@ -302,6 +302,24 @@ def test_cli_matches_jax_main(tmp_path, capsys):
         assert f.read() == PARAMS
 
 
+# an mspg deck (tests/test_torch_driver_pg.py's physics)
+PG_PARAMS = """N = 16
+nl = 4
+ys = 0.3
+r = 0.02
+tau_s = 3e-2
+tau0 = 0.12
+kv = 1e-4
+kh = 1e-4
+omega = 0.2
+DT = 1e-2
+CFL = 0.4
+tend = 10
+dtout = 0.05
+dtype = float64
+"""
+
+
 @pytest.mark.parametrize("args,match", [
     pytest.param(["--model", "pg", "--sharded"], "item 15",
                  id="args0-item 15"),
@@ -309,18 +327,21 @@ def test_cli_matches_jax_main(tmp_path, capsys):
                  id="args1-item 15"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, args, match):
-    """The sharded mspg run raises NotImplementedError naming item 15e;
-    `--sharded-mode gspmd`, once refused, runs the general-mesh step at
-    world size 1: the same steps and model time as the unsharded CLI.
-    The case id "item 15", from when that mode was refused, is kept only
-    to keep the test id."""
-    cfgpath = write_deck(str(tmp_path / "deck"))
+    """Both, once refused, run at world size 1: `--model pg --sharded` the
+    rows-sharded mspg step on an mspg deck, `--sharded-mode gspmd` the
+    general-mesh step: the same steps and model time as the unsharded
+    CLI. The case ids "item 15", from when these were refused, are kept
+    only to keep the test ids."""
+    if args[:2] == ["--model", "pg"]:
+        os.makedirs(tmp_path / "deck")
+        cfgpath = str(tmp_path / "deck" / "params.in")
+        with open(cfgpath, "w") as f:
+            f.write(PG_PARAMS)
+    else:
+        cfgpath = write_deck(str(tmp_path / "deck"))
     common = ["--config", cfgpath, "--cpu", "--no-output"]
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            tdriver.main(common + args)
-        return
-    one = tdriver.main(common + ["--steps", "2"])
+    one = tdriver.main(common + ["--steps", "2"]
+                       + [a for a in args if a != "--sharded"])
     got = tdriver.main(common + ["--steps", "2"] + args)
     assert got["ranks"] == 1 and got["steps"] == one["steps"] == 2
     assert abs(got["t"] - one["t"]) <= 1e-12 * one["t"]

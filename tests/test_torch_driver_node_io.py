@@ -6,8 +6,10 @@ the bytes each append writes (the JAX writer's k-th append writes k
 records); io/deck.load_node_deck against msom_tpu.io.deck's; driver_node.main
 against msom_tpu.driver_node.main on one deck directory (vars.nc within
 float32 rounding, diag_1d.dat to its printed digits, the backups byte for
-byte); what raises NotImplementedError; and the float32 event-time fault
-of the JAX run_node, which the port does not have."""
+byte); --sharded (newqg and sqg ignore it, the qg-node model runs the
+vertex-sharded step) against the unsharded runs, and the periodic
+refusal; and the float32 event-time fault of the JAX run_node, which the
+port does not have."""
 
 import os
 
@@ -27,6 +29,7 @@ from msom_tpu_torch.io import deck as tdeck
 from msom_tpu_torch.io import netcdf as tnc
 from msom_tpu_torch.models import qg_node as tqn
 
+from test_torch_driver_newqg_sqg import NEWQG_DECK, SQG_DECK
 from test_torch_driver_node import _kw, _psi0, same_vars_nc
 
 torch.set_num_threads(1)
@@ -261,14 +264,46 @@ def test_cli_matches_jax_main(tmp_path, capfd, monkeypatch):
     (["--sharded"], "item 15"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, args, match):
-    (tmp_path / "params.in").write_text(PARAMS)
-    with pytest.raises(NotImplementedError, match=match):
-        tdn.main(["--config", str(tmp_path / "params.in"), "--cpu"] + args)
+    """Each, once refused, runs at world size 1 (no process group) and
+    matches its unsharded run, three steps from the same seeded IC:
+    newqg and sqg ignore --sharded, as the JAX package's main does, and
+    write the same vars.nc bytes; the qg-node model runs the
+    vertex-sharded step (solver = vmg in the deck, so that both runs
+    invert with the multigrid): the same states bit for bit, its vars.nc
+    the same bytes and diag_1d.dat the same rows. `match`, from when these
+    raised, is kept only to keep the test ids."""
+    model = args[1] if args[0] == "--model" else "node"
+    deck = {"newqg": NEWQG_DECK, "sqg": SQG_DECK}.get(
+        model, PARAMS + "solver = vmg\n")
+    (tmp_path / "params.in").write_text(deck)
+    common = ["--config", str(tmp_path / "params.in"), "--cpu", "--steps",
+              "3", "--restart", str(tmp_path / "none.nc")]
+    plain = [a for a in args if a != "--sharded"]
+    one, out1 = tdn.main(common + plain + ["--outdir", str(tmp_path / "a")])
+    got, out2 = tdn.main(common + args + ["--outdir", str(tmp_path / "b")])
+    assert int(got.i) == int(one.i) == 3
+    assert torch.equal(got.q, one.q) and torch.equal(got.psi, one.psi)
+    for name in ("vars.nc", "diag_1d.dat"):
+        if os.path.exists(os.path.join(out1.dir, name)):
+            assert (tmp_path / "b" / name).read_bytes() == \
+                (tmp_path / "a" / name).read_bytes(), name
+    assert os.path.exists(tmp_path / "b" / "vars.nc")
 
 
 def test_run_node_sharded_raises():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tdn.run_node(tqn.NodeQGConfig(**_kw()), sharded=True, device="cpu")
+    """A periodic configuration raises the JAX package's
+    NotImplementedError, message for message (vertex sharding covers
+    walled grids); the name is kept from when every sharded run
+    raised."""
+    kw = _kw(bc_fac=-1.0)
+    # JAX refuses before it reads const, state or output
+    with pytest.raises(NotImplementedError) as want:
+        jdn.run_node(jqn.NodeQGConfig(**kw), const=object(), state=object(),
+                     output=object(), restart=None, sharded=True)
+    with pytest.raises(NotImplementedError) as got:
+        tdn.run_node(tqn.NodeQGConfig(**kw), sharded=True, device="cpu")
+    assert str(got.value) == str(want.value)
+    assert "wall domains" in str(got.value)
 
 
 def test_create_outdir_picks_the_next_free_one(tmp_path, monkeypatch):

@@ -255,11 +255,33 @@ def test_float32_model_time_reaches_events_it_cannot_represent():
 
 
 def test_run_pg_sharded_and_cli_sharded_raise(built, tmp_path):
+    """Once refused, both run at world size 1 (no process group):
+    run_pg(sharded=True) is its unsharded run bit for bit through three
+    output events, and `--model pg --sharded` writes the unsharded CLI's
+    files byte for byte. The name is kept from when they raised."""
     _, tcfg, _, tc = built
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tdriver.run_pg(tcfg, const=tc, sharded=True)
-    with open(tmp_path / "params.in", "w") as f:
+    runs = [tdriver.run_pg(tcfg, const=tc,
+                           state=tm.init_state(tcfg, tc, b0=b_ic(tcfg)),
+                           sharded=sharded, device="cpu")
+            for sharded in (True, False)]
+    for name in FIELDS:
+        assert torch.equal(getattr(runs[0], name), getattr(runs[1], name))
+    assert float(runs[0].t) == pytest.approx(0.3, abs=1e-12)
+    d = tmp_path / "deck"
+    os.makedirs(d)
+    with open(d / "params.in", "w") as f:
         f.write(PARAMS)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tdriver.main(["--config", str(tmp_path / "params.in"), "--model",
-                      "pg", "--cpu", "--sharded"])
+    from msom_tpu_torch.io.bas import write_bas
+    write_bas(str(d / "b0.bas"), b_ic(TPG(N=16, nl=4)), 1.0)
+    common = ["--config", str(d / "params.in"), "--model", "pg", "--cpu",
+              "--steps", "20"]
+    one = tdriver.main(common + ["--outdir", str(tmp_path / "a")])
+    got = tdriver.main(common + ["--outdir", str(tmp_path / "b"),
+                                 "--sharded"])
+    assert got["ranks"] == 1 and got["steps"] == one["steps"] == 20
+    names = sorted(os.listdir(tmp_path / "a"))
+    assert names == sorted(os.listdir(tmp_path / "b"))
+    assert sum(n.startswith("b0") for n in names) > 1
+    for name in names:
+        assert (tmp_path / "a" / name).read_bytes() == \
+            (tmp_path / "b" / name).read_bytes(), name

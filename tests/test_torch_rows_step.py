@@ -25,8 +25,8 @@ here, once for the module.
 * the configurations outside the rows path (solver="mg" aside, which the
   rows step now takes) running in the mode the JAX package's run_qg
   records: at world size 1, and a 2 x 2 mesh at world 4 against the
-  unsharded steps; the sharded mspg and qg-node runs raising
-  NotImplementedError that names their part of ROADMAP.md item 15.
+  unsharded steps; the sharded mspg and qg-node runs, once refused, at
+  world size 1 against their unsharded runs.
 """
 
 import functools
@@ -44,8 +44,11 @@ from msom_tpu.params import QGConfig as JConfig
 from msom_tpu_torch import driver as tdriver
 from msom_tpu_torch import driver_node as tdn
 from msom_tpu_torch.io.bas import read_bas
+from msom_tpu_torch.models import mspg as tmspg
 from msom_tpu_torch.models import qg as tqg
+from msom_tpu_torch.models import qg_node as tqn
 from msom_tpu_torch.ops.bc import pad
+from msom_tpu_torch.params import PGConfig as TPG
 from msom_tpu_torch.params import QGConfig as TConfig
 from msom_tpu_torch.parallel import step as pstep
 from msom_tpu_torch.solvers import spectral
@@ -300,14 +303,16 @@ def test_refused_configurations_name_their_item(over):
     assert mode == want and int(s.i) == 1
 
 
-def test_refused_modes_and_runs_name_their_item(ranks, references):
+def test_refused_modes_and_runs_name_their_item(ranks, references,
+                                                tmp_path):
     """A 2 x 2 mesh and sharded="gspmd" run, in the mode the JAX package's
     run_qg records ("gspmd"): the 2 x 2 step on 4 ranks against the
     unsharded steps, run_qg(sharded="gspmd") at world size 1 against the
-    unsharded run; the sharded mspg run and the qg-node driver's
-    --sharded raise NotImplementedError naming their part of item 15.
-    The name, from when the mesh and gspmd were refused, is kept only to
-    keep the test id."""
+    unsharded run; the sharded mspg run (run_pg(sharded=True)) and the
+    sharded qg-node run (run_node(sharded=True)) at world size 1, bit for
+    bit their unsharded runs (their arithmetic is the unsharded plain
+    versions', term for term). The name, from when the mesh, gspmd and
+    these runs were refused, is kept only to keep the test id."""
     assert _jax_mode(BASE, (2, 2)) == "gspmd"
     assert _jax_mode(BASE, sharded="gspmd") == "gspmd"
     q, psi, tr, dt, ke, mode = ranks[0][4]["steps"]["mesh22"]
@@ -325,10 +330,34 @@ def test_refused_modes_and_runs_name_their_item(ranks, references):
                                   device="cpu"))
     assert out[0][2] == "gspmd"
     assert _rel(out[0][0].q, out[1][0].q.numpy()) < 1e-12
-    with pytest.raises(NotImplementedError, match="mspg.*item 15"):
-        tdriver.run_pg(None, sharded=True)
-    with pytest.raises(NotImplementedError, match="vshard.*item 15"):
-        tdn.main(["--config", "unused.in", "--cpu", "--sharded"])
+    pcfg = TPG(N=16, nl=4, ys=0.3, r=0.02, tau_s=3e-2, tau0=0.12, kv=1e-4,
+               kh=1e-4, omega=0.2, DT=1e-2, CFL=0.4, tend=1.0, dtout=0.05,
+               dtype="float64")
+    pconst = tmspg.build_constants(pcfg, device="cpu")
+    b0 = np.linspace(1.0, 0.0, 4)[:, None, None] \
+        + 0.2 * np.random.default_rng(9).standard_normal((4, 16, 16))
+    runs = [tdriver.run_pg(pcfg, const=pconst,
+                           state=tmspg.init_state(pcfg, pconst, b0=b0),
+                           max_steps=12, sharded=sharded, device="cpu")
+            for sharded in (True, False)]
+    for name in ("b", "ux", "uy", "b_me", "ux_me", "uy_me"):
+        assert torch.equal(getattr(runs[0], name), getattr(runs[1], name))
+    ncfg = tqn.NodeQGConfig(N=16, nl=3, L0=100.0, f0=10.0, beta=0.1,
+                            hEkb=1e-3, tau0=1e-3, nu=5.0, dh=(0.2, 0.3, 0.5),
+                            N2=(1.0, 2.0), bc_fac=1.0, DT=5e-2, CFL=0.2,
+                            TOLERANCE=1e-10, tend=0.05, dtout=0.05,
+                            solver="vmg", dtype="float64")
+    nconst = tqn.build_constants(ncfg, device="cpu",
+                                 mask=tqn.coastline_mask(16))
+    psi0 = 1e-3 * np.random.default_rng(2).uniform(-1, 1, (3, 17, 17))
+    nodes = [tdn.run_node(ncfg, const=nconst,
+                          state=tqn.init_state(ncfg, nconst, psi0=psi0),
+                          outdir=str(tmp_path / str(sharded)),
+                          restart=None, sharded=sharded, device="cpu")[0]
+             for sharded in (True, False)]
+    assert int(nodes[0].i) == int(nodes[1].i) >= 3
+    assert torch.equal(nodes[0].q, nodes[1].q)
+    assert torch.equal(nodes[0].psi, nodes[1].psi)
 
 
 def test_stochastic_rows_step_at_world_1_draws_the_unsharded_noise():
