@@ -280,13 +280,17 @@ LIMITS = {4: 1e-4, 8: 1e-11}             # K1, K2 vs plain, of max|out|
 K7_LIMITS = {4: 1e-5, 8: 1e-12}          # K7 vs plain, of max|psi_m|
 K7_F64_RATIO = 4.0    # K7's f32 error against f64 over the FP32 chain's
 STEP_LIMIT = 1e-10                        # CUDA step vs CPU step, f64
-# K3 (after MG_SWEEPS sweeps) and K4 vs plain, of max|out|: the kernels
+# K3 (after up to 9 sweeps) and K4 vs plain, of max|out|: the kernels
 # contract a*b+c into one rounding and multiply by 1/delta^2 where the plain
 # version divides, a few ulp a cell
 MG_LIMITS = {4: 1e-5, 8: 1e-12}
-MG_SWEEPS = 4
+# the relaxations K3 is checked at: 1, 2, KMAX, KMAX + 1 sweeps and 9; K3's
+# record times a relaxation of MG_RELAX = KMAX sweeps (one strip launch)
+MG_NRELAX = (1, 2, 4, 5, 9)
+MG_RELAX = 4
 MG_SOLVE_LIMIT = 1e-10                    # CUDA solve vs CPU solve, f64
 MG_MAX_CYCLES = 20      # a solve that needs more at tol 1e-3 is spinning
+MG_MAX_K3_LAUNCHES = 50  # K3 launches a step on the mg path, at most
 PHASES = ("kernels", "steps", "paths", "fused_mm", "mg", "node", "periodic",
           "stochastic", "driver", "driver_node", "mspg", "coupling", "varro",
           "newqg", "sqg", "rows", "shard", "vshard", "pgshard", "api",
@@ -524,20 +528,25 @@ def mg_level(nl, n, dtype, modal, rng):
 
 def mg_kernel_checks():
     """K3 and K4 against their plain versions on the card; returns (ok,
-    {kernel: max abs error at 2048^2 x 4 f32, layered, Dirichlet})."""
+    {kernel: max abs error at 2048^2 x 4 f32, layered, Dirichlet}). K3:
+    relaxations of MG_NRELAX sweeps (one launch each at most KMAX sweeps on
+    a strip level, one launch in all on a whole level), each also BIT FOR
+    BIT the chain of one-sweep launches; periodic_x; K4: one launch a
+    residual, its maximum included, and a NaN carried."""
     import torch
     from msom_tpu_torch.solvers import fused_mg
     sizes = [(256, 1), (256, 3), (256, 4), (100, 3), (2, 3), (4, 4), (8, 1),
-             (2048, 4)]
+             (16, 2), (32, 4), (64, 4), (128, 4), (256, 8), (2048, 4)]
     ok, main_err = True, {}
     for dtype in ("float64", "float32"):
         isz = 8 if dtype == "float64" else 4
         lim = MG_LIMITS[isz]
+        tdt = getattr(torch, dtype)
         for n, nl in sizes:
+            most = fused_mg.sweeps_per_launch(n, nl, tdt)
             for modal in (False, True):
                 rng = np.random.default_rng(n + nl)
                 lvl, idh0, idh1 = mg_level(nl, n, dtype, modal, rng)
-                tdt = getattr(torch, dtype)
                 da = torch.as_tensor(rng.standard_normal((nl, n, n)),
                                      dtype=tdt).cuda()
                 res = torch.as_tensor(rng.standard_normal((nl, n, n)),
@@ -548,43 +557,88 @@ def mg_kernel_checks():
                     signs.append((1.0, -1.0))
                 for sx, sy in signs:
                     kw = dict(d2=d2, sign_x=sx, sign_y=sy)
-                    before = (fused_mg.sweep_launches,
-                              fused_mg.residual_launches)
-                    k = p = da
-                    for _ in range(MG_SWEEPS):
-                        k = fused_mg.rb_line_sweep(k, res, lvl.sw, **kw)
-                        p = fused_mg.rb_line_sweep_reference(p, res, lvl.sw,
-                                                             **kw)
+                    worst, bitwise, counts = 0.0, True, True
+                    for nrelax in MG_NRELAX:
+                        before = (fused_mg.sweep_launches, fused_mg.sweeps)
+                        k = fused_mg.relax(da, res, lvl.sw, nrelax=nrelax,
+                                           **kw)
+                        counted = (fused_mg.sweep_launches - before[0],
+                                   fused_mg.sweeps - before[1])
+                        p = fused_mg.relax_reference(da, res, lvl.sw,
+                                                     nrelax=nrelax, **kw)
+                        one = da
+                        for _ in range(nrelax):
+                            one = fused_mg.rb_line_sweep(one, res, lvl.sw,
+                                                         **kw)
+                        torch.cuda.synchronize()
+                        err = (k - p).abs().max().item()
+                        worst = max(worst, err / p.abs().max().item())
+                        bitwise &= torch.equal(k, one)
+                        counts &= counted == (-(-nrelax // most), nrelax)
+                        if (dtype == "float32" and (n, nl) == (2048, 4)
+                                and not modal and sx < 0
+                                and nrelax == MG_RELAX):
+                            main_err["mg_sweep"] = err
+                        del k, p, one
                     kw = dict(delta=lvl.delta, idh0=idh0, idh1=idh1,
                               sign_x=sx, sign_y=sy)
+                    before = fused_mg.residual_launches
                     r_k, m_k = fused_mg.residual_norm(da, res, lvl.rp, **kw)
+                    launched = fused_mg.residual_launches - before
                     r_p, m_p = fused_mg.residual_norm_reference(
                         da, res, lvl.rp, **kw)
                     torch.cuda.synchronize()
-                    counted = (fused_mg.sweep_launches - before[0],
-                               fused_mg.residual_launches - before[1])
-                    err_s = (k - p).abs().max().item()
-                    rel_s = err_s / p.abs().max().item()
                     err_r = (r_k - r_p).abs().max().item()
                     rel_r = err_r / r_p.abs().max().item()
                     rel_m = abs(m_k.item() - m_p.item()) / m_p.item()
-                    good = (rel_s <= lim and rel_r <= lim and rel_m <= lim
-                            and counted == (MG_SWEEPS, 1)
-                            and k.shape == da.shape and m_k.ndim == 0)
+                    good = (worst <= lim and bitwise and counts
+                            and rel_r <= lim and rel_m <= lim
+                            and launched == 1 and m_k.ndim == 0
+                            and torch.equal(m_k, r_k.abs().max()))
                     ok &= good
                     print(f"K3/K4 check {dtype} n={n} nl={nl} "
                           f"{'modal' if modal else 'layered'} signs "
-                          f"({sx:+g}, {sy:+g}): after {MG_SWEEPS} sweeps "
-                          f"max|d da|/max|da| = {rel_s:.3e}, max|d res|/"
-                          f"max|res| = {rel_r:.3e}, d max/max = {rel_m:.3e} "
-                          f"(limit {lim:g}) {'ok' if good else 'FAIL'}")
+                          f"({sx:+g}, {sy:+g}): relaxations of "
+                          f"{'/'.join(map(str, MG_NRELAX))} sweeps "
+                          f"({most if most <= 64 else 'all'} a launch) "
+                          f"max|d da|/max|da| = {worst:.3e}, bitwise the "
+                          f"one-sweep launches {bitwise}, launches as "
+                          f"counted {counts}; K4 one launch {launched == 1}"
+                          f", max|d res|/max|res| = {rel_r:.3e}, d max/max "
+                          f"= {rel_m:.3e} (limit {lim:g}) "
+                          f"{'ok' if good else 'FAIL'}")
                     if (dtype == "float32" and (n, nl) == (2048, 4)
                             and not modal and sx < 0):
-                        main_err["mg_sweep"] = err_s
                         main_err["mg_residual"] = err_r
-                    del k, p, r_k, r_p
+                    del r_k, r_p
                 del lvl, da, res
                 torch.cuda.empty_cache()
+        # periodic_x: x wraps, the ghost rows are rows 7 and n - 8
+        for n, nl in ((64, 3), (256, 2)):
+            rng = np.random.default_rng(n)
+            lvl, idh0, idh1 = mg_level(nl, n, dtype, False, rng)
+            da = torch.as_tensor(rng.standard_normal((nl, n, n)),
+                                 dtype=tdt).cuda()
+            res = torch.as_tensor(rng.standard_normal((nl, n, n)),
+                                  dtype=tdt).cuda()
+            kw = dict(d2=lvl.delta ** 2, sign_x=-1.0, sign_y=-1.0,
+                      periodic_x=True)
+            k = fused_mg.relax(da, res, lvl.sw, nrelax=3, **kw)
+            p = fused_mg.relax_reference(da, res, lvl.sw, nrelax=3, **kw)
+            rkw = dict(delta=lvl.delta, idh0=idh0, idh1=idh1, sign_x=-1.0,
+                       sign_y=-1.0, periodic_x=True)
+            r_k, m_k = fused_mg.residual_norm(da, res, lvl.rp, **rkw)
+            r_p, m_p = fused_mg.residual_norm_reference(da, res, lvl.rp,
+                                                        **rkw)
+            rel_s = _rel(k, p)
+            rel_r = _rel(r_k, r_p)
+            rel_m = abs(m_k.item() - m_p.item()) / m_p.item()
+            good = max(rel_s, rel_r, rel_m) <= lim
+            ok &= good
+            print(f"K3/K4 check periodic_x {dtype} n={n} nl={nl}: three "
+                  f"sweeps max|d da|/max|da| = {rel_s:.3e}, max|d res|/"
+                  f"max|res| = {rel_r:.3e}, d max/max = {rel_m:.3e} (limit "
+                  f"{lim:g}) {'ok' if good else 'FAIL'}")
     # a NaN in the field must reach the norm, as it does in the plain max
     lvl, idh0, idh1 = mg_level(3, 100, "float32", False,
                                np.random.default_rng(1))
@@ -639,6 +693,47 @@ def mg_solve_check():
     return ok
 
 
+def mg_rows(label, lvl, state, idh0, idh1, n_sweep, n_res, b_zero=False):
+    """K3's and K4's records on a path's final state at its finest level
+    (Dirichlet walls): K3 a relaxation of MG_RELAX sweeps (one launch) of
+    the correction against the residual, K4 the residual of psi against q
+    (against 0 with b_zero: the residual of a converged state is a
+    cancellation, whose rounding is not the kernel's error). Each row is
+    None if the kernel disagrees with its plain version."""
+    import torch
+    from msom_tpu_torch.solvers import fused_mg
+    nl, N = state.psi.shape[0], state.psi.shape[-1]
+    sign = dict(sign_x=-1.0, sign_y=-1.0)
+    rkw = dict(delta=lvl.delta, idh0=idh0, idh1=idh1, **sign)
+    skw = dict(d2=lvl.delta * lvl.delta, **sign)
+    psi, q = state.psi.contiguous(), state.q.contiguous()
+    res, _ = fused_mg.residual_norm(psi, q, lvl.rp, **rkw)
+    da = fused_mg.rb_line_sweep(torch.zeros_like(res), res, lvl.sw, **skw)
+    skw["nrelax"] = MG_RELAX
+    b = torch.zeros_like(psi) if b_zero else q
+    mode = f"nl = {nl}, Dirichlet"
+    rows = []
+    for name, kernel, plain, work, n_launch, src, line, what in (
+            ("mg_sweep", lambda: fused_mg.relax(da, res, lvl.sw, **skw),
+             lambda: fused_mg.relax_reference(da, res, lvl.sw, **skw),
+             fused_mg.sweep_bound_work(nl, N, 4, MG_RELAX), n_sweep,
+             fused_mg.SWEEP_SOURCE, 179,
+             f"a relaxation of {MG_RELAX} sweeps"),
+            ("mg_residual",
+             lambda: fused_mg.residual_norm(psi, b, lvl.rp, **rkw)[0],
+             lambda: fused_mg.residual_norm_reference(psi, b, lvl.rp,
+                                                      **rkw)[0],
+             fused_mg.residual_bound_work(nl, N, 4, lvl.rp.s is not None,
+                                          lvl.rp.lam is not None), n_res,
+             fused_mg.RESIDUAL_SOURCE, 247,
+             f"{'b = 0, ' if b_zero else ''}its max norm in the launch")):
+        row = _kernel_row(label, name, kernel, plain, work, n_launch, src,
+                          f"msom_tpu/solvers/pallas_mg.py:{line}",
+                          f"{mode}, {what}", limit=MG_LIMITS[4], n_plain=3)
+        rows.append(row)
+    return rows
+
+
 def mg_path(QGConfig, rows, main_err):
     """The multigrid path at full width; appends K3's and K4's records to
     `rows`. Returns False if the path failed."""
@@ -670,6 +765,7 @@ def mg_path(QGConfig, rows, main_err):
     fused_rhs.launches = fused_tracer.launches = 0
     fused_spectral.launches = 0
     fused_mg.sweep_launches = fused_mg.residual_launches = 0
+    fused_mg.sweeps = 0
     fused_mg.sweep_launches_by_n.clear()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -693,7 +789,8 @@ def mg_path(QGConfig, rows, main_err):
           f"{warm} spin-up steps: {ms_step:.4f} ms/step, "
           f"{N * N * nl / (ms_step * 1e-3):.4e} grid-points/s, V-cycles a "
           f"solve mean {mean_c:.4f} max {max_c} min {min(cycles)}, "
-          f"mg_sweep launches {n_sweep} ({n_sweep / steps:.1f} a step), "
+          f"mg_sweep launches {n_sweep} ({n_sweep / steps:.1f} a step, "
+          f"{fused_mg.sweeps / steps:.1f} sweeps a step), "
           f"mg_residual launches {n_res} ({n_res / steps:.1f} a step), "
           f"fused_rhs launches {n_rhs} (expected {2 * steps}), host reads "
           f"of the residual norm {n_res / steps:.1f} a step, last mg_res "
@@ -714,78 +811,63 @@ def mg_path(QGConfig, rows, main_err):
     if st.iters > MG_MAX_CYCLES or not st.resa <= cfg.tol:
         return False
 
-    # K3 and K4 alone on the final state
+    # K3 and K4 alone on the final state, K3 a relaxation of MG_RELAX
     lvl = const.levels[0]
+    for row in mg_rows("mg", lvl, state, const.idh0, const.idh1, n_sweep,
+                       n_res):
+        if row is None:
+            return False
+        row["max_abs_err"] = max(row["max_abs_err"], main_err[row["name"]])
+        rows.append(row)
+    # K3 by level on the timed path: launches a step, the device time of a
+    # relaxation at the path's final nrelax, and so device ms a step,
+    # against the bound of the launches
     sign = dict(sign_x=-1.0, sign_y=-1.0)
-    rkw = dict(delta=lvl.delta, idh0=const.idh0, idh1=const.idh1, **sign)
-    skw = dict(d2=lvl.delta * lvl.delta, **sign)
-    psi, q = state.psi.contiguous(), state.q.contiguous()
-    res, _ = fused_mg.residual_norm(psi, q, lvl.rp, **rkw)
-    da = fused_mg.rb_line_sweep(torch.zeros_like(res), res, lvl.sw, **skw)
-    for name, kernel, plain, work, n_launch, source, line in (
-            ("mg_sweep",
-             lambda: fused_mg.rb_line_sweep(da, res, lvl.sw, **skw),
-             lambda: fused_mg.rb_line_sweep_reference(da, res, lvl.sw, **skw),
-             fused_mg.sweep_bound_work(nl, N, 4), n_sweep,
-             fused_mg.SWEEP_SOURCE, 179),
-            ("mg_residual",
-             lambda: fused_mg.residual_norm(psi, q, lvl.rp, **rkw),
-             lambda: fused_mg.residual_norm_reference(psi, q, lvl.rp, **rkw),
-             fused_mg.residual_bound_work(nl, N, 4, True, False), n_res,
-             fused_mg.RESIDUAL_SOURCE, 247)):
-        k_ms, p_ms = kernel_times(kernel, plain)
-        bound, by, t_b, t_o = roofline(*work, 4)
-        print(f"{name} at {N}^2 x {nl} f32: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, bound {bound:.4f} ms by {by} (bytes {work[0]} "
-              f"-> {t_b:.4f} ms, operations {work[1]} -> {t_o:.4f} ms), "
-              f"library_ms null")
-        rows.append({
-            "name": name, "path": f"mg {N}^2 x {nl} f32", "route": "cuda",
-            "source": source,
-            "replaces": f"msom_tpu/solvers/pallas_mg.py:{line}",
-            "launches": n_launch, "max_abs_err": main_err[name], "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None})
-    # the sweeps of one V-cycle over all levels, at their bounds and timed,
-    # and K3's launches and device time a step on the timed path by level
-    nrelax = 4
-    total_bound, per_level = 0.0, []
+    nrelax = st.nrelax
+    by_level, total, total_b = [], 0.0, 0.0
     for lv in const.levels:
         n = lv.sw.t0.shape[-1]
         z = torch.zeros((nl, n, n), device="cuda")
-        kw = dict(d2=lv.delta * lv.delta, **sign)
-
-        def sweep():
-            fused_mg.rb_line_sweep(z, z, lv.sw, **kw)
-
-        ms = cuda_ms(sweep, 50)
-        bound = roofline(*fused_mg.sweep_bound_work(nl, n, 4), 4)[0]
-        total_bound += nrelax * bound
-        per_level.append((n, ms, device_ms(sweep), bound))
-    print(f"mg_sweep by level, ms a launch back to back: "
-          + ", ".join(f"n={n}: {ms:.4f}" for n, ms, _, _ in per_level)
-          + f"; one V-cycle at nrelax {nrelax}: "
-          f"{nrelax * sum(ms for _, ms, _, _ in per_level):.4f} ms in "
-          f"{nrelax * len(per_level)} launches against a summed bound of "
-          f"{total_bound:.4f} ms")
-    by_level = [(n, sweeps_by_n.pop(n, 0) / steps, dev, bound)
-                for n, _, dev, bound in per_level]
-    print("mg_sweep by level on the timed path (n: launches a step, device "
-          "ms a launch, device ms a step, bound ms a launch, device ms over "
-          "bound): "
-          + ", ".join(f"n={n}: {k:.2f}, {dev:.4f}, {k * dev:.4f}, {b:.5f}, "
-                      f"{dev / b:.1f}" for n, k, dev, b in by_level)
-          + f"; in all {sum(k * dev for _, k, dev, _ in by_level):.4f} "
-          f"device ms a step against a bound of "
-          f"{sum(k * b for _, k, _, b in by_level):.4f}; launches at other "
-          f"widths {sum(sweeps_by_n.values())}")
+        kw = dict(nrelax=nrelax, d2=lv.delta * lv.delta, **sign)
+        most = fused_mg.sweeps_per_launch(n, nl, torch.float32)
+        a_relax = -(-nrelax // most)            # launches a relaxation
+        dev = device_ms(lambda: fused_mg.relax(z, z, lv.sw, **kw))
+        k = sweeps_by_n.pop(n, 0) / steps
+        bound = sum(roofline(*fused_mg.sweep_bound_work(
+            nl, n, 4, min(most, nrelax - i * most)), 4)[0]
+            for i in range(a_relax))
+        by_level.append((n, k, a_relax, dev, bound))
+        total += k / a_relax * dev
+        total_b += k / a_relax * bound
+    print(f"mg_sweep by level on the timed path at nrelax {nrelax} (n: "
+          "launches a step, launches a relaxation, device ms a relaxation, "
+          "device ms a step, bound ms a relaxation, device over bound): "
+          + ", ".join(f"n={n}: {k:.2f}, {a}, {dev:.4f}, {k / a * dev:.4f}, "
+                      f"{b:.5f}, {dev / b:.1f}"
+                      for n, k, a, dev, b in by_level)
+          + f"; in all {total:.4f} device ms a step against a bound of "
+          f"{total_b:.4f}; launches at other widths "
+          f"{sum(sweeps_by_n.values())}")
+    if n_sweep / steps > MG_MAX_K3_LAUNCHES:
+        print(f"mg path: {n_sweep / steps:.1f} K3 launches a step, more than "
+              f"{MG_MAX_K3_LAUNCHES} FAIL")
+        return False
 
     box = [state]
 
     def one_step():
         box[0], _ = step(box[0], const, 1e18)
 
-    kernel_profile("mg", one_step, 4, ms_step)
+    prof = kernel_profile("mg", one_step, 4, ms_step)
+    k3 = [r for r in prof if "mg_strip_kernel" in r[2]
+          or "mg_whole_kernel" in r[2]]
+    k4 = [r for r in prof if "mg_residual_kernel" in r[2]]
+    reduce = [r for r in prof if "reduce_kernel" in r[2]]
+    print(f"profile mg: K3 {sum(r[0] for r in k3):.4f} device ms a step in "
+          f"{sum(r[1] for r in k3):.1f} launches, K4 "
+          f"{sum(r[0] for r in k4):.4f} in {sum(r[1] for r in k4):.1f}, "
+          f"torch reductions {sum(r[1] for r in reduce):.1f} launches a "
+          "step")
     return True
 
 
@@ -2298,6 +2380,7 @@ def reset_counts():
                 fused_spectral, fused_vary):
         mod.launches = 0
     fused_mg.sweep_launches = fused_mg.residual_launches = 0
+    fused_mg.sweeps = 0
     fused_mg.sweep_launches_by_n.clear()
 
 
@@ -2987,6 +3070,12 @@ def varro_path(QGConfig, rows, kv_err):
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             return False
+        if solver == "mg":
+            for row in mg_rows(label, const.levels[0], state, const.idh0,
+                               const.idh1, launched["K3"], launched["K4"]):
+                if row is None:
+                    return False
+                rows.append(row)
         psi, q = state.psi.contiguous(), state.q.contiguous()
         if solver == "spectral":
             X = (ctdst.fdst_x(spec.fac, q) if spec.fac is not None
@@ -3200,35 +3289,9 @@ def newqg_path(NewQGConfig, rows):
         if not ok:
             return False
         if mg:
-            lvl = levels[0]
-            sign = dict(sign_x=-1.0, sign_y=-1.0)
-            rkw = dict(delta=lvl.delta, idh0=np.zeros(1), idh1=np.zeros(1),
-                       **sign)
-            skw = dict(d2=lvl.delta * lvl.delta, **sign)
-            psi, q = state.psi.contiguous(), state.q.contiguous()
-            res, _ = fused_mg.residual_norm(psi, q, lvl.rp, **rkw)
-            da = fused_mg.rb_line_sweep(torch.zeros_like(res), res, lvl.sw,
-                                        **skw)
-            # K4 alone against b = 0: the residual of the converged state is
-            # a cancellation, whose rounding is not the kernel's error
-            q = torch.zeros_like(psi)
-            for name, kern, plain, work, n, src, line in (
-                    ("mg_sweep",
-                     lambda: fused_mg.rb_line_sweep(da, res, lvl.sw, **skw),
-                     lambda: fused_mg.rb_line_sweep_reference(da, res,
-                                                              lvl.sw, **skw),
-                     fused_mg.sweep_bound_work(nl, N, 4), launched["K3"],
-                     fused_mg.SWEEP_SOURCE, 179),
-                    ("mg_residual",
-                     lambda: fused_mg.residual_norm(psi, q, lvl.rp, **rkw)[0],
-                     lambda: fused_mg.residual_norm_reference(
-                         psi, q, lvl.rp, **rkw)[0],
-                     fused_mg.residual_bound_work(nl, N, 4, False,
-                                                  lvl.rp.lam is not None),
-                     launched["K4"], fused_mg.RESIDUAL_SOURCE, 247)):
-                row = _kernel_row(label, name, kern, plain, work, n, src,
-                                  f"msom_tpu/solvers/pallas_mg.py:{line}",
-                                  "nl = 1, Dirichlet", limit=MG_LIMITS[4])
+            for row in mg_rows(label, levels[0], state, np.zeros(1),
+                               np.zeros(1), launched["K3"], launched["K4"],
+                               b_zero=True):
                 if row is None:
                     return False
                 rows.append(row)
@@ -3878,7 +3941,9 @@ def rows_path(QGConfig, rows, rows_err):
     return True
 
 
-SHARD_ROUNDS, SHARD_STEPS = 3, 10        # the shard phase's protocol
+# the shard phases' protocol (two rounds keep the script well inside its
+# time limit)
+SHARD_ROUNDS, SHARD_STEPS = 2, 10
 SHARD_WARM = 3
 # the gspmd configurations of the shard phase: {label: bench_config kwargs}
 SHARD_GSPMD = {"spectral": {}, "mg": dict(solver="mg", tol=1e-3),

@@ -21,7 +21,7 @@ tridiagonals exactly with the horizontal neighbours frozen.
 
 Routing is data, decided when the levels are built: a level whose
 coefficients vary in y only carries y-profiles, and with Dirichlet or
-Neumann walls its sweeps and residuals go to `fused_mg.rb_line_sweep` and
+Neumann walls its relaxations and residuals go to `fused_mg.relax` and
 `fused_mg.residual_norm` (the Hopper kernels on a CUDA tensor, their plain
 versions on a CPU tensor). A level without profiles (coefficients that vary
 in x) and every periodic solve run the same arithmetic as torch ops on
@@ -228,10 +228,8 @@ def _relax_layered(da, res, lvl: _Level, nrelax: int, bc: BC):
     d2 = lvl.delta * lvl.delta
     if lvl.sw is not None and bc in _BC_SIGN:
         sign = _BC_SIGN[bc]
-        for _ in range(nrelax):
-            da = fused_mg.rb_line_sweep(da, res, lvl.sw, d2=d2, sign_x=sign,
-                                        sign_y=sign)
-        return da
+        return fused_mg.relax(da, res, lvl.sw, nrelax=nrelax, d2=d2,
+                              sign_x=sign, sign_y=sign)
     for _ in range(nrelax):
         for mask in (lvl.red, ~lvl.red):
             da = fused_mg.relax_color(ghosted(da, bc), res, lvl.t0, lvl.cp,

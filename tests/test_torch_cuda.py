@@ -471,6 +471,58 @@ def test_mg_kernels_match_plain_versions(cuda, dtype, modal, signs, n, nl):
     assert torch.equal(m_k, r_k.abs().max())
 
 
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("n,nl", [(2, 3), (16, 2), (32, 4), (64, 4),
+                                  (100, 3), (128, 4), (130, 4), (256, 8),
+                                  (257, 1)])
+@pytest.mark.parametrize("nrelax", [1, 2, 4, 5, 9])
+def test_mg_relax_is_one_sweep_launches_bit_for_bit(cuda, dtype, n, nl,
+                                                    nrelax):
+    """A relaxation launches ceil(nrelax / sweeps_per_launch) times and
+    equals nrelax one-sweep launches bit for bit, and the plain version
+    within MG_LIMITS; n = 100, 130, 257 leave partial strips, n <= 64 run
+    whole in one block where they fit."""
+    lvl, da, res, _, _ = _mg_level(nl, n, dtype, False, cuda, n * nl)
+    kw = dict(d2=lvl.delta ** 2, sign_x=-1.0, sign_y=-1.0)
+    most = fused_mg.sweeps_per_launch(n, nl, da.dtype)
+    before = fused_mg.sweep_launches, fused_mg.sweeps
+    k = fused_mg.relax(da, res, lvl.sw, nrelax=nrelax, **kw)
+    assert (fused_mg.sweep_launches - before[0],
+            fused_mg.sweeps - before[1]) == (-(-nrelax // most), nrelax)
+    one = da
+    for _ in range(nrelax):
+        one = fused_mg.rb_line_sweep(one, res, lvl.sw, **kw)
+    p = fused_mg.relax_reference(da, res, lvl.sw, nrelax=nrelax, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k, one)
+    assert (k - p).abs().max() <= MG_LIMITS[da.dtype] * p.abs().max()
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("n,nl", [(64, 3), (256, 2), (66, 1), (8, 2)])
+def test_mg_kernels_periodic_x_match_plain_versions(cuda, dtype, n, nl):
+    """periodic_x: x wraps, the ghost rows are rows 7 and n - 8 (in a sweep
+    as they were before it); one sweep a launch."""
+    lvl, da, res, idh0, idh1 = _mg_level(nl, n, dtype, False, cuda, n)
+    lim = MG_LIMITS[da.dtype]
+    kw = dict(d2=lvl.delta ** 2, sign_x=-1.0, sign_y=-1.0, periodic_x=True)
+    before = fused_mg.sweep_launches
+    k = fused_mg.relax(da, res, lvl.sw, nrelax=3, **kw)
+    assert fused_mg.sweep_launches - before == 3
+    p = fused_mg.relax_reference(da, res, lvl.sw, nrelax=3, **kw)
+    assert (k - p).abs().max() <= lim * p.abs().max()
+    rkw = dict(delta=lvl.delta, idh0=idh0, idh1=idh1, sign_x=-1.0,
+               sign_y=-1.0, periodic_x=True)
+    r_k, m_k = fused_mg.residual_norm(da, res, lvl.rp, **rkw)
+    r_p, m_p = fused_mg.residual_norm_reference(da, res, lvl.rp, **rkw)
+    assert (r_k - r_p).abs().max() <= lim * r_p.abs().max()
+    assert abs(m_k - m_p) <= lim * m_p
+    with pytest.raises(ValueError, match="even n >= 8"):
+        fused_mg.relax(da[:, :6, :6].contiguous(), res[:, :6, :6]
+                       .contiguous(), _mg_level(nl, 6, dtype, False, cuda)[0]
+                       .sw, nrelax=1, **kw)
+
+
 def test_mg_residual_norm_carries_a_nan(cuda):
     lvl, a, b, idh0, idh1 = _mg_level(3, 100, "float32", False, cuda)
     a[2, 99, 0] = float("nan")
@@ -529,21 +581,26 @@ def test_mg_solve_on_the_card_matches_the_cpu(cuda, case):
     b = torch.tensor(rng.standard_normal((nl, n, n)))
     out = {}
     for dev in ("cpu", cuda):
-        before = fused_mg.sweep_launches, fused_mg.residual_launches
+        before = (fused_mg.sweep_launches, fused_mg.residual_launches,
+                  fused_mg.sweeps)
         a, st = mg.solve_layered(
             torch.zeros_like(b).to(dev), b.to(dev),
             **{k: v.to(dev) for k, v in coef.items()}, **kw)
         out[str(dev)] = (a.cpu(), st, fused_mg.sweep_launches - before[0],
-                         fused_mg.residual_launches - before[1])
+                         fused_mg.residual_launches - before[1],
+                         fused_mg.sweeps - before[2])
     (a_c, st_c, *n_c), (a_g, st_g, *n_g) = out["cpu"], out["cuda"]
     assert (st_g.iters, st_g.nrelax) == (st_c.iters, st_c.nrelax)
     assert st_g.resa <= 1e-8 and st_g.iters > 1
     assert (a_g - a_c).abs().max() <= 1e-10 * a_c.abs().max()
-    assert n_c == [0, 0]
+    assert n_c == [0, 0, 0]
     if case in ("layered", "modal"):
-        assert n_g[1] == st_g.iters + 1 and n_g[0] >= 6 * 2 * st_g.iters
+        # a relaxation of nrelax >= 2 sweeps a level a cycle, one launch
+        # each on these levels (every one whole in one block)
+        assert n_g[1] == st_g.iters + 1 and n_g[0] == 6 * st_g.iters
+        assert n_g[2] >= 6 * 2 * st_g.iters
     else:
-        assert n_g == [0, 0]
+        assert n_g == [0, 0, 0]
 
 
 @pytest.mark.parametrize("modal", [False, True])

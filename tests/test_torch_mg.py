@@ -276,6 +276,69 @@ def test_plain_versions_match_pallas_kernels_in_the_modal_shape():
     np.testing.assert_allclose(float(m_got), float(m_want), rtol=1e-12)
 
 
+@pytest.mark.parametrize("nl,n", [(1, 64), (3, 64), (1, 128), (3, 128)])
+def test_plain_periodic_x_matches_pallas_kernels(nl, n):
+    """periodic_x: x wraps, the ghost above row 0 is row 7 and the one
+    below row n - 1 row n - 8 (in a sweep the rows of its input, for both
+    colours), as the Pallas kernels' clamped 8-row halo blocks give them;
+    two sweeps and a residual, f64 at 1e-12."""
+    jlev, tlev, da, res, idh0, idh1, delta = _setup(nl, n, seed=3)
+    d2 = delta * delta
+    kw = dict(d2=d2, sign_x=-1.0, sign_y=-1.0, periodic_x=True)
+    want = jnp.asarray(da)
+    for _ in range(2):
+        want = pallas_mg.rb_line_sweep(want, jnp.asarray(res), jlev[0].sw,
+                                       interpret=True, **kw)
+    got = fused_mg.relax(torch.tensor(da), torch.tensor(res), tlev[0].sw,
+                         nrelax=2, **kw)
+    _close(got, want, 1e-12)
+    rkw = dict(delta=delta, idh0=idh0, idh1=idh1, sign_x=-1.0, sign_y=-1.0,
+               periodic_x=True)
+    r_want, m_want = pallas_mg.residual_norm(
+        jnp.asarray(da), jnp.asarray(res), jlev[0].rp, interpret=True, **rkw)
+    r_got, m_got = fused_mg.residual_norm(torch.tensor(da),
+                                          torch.tensor(res), tlev[0].rp,
+                                          **rkw)
+    _close(r_got, r_want, 1e-12)
+    np.testing.assert_allclose(float(m_got), float(m_want), rtol=1e-12)
+
+
+def test_periodic_x_ghost_rows_are_not_a_y_law():
+    """The fault of the JAX package's periodic_x: its y ghosts are rows 7
+    and n - 8 (the clamped halo blocks), not y-periodic (nor any wall
+    law). Both packages' results differ from the y-periodic sweep and
+    residual by O(1)."""
+    jlev, tlev, da, res, idh0, idh1, delta = _setup(3, 64, seed=3)
+    d2 = delta * delta
+    lvl = tlev[0]
+    per = torch.tensor(da)
+    for mask in (lvl.red, ~lvl.red):
+        per = fused_mg.relax_color(tghosted(per, TBC.PERIODIC),
+                                   torch.tensor(res), lvl.t0, lvl.cp, lvl.im,
+                                   mask, d2)
+    r_per, _ = fused_mg.residual_plain(
+        tghosted(torch.tensor(da), TBC.PERIODIC), torch.tensor(res), lvl.s,
+        lvl.lam, delta, idh0, idh1)
+    kw = dict(d2=d2, sign_x=-1.0, sign_y=-1.0, periodic_x=True)
+    rkw = dict(delta=delta, idh0=idh0, idh1=idh1, sign_x=-1.0, sign_y=-1.0,
+               periodic_x=True)
+    sweeps = [np.asarray(pallas_mg.rb_line_sweep(
+        jnp.asarray(da), jnp.asarray(res), jlev[0].sw, interpret=True,
+        **kw)), fused_mg.rb_line_sweep(torch.tensor(da), torch.tensor(res),
+                                       lvl.sw, **kw).numpy()]
+    resids = [np.asarray(pallas_mg.residual_norm(
+        jnp.asarray(da), jnp.asarray(res), jlev[0].rp, interpret=True,
+        **rkw)[0]), fused_mg.residual_norm(
+        torch.tensor(da), torch.tensor(res), lvl.rp, **rkw)[0].numpy()]
+    for got in sweeps:
+        assert np.abs(got - per.numpy()).max() > 0.1
+        # only the rows next to the y edges differ from the y law
+        assert np.abs(got - per.numpy())[:, 8:-8].max() < 1e-12
+    for got in resids:
+        assert np.abs(got - r_per.numpy()).max() > 0.1
+        assert np.abs(got - r_per.numpy())[:, 1:-1].max() < 1e-12
+
+
 def test_mixed_signs_follow_each_axis():
     """sign_x and sign_y are separate: a Neumann-in-x, Dirichlet-in-y sweep
     equals neither pure one, and its ghosts are the axis' own."""
@@ -290,6 +353,21 @@ def test_mixed_signs_follow_each_axis():
             for sx, sy in ((1.0, -1.0), (1.0, 1.0), (-1.0, -1.0))]
     assert not torch.equal(outs[0], outs[1])
     assert not torch.equal(outs[0], outs[2])
+
+
+def test_relax_on_the_cpu_is_plain_sweeps():
+    """relax on a CPU tensor: nrelax plain sweeps, no launch counted."""
+    _, tlev, da, res, _, _, delta = _setup(2, 32)
+    kw = dict(d2=delta * delta, sign_x=-1.0, sign_y=1.0)
+    before = fused_mg.sweep_launches, fused_mg.sweeps
+    got = fused_mg.relax(torch.tensor(da), torch.tensor(res), tlev[0].sw,
+                         nrelax=3, **kw)
+    assert (fused_mg.sweep_launches, fused_mg.sweeps) == before
+    want = torch.tensor(da)
+    for _ in range(3):
+        want = fused_mg.rb_line_sweep(want, torch.tensor(res), tlev[0].sw,
+                                      **kw)
+    assert torch.equal(got, want)
 
 
 def test_residual_max_carries_a_nan():
@@ -412,6 +490,9 @@ def test_cuda_tensor_with_profiles_does_not_fall_back():
         fused_mg.rb_line_sweep(meta, meta, tlev[0].sw, d2=1.0, sign_x=-1.0,
                                sign_y=-1.0)
     with pytest.raises(ValueError, match="unsupported device"):
+        fused_mg.relax(meta, meta, tlev[0].sw, nrelax=3, d2=1.0,
+                       sign_x=-1.0, sign_y=-1.0)
+    with pytest.raises(ValueError, match="unsupported device"):
         fused_mg.residual_norm(meta, meta, tlev[0].rp, delta=delta,
                                idh0=idh0, idh1=idh1, sign_x=-1.0,
                                sign_y=-1.0)
@@ -421,6 +502,8 @@ def test_bound_work_counts_each_array_once():
     nbytes, nops = fused_mg.sweep_bound_work(4, 2048, 4)
     assert nbytes == 3 * 4 * 2048 ** 2 * 4 + 3 * 4 * 2048 * 4
     assert nops == 10 * 4 * 2048 ** 2
+    # a launch of four sweeps moves the arrays once, computes four times
+    assert fused_mg.sweep_bound_work(4, 2048, 4, 4) == (nbytes, 4 * nops)
     nbytes, _ = fused_mg.residual_bound_work(4, 2048, 4, True, False)
     assert nbytes == 3 * 4 * 2048 ** 2 * 4 + 3 * 2048 * 4
     nbytes, _ = fused_mg.residual_bound_work(4, 2048, 4, False, True)
