@@ -7,7 +7,7 @@ Needs one CUDA card, nvcc and the repository checkout; imports nothing of
 JAX or msom_tpu. With no argument every phase runs; with phase names
 (kernels, steps, paths, fused_mm, mg, node, periodic, stochastic, driver,
 driver_node, mspg, coupling, varro, newqg, sqg, rows, shard, vshard,
-pgshard, api, f32val)
+pgshard, api, f32val, refine)
 the build and those phases only (for work on one part: the kernels' record
 then lists what ran). Phases, in order; any failure exits non-zero:
 
@@ -257,6 +257,20 @@ then lists what ran). Phases, in order; any failure exits non-zero:
    1000 steps within 1% of the truth's and the final surface KE
    spectrum's ratio to the truth's, median within 0.97-1.03 (GOLDEN.md's
    bar); q's drift at the truth's snapshots.
+21. the bf16 + refinement spectral solve (phase name refine; no kernel of
+   its own: cuBLAS GEMMs with bf16 operands and float32 outputs, torch
+   ops): the float64 refine solve on the card against the CPU (256^2 x 4,
+   walled and periodic) and, at world size 1 under NCCL, the sharded
+   refine solve against the unsharded one, within REFINE_F64_LIMIT; on
+   tools/refine_error.py's problem at N = 256-2048 with nl = 4 the bf16
+   pass against its plain emulation on a normal q_m (refine_pass_ok), and
+   the solution error and residual of the f32 fold ("auto"), the f32
+   basis matmul, one bf16 pass and refine against the float64 solve
+   (recorded, not gated);
+   each mode's solve time at 2048^2 x 4; then bench's uncoupled
+   configuration at 2048^2 x 4 f32 with the refine constants in turns
+   with the fold step (five rounds of 20 steps each, K1 twice a step,
+   busy and idle share, finite states).
 
 TF32 is switched off for matmuls and convolutions before anything runs:
 1-pass reduced-precision transforms give O(1) solution error at N = 2048.
@@ -294,7 +308,7 @@ MG_MAX_K3_LAUNCHES = 50  # K3 launches a step on the mg path, at most
 PHASES = ("kernels", "steps", "paths", "fused_mm", "mg", "node", "periodic",
           "stochastic", "driver", "driver_node", "mspg", "coupling", "varro",
           "newqg", "sqg", "rows", "shard", "vshard", "pgshard", "api",
-          "f32val")
+          "f32val", "refine")
 K1_OPTIONS = ("pg", "pg_flsrv", "topo", "qforc", "energy_conserv", "slip",
               "all")
 # the periodic kernel's option sets (no slip: the domain has no wall), and
@@ -4934,6 +4948,270 @@ def f32val_check(QGConfig):
     return good
 
 
+# the bf16 + refinement solve (phase name refine)
+REFINE_SIZES = (256, 512, 1024, 2048)
+# the card's bf16 pass against its plain emulation (the same bf16
+# operands, the products summed in another order) on a seeded normal q_m,
+# relative RMS difference of p_m: where a float32 partial sum falls on the
+# other side of a bf16 rounding boundary, the next stage's operand differs
+# by one bf16 ulp in that element. A first limit of 3e-4 failed on the card
+# at N = 2048 (3.3e-4): the tensor cores' sums and cuBLAS's float32 ones
+# part further than two float32 orders do on the CPU. A pass that rounded
+# its outputs to bf16, or skipped the bf16 operands, would differ by about
+# 2^-9 in every element: REFINE_PASS_MARGIN holds the card's pass that much
+# closer to its emulation than to the full-float32 chain.
+REFINE_PASS_LIMIT = 1e-3
+REFINE_PASS_MARGIN = 3.0
+REFINE_F64_LIMIT = 1e-10     # float64 refine solve: card vs CPU, sharded
+REFINE_TIMINGS = 25          # CUDA-event timings of a solve, the median
+PEAK_BF16_OPS_PER_S = 989e12  # bf16 on the tensor cores, dense
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def refine_pass_error(spec, qm):
+    """(relative RMS, relative max) difference of the card's bf16 pass
+    (spectral.refine_pass on a CUDA float32 tensor) from its plain
+    emulation (spectral.refine_pass_reference) on the same qm, and the
+    relative RMS difference of the card's pass from the full-float32
+    chain (spectral._mm_solve)."""
+    from msom_tpu_torch.solvers import spectral
+    got = spectral.refine_pass(spec, qm).double()
+    want = spectral.refine_pass_reference(spec, qm).double()
+    f32 = spectral._mm_solve(spec.S, spec.inv_den, qm).double()
+    d = got - want
+    return (float(d.norm() / want.norm()),
+            float(d.abs().max() / want.abs().max()),
+            float((got - f32).norm() / f32.norm()))
+
+
+def refine_pass_ok(rms, rms_f32):
+    """Whether the card's bf16 pass agrees with its emulation on a normal
+    q_m: within REFINE_PASS_LIMIT and REFINE_PASS_MARGIN times closer to
+    it than to the full-float32 chain."""
+    return rms <= REFINE_PASS_LIMIT and rms * REFINE_PASS_MARGIN <= rms_f32
+
+
+def refine_problem(N, nl=4, seed=0):
+    """tools/refine_error.py's problem (:73-84) on the card: L0 = 80, equal
+    dh, stretching (0.003/0.025)^2 at every interface, q = L(psi_t) of a
+    seeded normal psi_t in float64. Returns (build_spectral's keywords,
+    q, L as a function of psi in float64)."""
+    import torch
+    from msom_tpu_torch.ops.bc import BC
+    from msom_tpu_torch.ops.ghost import ghosted, laplacian_g
+    from msom_tpu_torch.ops.stretch import layer_metrics, stretch
+    dh = np.full(nl, 1.0 / nl)
+    sprof = np.full(nl - 1, (0.003 / 0.025) ** 2)
+    _, idh0, idh1 = layer_metrics(dh)
+    h = 80.0 / N
+    strl = torch.as_tensor(sprof, device="cuda")[:, None, None]
+
+    def op(psi):
+        psi = psi.double()
+        return (laplacian_g(ghosted(psi, BC.DIRICHLET), h)
+                + stretch(psi, strl, idh0, idh1))
+
+    psi_t = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (nl, N, N)), device="cuda")
+    kw = dict(nl=nl, N=N, L0=80.0, dh=dh, s_profile=sprof, device="cuda")
+    return kw, op(psi_t), op
+
+
+def refine_checks(card):
+    """The refine phase's gates: the float64 refine solve on the card
+    against the CPU (256^2 x 4, walled and periodic) within
+    REFINE_F64_LIMIT, and at world size 1 under NCCL the sharded refine
+    solve on the (1, 1) mesh against the unsharded one, the same."""
+    import torch
+    from msom_tpu_torch.parallel import spectral_shard
+    from msom_tpu_torch.parallel.mesh import make_mesh
+    from msom_tpu_torch.solvers import spectral
+    N, nl = 256, 4
+    mesh = make_mesh((1, 1))
+    q = torch.as_tensor(np.random.default_rng(1).standard_normal((nl, N, N)))
+    ok = True
+    for periodic in (False, True):
+        kw = dict(refine_problem(N, nl)[0], periodic=periodic,
+                  transform="matmul", refine=True, dtype=torch.float64)
+        spec = spectral.build_spectral(**kw)
+        got = spectral.solve_spectral(spec, q.cuda())
+        want = spectral.solve_spectral(
+            spectral.build_spectral(**dict(kw, device="cpu")), q)
+        shard = spectral_shard.solve_spectral_sharded(
+            spectral_shard.mesh_data(spec, mesh), q.cuda())
+        e_cpu, e_shard = _rel(got, want), _rel(shard, got)
+        good = e_cpu <= REFINE_F64_LIMIT and e_shard <= REFINE_F64_LIMIT
+        ok &= good
+        print(f"refine f64 {N}^2 x {nl} {'periodic' if periodic else 'walled'}"
+              f": the card against the CPU {e_cpu:.3e}, the sharded solve "
+              f"(world 1, NCCL, (1, 1) mesh) against the unsharded "
+              f"{e_shard:.3e} (limit {REFINE_F64_LIMIT:g}) on {card} "
+              f"{'ok' if good else 'FAIL'}")
+    return ok
+
+
+def refine_path(QGConfig, card):
+    """The bf16 + refinement solve on the card at N = REFINE_SIZES, nl = 4,
+    f32: the bf16 pass against its plain emulation on a seeded normal q_m
+    (gated: refine_pass_ok) and, recorded, on refine_problem's q_m (which
+    the transforms' cancellation makes ill-conditioned); each mode's
+    solution error and
+    residual against the float64 basis-matmul solve on the card (recorded,
+    not gated): the f32 "auto" (the fold at N >= 512), the f32 basis
+    matmul, one bf16 pass, refine. At 2048^2 x 4 each mode's solve time
+    (the median of REFINE_TIMINGS CUDA-event timings) and one pass's
+    against its bf16 bound. Then bench's uncoupled configuration at
+    2048^2 x 4 f32 with the refine constants beside the fold step: one
+    step of each from the same state, 20 warm-up steps each, ROUNDS
+    rounds of ROUND_STEPS steps in turns, K1's launches, busy and idle
+    share (four-step profiles), finite states."""
+    import torch
+    from msom_tpu_torch.models import qg
+    from msom_tpu_torch.solvers import spectral
+    f32 = torch.float32
+    ok = True
+    for N in REFINE_SIZES:
+        kw, q, op = refine_problem(N)
+        psi_ref = spectral.solve_spectral(spectral.build_spectral(
+            dtype=torch.float64, transform="matmul", **kw), q)
+        specs = {"auto": spectral.build_spectral(dtype=f32, **kw),
+                 "matmul": spectral.build_spectral(dtype=f32,
+                                                   transform="matmul", **kw),
+                 "refine": spectral.build_spectral(
+                     dtype=f32, transform="matmul", refine=True, **kw)}
+        ref = specs["refine"]
+        q32 = q.float()
+
+        def one_pass(q32):
+            qm = torch.einsum("ml,lyx->myx", ref.l2m, q32)
+            return torch.einsum("lm,myx->lyx", ref.m2l,
+                                spectral.refine_pass(ref, qm))
+
+        solves = {"auto": lambda q: spectral.solve_spectral(specs["auto"], q),
+                  "matmul": lambda q: spectral.solve_spectral(
+                      specs["matmul"], q),
+                  "bf16": one_pass,
+                  "refine": lambda q: spectral.solve_spectral(ref, q)}
+        qm = torch.as_tensor(np.random.default_rng(N).standard_normal(
+            (4, N, N)), dtype=f32, device="cuda")
+        rms, mx, rms_f32 = refine_pass_error(ref, qm)
+        good = refine_pass_ok(rms, rms_f32)
+        ok &= good
+        print(f"refine {N}^2 x 4: the bf16 pass against its plain emulation "
+              f"on a normal q_m: relative RMS {rms:.3e} (limit "
+              f"{REFINE_PASS_LIMIT:g}), max {mx:.3e}; against the float32 "
+              f"chain RMS {rms_f32:.3e} (at least {REFINE_PASS_MARGIN:g} "
+              f"times the first) on {card} {'ok' if good else 'FAIL'}")
+        qm = torch.einsum("ml,lyx->myx", ref.l2m, q32)
+        rms, mx, rms_f32 = refine_pass_error(ref, qm)
+        print(f"refine {N}^2 x 4: the bf16 pass against its plain emulation "
+              f"on the problem's q_m (recorded): relative RMS {rms:.3e}, max "
+              f"{mx:.3e}; against the float32 chain RMS {rms_f32:.3e} on "
+              f"{card}")
+        scale, q_scale = psi_ref.abs().max(), q.abs().max()
+        for name, fn in solves.items():
+            psi = fn(q32).double()
+            err = float((psi - psi_ref).abs().max() / scale)
+            res = float((q - op(psi)).abs().max() / q_scale)
+            print(f"refine error at {N}^2 x 4 f32 {name}: solution {err:.4e}"
+                  f", residual {res:.4e} (against the f64 matmul solve on "
+                  f"the card) on {card}")
+        if N == REFINE_SIZES[-1]:
+            for name, fn in solves.items():
+                for _ in range(3):
+                    fn(q32)
+                ms = [cuda_ms(lambda: fn(q32), 1)
+                      for _ in range(REFINE_TIMINGS)]
+                print(f"refine solve time at {N}^2 x 4 f32 {name}: median "
+                      f"{np.median(ms):.4f} ms of {len(ms)} (range "
+                      f"{min(ms):.4f}-{max(ms):.4f}) on {card}")
+            flops = 4 * 4 * 2 * N ** 3       # four GEMM stages, 4 layers
+            bound = flops / PEAK_BF16_OPS_PER_S * 1e3
+            p_ms = cuda_ms(lambda: spectral.refine_pass(ref, qm), 20)
+            e_ms = cuda_ms(lambda: spectral.refine_pass_reference(ref, qm), 5)
+            print(f"refine bf16 pass at {N}^2 x 4: {p_ms:.4f} ms, plain "
+                  f"emulation {e_ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({flops:.4e} operations, bf16 tensor cores) on {card}")
+        del specs, ref, psi_ref, q, q32, qm
+        torch.cuda.empty_cache()
+    if not ok:
+        return False
+
+    # the msqg step on the refine constants at full width
+    N, nl, warm = 2048, 4, 20
+    shape = (nl, N, N)
+    cfg = bench_config(QGConfig, N, nl, "float32")
+    const = qg.build_constants(cfg, device="cuda")
+    rconst = dataclasses.replace(const, spec=spectral.build_spectral(
+        nl=nl, N=N, L0=cfg.L0, dh=np.asarray(cfg.dh[:nl]),
+        s_profile=const.strl[:, 0, 0].double().cpu().numpy(), dtype=f32,
+        transform="matmul", refine=True, device="cuda"))
+    psi0 = 1e-3 * np.random.default_rng(0).uniform(-1, 1, shape)
+    s0 = qg.init_state(cfg, const, psi0=psi0)
+    step = qg.make_step(cfg)
+    s_f, _ = step(s0, const, 1e18)
+    s_r, _ = step(s0, rconst, 1e18)
+    print(f"refine step: one step from the noise IC, max|psi_refine - "
+          f"psi_fold|/max|psi_fold| {_rel(s_r.psi, s_f.psi):.4e}, q "
+          f"{_rel(s_r.q, s_f.q):.4e} on {card}")
+    boxes = {"fold": [s0, const, None], "refine": [s0, rconst, None]}
+
+    def stepper(box):
+        def one_step():
+            box[0], box[2] = step(box[0], box[1], 1e18)
+        return one_step
+
+    steps = {k: stepper(b) for k, b in boxes.items()}
+    for _ in range(warm):
+        steps["fold"]()
+        steps["refine"]()
+    torch.cuda.synchronize()
+    ms = {"fold": [], "refine": []}
+    launched = dict.fromkeys(kernel_counts(), 0)
+    for _ in range(ROUNDS):
+        ms["fold"].append(cuda_ms(steps["fold"], ROUND_STEPS))
+        c0 = kernel_counts()
+        ms["refine"].append(cuda_ms(steps["refine"], ROUND_STEPS))
+        c1 = kernel_counts()
+        for k in launched:
+            launched[k] += c1[k] - c0[k]
+    n_steps = ROUNDS * ROUND_STEPS
+    for name in ("refine", "fold"):
+        box = boxes[name]
+        med = float(np.median(ms[name]))
+        busy = sum(r[0] for r in kernel_profile(f"{name} step", steps[name],
+                                                4, med))
+        finite = state_ok(box[0], box[2], shape)
+        good = finite
+        extra = ""
+        if name == "refine":
+            good &= (launched["K1"] == 2 * n_steps
+                     and all(v == 0 for k, v in launched.items()
+                             if k != "K1"))
+            extra = (f", kernel launches over {n_steps} steps "
+                     + ", ".join(f"{k} {v}" for k, v in launched.items())
+                     + f" ({launched['K1'] / n_steps:.2f} K1 a step)")
+        ok &= good
+        print(f"refine path {N}^2 x {nl} f32 {name} step after {warm} "
+              f"warm-up steps, rounds in turns: " + rounds_line(ms[name], med,
+                                                                 busy)
+              + f"{extra}, ke {box[2].ke.item():.6e}, dt "
+              f"{box[2].dt.item():.6e}, finite {finite} on {card} "
+              f"{'ok' if good else 'FAIL'}")
+    print(f"refine path: the final psi of the two runs (the same steps) "
+          f"differ by {_rel(boxes['refine'][0].psi, boxes['fold'][0].psi):.4e}"
+          f" of max|psi| on {card}")
+    return ok
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5374,14 +5652,30 @@ def main() -> int:
             return 20
         print(f"f32val done at {time.perf_counter() - t_start:.0f} s")
 
+    # 21. the bf16 + refinement solve: the float64 solve on the card
+    # against the CPU and, at world size 1 under NCCL, sharded; the bf16
+    # pass against its emulation, the error table, the solve times and the
+    # msqg step on it at full width
+    if wanted("refine"):
+        import shutil
+        from msom_tpu_torch.parallel import dist
+        t0 = time.perf_counter()
+        card = card_line()
+        tmp = _rows_group()
+        try:
+            good = refine_checks(card)
+        finally:
+            dist.shutdown()
+            shutil.rmtree(tmp, ignore_errors=True)
+        if not (good and refine_path(QGConfig, card)):
+            return 21
+        print(f"refine done at {time.perf_counter() - t_start:.0f} s "
+              f"({time.perf_counter() - t0:.0f} s for the phase)")
+
     print(f"total {time.perf_counter() - t_start:.0f} s")
     print("kernels: " + json.dumps(sorted({r["name"] for r in rows})))
     print(json.dumps({"kernels": rows}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -24,7 +24,11 @@ basis, whose partial sums over the whole output axis one reduce-scatter
 within the rank's mesh row or column adds up and cuts to the rank's block;
 the inverse denominators are cut like the fields. It needs the matmul
 basis (build_spectral with transform="matmul", the JAX package's
-force_matmul): a fold or an FFT does not split so.
+force_matmul): a fold or an FFT does not split so. Data built with
+refine=True runs the bf16 + refinement solve there (:91-97): two passes,
+bf16 on a CUDA float32 tile, and the residual between them with its ghost
+ring from `halo.ghosted_sharded`; the pencil solve refuses it, as JAX's
+asserts.
 
 The y-profile solve of varRo on the mesh (`solve_vary_sharded`, an
 explicit form of what the JAX package runs partitioned under GSPMD): the x
@@ -44,7 +48,7 @@ import torch
 import torch.distributed as td
 import torch.nn.functional as F
 
-from msom_tpu_torch.parallel import dist
+from msom_tpu_torch.parallel import dist, halo
 from msom_tpu_torch.parallel.mesh import Mesh
 from msom_tpu_torch.solvers import ctdst, fused_vary, spectral, vary
 
@@ -64,7 +68,10 @@ class PencilData:
 def pencil_data(data: spectral.SpectralData, rank: int,
                 world: int) -> PencilData:
     """Rank `rank`'s PencilData of a whole solve's data, which must have a
-    matmul basis or a fold (not the FFT forms, which do not split)."""
+    matmul basis or a fold (not the FFT forms, which do not split) and no
+    refinement (the JAX package's pencil solve asserts it away, :148)."""
+    if data.refine:
+        raise ValueError("the pencil solve does not take refine")
     if data.S is None and data.fac is None:
         raise ValueError("the pencil solve needs a matmul basis or a fold")
     if isinstance(data.fac, ctdst.FoldedDST1):
@@ -156,41 +163,50 @@ def _reduce_scatter(partial: torch.Tensor, axis: int, group,
     return out.movedim(0, axis).contiguous()
 
 
-def _axis_transform(a, T, axis: int, inverse: bool, mesh: Mesh):
-    """One axis of transform_sharded: the local product with the rank's
-    block of T, then the reduce-scatter over that axis's group."""
+def _axis_transform(a, T, axis: int, inverse: bool, mesh: Mesh,
+                    mm=torch.matmul):
+    """One axis of transform_sharded: the local product mm with the
+    rank's block of T, then the reduce-scatter over that axis's group."""
     if axis == -2:
         n, pos, group, size = a.shape[-2], mesh.yi, mesh.col, mesh.my
         blk = slice(pos * n, (pos + 1) * n)
-        partial = torch.matmul(T[blk, :].T if inverse else T[:, blk], a)
+        partial = mm(T[blk, :].T if inverse else T[:, blk], a)
     else:
         n, pos, group, size = a.shape[-1], mesh.xi, mesh.row, mesh.mx
         blk = slice(pos * n, (pos + 1) * n)
-        partial = torch.matmul(a, T[blk, :] if inverse else T[:, blk].T)
+        partial = mm(a, T[blk, :] if inverse else T[:, blk].T)
     return _reduce_scatter(partial, axis, group, size)
 
 
 def transform_sharded(a: torch.Tensor, T: torch.Tensor, *, inverse: bool,
-                      mesh: Mesh, axes=(-2, -1)) -> torch.Tensor:
+                      mesh: Mesh, axes=(-2, -1), mm=torch.matmul
+                      ) -> torch.Tensor:
     """The 2-D orthogonal transform of this rank's (..., ny_l, nx_l) tile
     (spectral_shard.py:44-73): forward T a T^T, inverse T^T a T, with T the
-    whole (N, N) basis; along each of `axes` one local matmul with the
-    rank's block of T and one reduce-scatter, the output cut like the
-    input (in mode order)."""
+    whole (N, N) basis; along each of `axes` one local product mm(., .)
+    with the rank's block of T and one reduce-scatter, the output cut like
+    the input (in mode order)."""
     for axis in axes:
-        a = _axis_transform(a, T, axis, inverse, mesh)
+        a = _axis_transform(a, T, axis, inverse, mesh, mm)
     return a
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpectralData:
     """One rank's part of the basis-matmul solve on a mesh: the basis
-    whole, the inverse denominators of the rank's tile of modes."""
+    whole, the inverse denominators of the rank's tile of modes; with
+    `refine`, what the refinement's residual reads (iBu, delta, periodic)
+    and the bf16 basis of its passes."""
     inv_den: torch.Tensor         # (nl, N / my, N / mx)
     l2m: torch.Tensor | None
     m2l: torch.Tensor | None
     S: torch.Tensor               # (N, N) DST-II or real Fourier basis
     mesh: Mesh
+    refine: bool = False
+    iBu: torch.Tensor | None = None
+    delta: float = 0.0
+    periodic: bool = False
+    Sb: torch.Tensor | None = None
 
 
 def mesh_data(data: spectral.SpectralData, mesh: Mesh) -> MeshSpectralData:
@@ -206,7 +222,8 @@ def mesh_data(data: spectral.SpectralData, mesh: Mesh) -> MeshSpectralData:
     rows, cols = mesh.tile(N, N)
     return MeshSpectralData(
         inv_den=data.inv_den[:, rows, cols].contiguous(), l2m=data.l2m,
-        m2l=data.m2l, S=data.S, mesh=mesh)
+        m2l=data.m2l, S=data.S, mesh=mesh, refine=data.refine, iBu=data.iBu,
+        delta=data.delta, periodic=data.periodic, Sb=data.Sb)
 
 
 def build_matmul(cfg, strl, *, device) -> spectral.SpectralData:
@@ -214,7 +231,8 @@ def build_matmul(cfg, strl, *, device) -> spectral.SpectralData:
     real Fourier basis when periodic) for a configuration whose unsharded
     solve has a form that does not split (the FFT, K7's fused_mm, or on a
     mesh the fold): the JAX package's sharded_cfg transform override and
-    force_matmul."""
+    force_matmul. It builds no refinement: JAX's sharded configuration
+    never sets it."""
     s_prof = None if strl is None else \
         strl.double().cpu().numpy()[:, 0, 0]
     return spectral.build_spectral(
@@ -226,12 +244,27 @@ def build_matmul(cfg, strl, *, device) -> spectral.SpectralData:
 def solve_spectral_sharded(data: MeshSpectralData,
                            q: torch.Tensor) -> torch.Tensor:
     """psi = L^-1 q of this rank's (nl, ny_l, nx_l) tile of q; the ranks
-    call it together (spectral_shard.py:76-105, without the bf16
-    refinement, which the port does not have)."""
+    call it together (spectral_shard.py:76-105). With `refine`, the bf16 +
+    refinement solve: a pass (spectral.pass_product: bf16 on a CUDA
+    float32 tile), the residual with its ghosts from the halo exchange,
+    and a second pass on it."""
+    mesh = data.mesh
     qm = q if data.l2m is None else torch.einsum("ml,lyx->myx", data.l2m, q)
-    Q = transform_sharded(qm, data.S, inverse=False, mesh=data.mesh)
-    pm = transform_sharded(Q * data.inv_den, data.S, inverse=True,
-                           mesh=data.mesh)
+
+    def one_solve(rhs, S, mm=torch.matmul):
+        Q = transform_sharded(rhs, S, inverse=False, mesh=mesh, mm=mm)
+        return transform_sharded(Q * data.inv_den, S, inverse=True,
+                                 mesh=mesh, mm=mm)
+
+    if data.refine:
+        S, mm = spectral.pass_product(data, qm)
+        pm = one_solve(qm, S, mm)
+        r = spectral.modal_residual(
+            data, qm, pm,
+            ghost_fn=lambda f, bc: halo.ghosted_sharded(f, bc, mesh))
+        pm = pm + one_solve(r, S, mm)
+    else:
+        pm = one_solve(qm, data.S)
     return pm if data.m2l is None else torch.einsum("lm,myx->lyx", data.m2l,
                                                     pm)
 

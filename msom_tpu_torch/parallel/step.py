@@ -117,6 +117,11 @@ def rows_refusal(cfg, world: int, const=None, mesh=None) -> str | None:
     if cfg.solver == "spectral" and not _strl_uniform(cfg, const):
         return ("a strl that varies with solver='spectral' (the pencil "
                 "solve needs a uniform one)")
+    if const is not None and getattr(const.spec, "refine", False):
+        # JAX's rows step rebuilds its solve from the config and drops the
+        # refinement; the port sends it to the mesh solve, which runs it
+        return ("the bf16 + refinement solve (the pencil solve refuses it, "
+                "spectral_shard.py:148)")
     return None
 
 

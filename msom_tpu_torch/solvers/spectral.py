@@ -27,8 +27,24 @@ basis-matmul solve, on either basis, runs in the hand-written kernel K7
 (N-1)^2 interior vertices with a zero ring are diagonalised by the DST-I
 basis (`dst1_matrix`) times the vertical modes; in f32 at 512 <= N, N a
 power of 2, through the folded DST-I (ctdst.FoldedDST1), otherwise (f64
-among them) through the (N-1)^2 basis matmul. The bf16 refinement pass
-is not ported (ROADMAP.md queue 1, item 3).
+among them) through the (N-1)^2 basis matmul.
+
+`refine=True` is the JAX package's bf16 + refinement solve
+(`spectral.py:232-270`, `:322-325`): the single-matrix basis with inv_den
+in natural order and no fold; a solve is one reduced-precision pass of
+the basis-matmul chain, the residual r = q_m - lap(p_m) - iBu_m p_m with
+the 5-point stencil under the model BC in the working type
+(`modal_residual`), and one more pass on r added to p_m. A pass is what
+JAX's Precision.DEFAULT is on each device: on a CUDA float32 tensor one
+bf16 pass (bf16 operands, float32 accumulation and float32 outputs:
+`torch.mm`/`torch.bmm` with `out_dtype`, the bf16 copy of S cast once at
+build), elsewhere (the CPU, float64) the working type's own products.
+`refine_pass_reference` is the plain version of the bf16 pass: operands
+rounded to bf16, float32 products. The modal projections stay at full
+precision and TF32 stays off. "auto" means False, as in JAX, which
+measured refinement as no gain on its TPU (`spectral.py:232-250`).
+Where no basis matrix is built (float64 "auto", "fft", the periodic
+rfft) the flag is kept and the solve does not read it, as in JAX.
 """
 
 from __future__ import annotations
@@ -39,7 +55,8 @@ import math
 import numpy as np
 import torch
 
-from msom_tpu_torch.ops import modes
+from msom_tpu_torch.ops import ghost, modes
+from msom_tpu_torch.ops.bc import BC
 from msom_tpu_torch.solvers import ctdst, fused_spectral
 
 
@@ -49,7 +66,9 @@ class SpectralData:
     set, inv_den is in the folded transform's permuted order; with S set,
     the basis-matmul path runs (in kernel K7 when `fused_mm`); with
     neither, the FFT-based DST. `mm` holds the TF32 split of S and S^T
-    that K7 reads in float32."""
+    that K7 reads in float32. With `refine` and S, the bf16 + refinement
+    solve, whose residual reads iBu, delta and periodic, and whose bf16
+    pass reads Sb."""
     inv_den: torch.Tensor         # (nl, N, N or N//2+1): 1/(lam_y + lam_x
     #                               + iBu_m), 0 where that is 0
     l2m: torch.Tensor | None      # (nl, nl) layer->mode (None when nl == 1)
@@ -59,6 +78,10 @@ class SpectralData:
     fused_mm: bool = False
     mm: fused_spectral.Basis | None = None   # K7's f32 split of S and S^T
     periodic: bool = False        # with neither S nor fac: rfft2 / irfft2
+    iBu: torch.Tensor | None = None   # (nl,) modal Helmholtz coefficients
+    delta: float = 0.0            # grid spacing (the residual's stencil)
+    refine: bool = False          # bf16 passes + one refinement pass
+    Sb: torch.Tensor | None = None    # S in bf16 (refine in float32)
 
 
 def dst_matrix(N: int, dtype=np.float64) -> np.ndarray:
@@ -164,11 +187,16 @@ def build_spectral(*, nl: int, N: int, L0: float, dh=None, s_profile=None,
     `periodic` takes the doubly periodic basis (rfft2, or with the matmul
     transform `fourier_matrix`). `fused_mm` sends the basis-matmul solve
     through kernel K7: it needs the matmul transform and a size and type
-    that fused_spectral.check_gate takes."""
-    if refine is True:
-        raise NotImplementedError(
-            "the bf16 + refinement solve is not ported (ROADMAP.md queue 1, "
-            "item 3: the port keeps full-f32 transforms)")
+    that fused_spectral.check_gate takes. `refine` selects the bf16 +
+    refinement solve ("auto": False); it refuses the folded transform and
+    K7, and where "auto" would fold it keeps the basis matrix instead."""
+    if refine == "auto":
+        refine = False
+    if fused_mm and refine:
+        # JAX's solve would bypass its Pallas kernel here; an explicit
+        # request for K7 that is not honoured would be a hidden fallback
+        raise ValueError("fused_mm and refine are mutually exclusive (the "
+                         "refinement's passes are not kernel K7)")
     if fused_mm:
         if transform != "matmul":
             raise ValueError(f"fused_mm needs transform='matmul', got "
@@ -193,9 +221,14 @@ def build_spectral(*, nl: int, N: int, L0: float, dh=None, s_profile=None,
     if periodic and transform == "factored":
         raise ValueError("transform='factored' covers the Dirichlet (DST) "
                          "basis only; periodic keeps the rfft/matmul paths")
-    use_fac = transform == "factored" or (
+    if transform == "factored" and refine is True:
+        raise ValueError("transform='factored' and refine are mutually "
+                         "exclusive (refinement needs the naturally-ordered "
+                         "single-matrix basis)")
+    # refine keeps the single-matrix basis with inv_den in natural order
+    use_fac = not refine and (transform == "factored" or (
         transform == "auto" and f32 and not periodic and 512 <= N <= 4096
-        and pow2)
+        and pow2))
     use_mm = transform == "matmul" or (transform == "auto" and f32
                                        and N <= 4096 and not periodic)
 
@@ -216,11 +249,13 @@ def build_spectral(*, nl: int, N: int, L0: float, dh=None, s_profile=None,
     with np.errstate(divide="ignore"):
         inv = np.where(den != 0.0, 1.0 / np.where(den != 0.0, den, 1.0), 0.0)
 
-    S = fac = mm = None
+    S = fac = mm = Sb = None
     if basis is not None and not use_fac:
         S = torch.as_tensor(basis, dtype=dtype).to(device)
         if fused_mm and dtype == torch.float32:
             mm = fused_spectral.basis(S)
+        if refine and dtype == torch.float32:
+            Sb = S.to(torch.bfloat16)
     if use_fac:
         fac, perm = ctdst.build_fold(N, dtype, device)
         if fac is None:
@@ -231,14 +266,80 @@ def build_spectral(*, nl: int, N: int, L0: float, dh=None, s_profile=None,
         inv = inv[:, perm][:, :, perm]
     return SpectralData(inv_den=torch.as_tensor(inv, dtype=dtype).to(device),
                         l2m=l2m, m2l=m2l, S=S, fac=fac, fused_mm=fused_mm,
-                        mm=mm, periodic=periodic)
+                        mm=mm, periodic=periodic,
+                        iBu=torch.as_tensor(iBu, dtype=dtype).to(device),
+                        delta=h, refine=bool(refine), Sb=Sb)
 
 
-def _mm_solve(S: torch.Tensor, inv_den: torch.Tensor,
-              qm: torch.Tensor) -> torch.Tensor:
-    """One basis-matmul solve in modal space (S rows in natural order)."""
-    Q = torch.matmul(S, torch.matmul(qm, S.T))
-    return torch.matmul(torch.matmul(S.T, Q * inv_den), S)
+def _mm_solve(S: torch.Tensor, inv_den: torch.Tensor, qm: torch.Tensor,
+              mm=torch.matmul) -> torch.Tensor:
+    """One basis-matmul solve in modal space (S rows in natural order):
+    the x transform, the y transform, the scale, and their inverses, each
+    stage one product mm(a, b)."""
+    Q = mm(S, mm(qm, S.T))
+    return mm(mm(S.T, Q * inv_den), S)
+
+
+def _bf16_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with bf16 operands, float32 accumulation and a float32 output
+    (one MXU pass at JAX's Precision.DEFAULT), for (nl, m, k) @ (k, n) or
+    (m, k) @ (nl, k, n); an operand already in bf16 is not cast again."""
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if b.ndim == 2:
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.view(*a.shape[:-1], b.shape[-1])
+    return torch.bmm(a.expand(b.shape[0], *a.shape), b,
+                     out_dtype=torch.float32)
+
+
+def _bf16_mm_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain version of _bf16_mm: both operands rounded to bf16, then
+    one product in float32."""
+    def rnd(t):
+        return t.to(torch.bfloat16).to(torch.float32)
+    return torch.matmul(rnd(a), rnd(b))
+
+
+def pass_product(data, like: torch.Tensor):
+    """(basis, product) of one reduced-precision pass on `like`'s device
+    and type: on a CUDA float32 tensor the bf16 copy of S and _bf16_mm,
+    elsewhere S and the working type's own matmul (JAX's DEFAULT is full
+    precision on its CPU). `data` is a SpectralData or the sharded form
+    with S and Sb."""
+    if like.is_cuda and like.dtype == torch.float32:
+        if data.Sb is None:
+            raise ValueError("the bf16 pass needs the bf16 basis Sb "
+                             "(build_spectral(refine=True) in float32)")
+        return data.Sb, _bf16_mm
+    return data.S, torch.matmul
+
+
+def refine_pass(data: SpectralData, qm: torch.Tensor) -> torch.Tensor:
+    """One solve pass of the refinement in modal space (JAX `_mm_solve` at
+    Precision.DEFAULT, spectral.py:273-285): bf16 on a CUDA float32
+    tensor, else the working type's products."""
+    S, mm = pass_product(data, qm)
+    return _mm_solve(S, data.inv_den, qm, mm)
+
+
+def refine_pass_reference(data: SpectralData,
+                          qm: torch.Tensor) -> torch.Tensor:
+    """The plain version of the card's bf16 pass on any device: every GEMM
+    stage's operands rounded to bf16, the products in float32."""
+    return _mm_solve(data.S.float(), data.inv_den, qm.float(),
+                     _bf16_mm_reference)
+
+
+def modal_residual(data, qm: torch.Tensor, pm: torch.Tensor, *,
+                   ghost_fn=None) -> torch.Tensor:
+    """r_m = q_m - lap(p_m) - iBu_m p_m with the 5-point stencil under the
+    model BC, in the working type (JAX `modal_residual`, spectral.py:
+    287-296). ghost_fn(f, bc) -> Ghosted gives the ghost ring (by default
+    ops.ghost.ghosted; a sharded solve passes its halo exchange)."""
+    bc = BC.PERIODIC if data.periodic else BC.DIRICHLET
+    g = (ghost_fn or ghost.ghosted)(pm, bc)
+    return qm - ghost.laplacian_g(g, data.delta) \
+        - data.iBu[:, None, None] * pm
 
 
 def solve_spectral(data: SpectralData, q: torch.Tensor) -> torch.Tensor:
@@ -251,6 +352,9 @@ def solve_spectral(data: SpectralData, q: torch.Tensor) -> torch.Tensor:
     elif data.fac is not None:
         Q = ctdst.fdst_x(data.fac, ctdst.fdst_y(data.fac, qm))
         pm = ctdst.ifdst_y(data.fac, ctdst.ifdst_x(data.fac, Q * data.inv_den))
+    elif data.refine and data.S is not None:
+        pm = refine_pass(data, qm)
+        pm = pm + refine_pass(data, modal_residual(data, qm, pm))
     elif data.fused_mm:
         pm = fused_spectral.fused_mm_solve(data.S, data.inv_den,
                                            qm.contiguous(), data.mm)

@@ -19,7 +19,9 @@ wrapper's checks, the varRo step (spectral and mg), the newqg step and the
 SQG step on the card against the CPU; and K1's and K2's rows mode on
 virtual shards against the whole-domain launch; and the tendency API
 (qg_tendency through K1 and K2 in both directions, bfn_integrate,
-pg_tendency) on the card against the CPU. Every test
+pg_tendency) on the card against the CPU; and the bf16 + refinement
+solve's bf16 pass against its plain emulation and its float64 solve
+against the CPU. Every test
 needs a card
 and nvcc, is marked
 `cuda` and skips without a card. The file imports neither jax nor
@@ -53,7 +55,8 @@ from msom_tpu_torch.models.qg_node import coastline_mask
 from msom_tpu_torch.params import QGConfig
 from msom_tpu_torch.solvers import fused_mg, fused_spectral, mg, spectral
 
-from chip_smoke import KV_SIZES, kv_problem
+from chip_smoke import (KV_SIZES, kv_problem, refine_pass_error,
+                        refine_pass_ok)
 
 pytestmark = pytest.mark.cuda
 
@@ -309,6 +312,37 @@ def test_spectral_kernel_error_is_the_fp32_chains(cuda, N, nl):
     err = (pm.double() - want).abs().max() / scale
     err32 = (fp32.double() - want).abs().max() / scale
     assert err <= 1e-5 and err <= 4 * err32, (float(err), float(err32))
+
+
+@pytest.mark.parametrize("N,nl", [(128, 1), (512, 4), (2048, 4)])
+def test_refine_bf16_pass_and_float64_solve_on_the_card(cuda, N, nl):
+    """The refine solve's bf16 pass on a float32 tensor (bf16 operands,
+    float32 accumulation and outputs) against its plain emulation, as
+    chip_smoke's refine_pass_ok holds it (relative RMS, and closer to it
+    than to the full-float32 chain); and the float64 refine
+    solve, walled and periodic, on the card against the CPU within 1e-10
+    of max|psi|."""
+    kw = dict(nl=nl, N=N, L0=80.0, dh=np.full(nl, 1.0 / nl),
+              s_profile=np.full(nl - 1, 0.0144), transform="matmul",
+              refine=True)
+    spec = spectral.build_spectral(dtype=torch.float32, device=cuda, **kw)
+    assert spec.Sb.dtype == torch.bfloat16 and spec.fac is None
+    rng = np.random.default_rng(N)
+    qm = torch.as_tensor(rng.standard_normal((nl, N, N)),
+                         dtype=torch.float32).to(cuda)
+    rms, _, rms_f32 = refine_pass_error(spec, qm)
+    assert refine_pass_ok(rms, rms_f32), (rms, rms_f32)
+    if N > 512:
+        return
+    q = torch.as_tensor(rng.standard_normal((nl, N, N)))
+    for periodic in (False, True):
+        kw["periodic"] = periodic
+        want = spectral.solve_spectral(spectral.build_spectral(
+            dtype=torch.float64, device="cpu", **kw), q)
+        got = spectral.solve_spectral(spectral.build_spectral(
+            dtype=torch.float64, device=cuda, **kw), q.to(cuda)).cpu()
+        err = (got - want).abs().max() / want.abs().max()
+        assert err <= 1e-10, (periodic, float(err))
 
 
 def test_coupled_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -27,6 +27,7 @@ references are computed here, once for the module.
   varRo raises ValueError, as JAX's run_qg does.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -60,6 +61,9 @@ STEP_RUNS = {"spectral": ("spectral", (2, 2)), "mg": ("mg", (2, 2)),
              "modal": ("modal", (2, 2)), "varro22": ("varro", (2, 2)),
              "varro41": ("varro", (4, 1))}
 SPECTRAL_MESHES = {2: (1, 2), 4: (2, 2)}
+# the bf16 + refinement solve's meshes (f64 on the CPU: full-precision
+# passes), at 1e-12 of JAX's
+REFINE_MESHES = {2: (2, 1), 4: (2, 2)}
 # the routing runs at world 2: {name: (config, JAX's reference case)},
 # with no event before the steps end (so that dtnext leaves dt as the
 # steps' own)
@@ -76,8 +80,10 @@ def _inputs(kw):
 
 
 def _job(world):
-    job = {"spectral": {p: (SPECTRAL_MESHES[world], 32, 3, p)
-                        for p in (False, True)}}
+    job = {"spectral": {
+        (p, refine): ((REFINE_MESHES if refine else SPECTRAL_MESHES)[world],
+                      32, 3, p, refine)
+        for p in (False, True) for refine in (False, True)}}
     if world == 4:
         job["steps"] = {name: (CASES[case], *_inputs(CASES[case]), STEPS,
                                "gspmd", mesh)
@@ -107,18 +113,21 @@ def _rel(got, want):
     return np.abs(np.asarray(got) - want).max() / np.abs(want).max()
 
 
+@pytest.mark.parametrize("refine", [False, True])
 @pytest.mark.parametrize("world", [2, 4])
 @pytest.mark.parametrize("periodic", [False, True])
-def test_spectral_sharded_matches_jax(ranks, world, periodic):
+def test_spectral_sharded_matches_jax(ranks, world, periodic, refine):
     """transform_sharded both ways and solve_spectral_sharded on the mesh,
-    gathered, against JAX's under shard_map on the same mesh."""
-    shape = SPECTRAL_MESHES[world]
+    gathered, against JAX's under shard_map on the same mesh; with refine
+    the bf16 + refinement solve (its residual's ghosts from the halo
+    exchange) on the (2, 1) and (2, 2) meshes, within 1e-12."""
+    shape = (REFINE_MESHES if refine else SPECTRAL_MESHES)[world]
     my, mx = shape
     _, q = torch_mesh_ranks.spectral_problem(32, 3, periodic)
     sd = jspectral.build_spectral(
         nl=3, N=32, L0=80.0, dh=np.array([0.06, 0.14, 0.8]),
         s_profile=np.array([8.96, 0.97]), periodic=periodic,
-        dtype=jnp.float64, force_matmul=True)
+        dtype=jnp.float64, force_matmul=True, refine=refine)
 
     def local(d, a):
         prec = jax.lax.Precision.HIGHEST
@@ -131,9 +140,33 @@ def test_spectral_sharded_matches_jax(ranks, world, periodic):
                           out_specs=(P(None, "y", "x"),) * 3,
                           check_vma=False))
     want = f(sd, jnp.asarray(q.numpy()))
-    got = ranks[world]["spectral"][periodic]
+    got = ranks[world]["spectral"][periodic, refine]
     for name, g, w in zip(("forward", "inverse", "solve"), got, want):
-        assert _rel(g, np.asarray(w)) < 1e-13, name
+        tol = 1e-12 if refine and name == "solve" else 1e-13
+        assert _rel(g, np.asarray(w)) < tol, name
+
+
+def test_pencil_solve_refuses_refine():
+    """The pencil solve refuses refine data with ValueError, as JAX's
+    asserts (spectral_shard.py:148); so the rows step does not take refine
+    constants and sharded="auto" sends them to the mesh solve."""
+    from msom_tpu_torch.parallel import spectral_shard as tss
+    from msom_tpu_torch.parallel import step as tstep
+    sd, q = torch_mesh_ranks.spectral_problem(32, 3, False, refine=True)
+    with pytest.raises(ValueError, match="refine"):
+        tss.pencil_data(sd, 0, 2)
+    jd = jspectral.build_spectral(
+        nl=3, N=32, L0=80.0, dh=np.array([0.06, 0.14, 0.8]),
+        s_profile=np.array([8.96, 0.97]), periodic=False,
+        dtype=jnp.float64, force_matmul=True, refine=True)
+    with pytest.raises(AssertionError, match="refine"):
+        jss.solve_spectral_pencil(jd, jnp.asarray(q.numpy()))
+    cfg = TConfig(**CASES["spectral"]).validate()
+    const = tqg.build_constants(cfg, device="cpu")
+    assert tstep.route(cfg, 2, const) == "rows"
+    const = dataclasses.replace(const, spec=sd)
+    assert "refine" in tstep.rows_refusal(cfg, 2, const)
+    assert tstep.route(cfg, 2, const) == "gspmd"
 
 
 @functools.cache

@@ -153,12 +153,6 @@ def test_solve_spectral_residual_in_comp_q(transform):
     assert res < 1e-12, float(res)
 
 
-def test_unported_spectral_options_raise():
-    kw = dict(nl=1, N=32, L0=1.0, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="refine"):
-        tspec.build_spectral(refine=True, **kw)
-
-
 def _modal_problem(nl, N, dtype, seed=0):
     """(S, inv_den, qm) of the Dirichlet matmul solve as numpy arrays."""
     _, t = _build(nl, N, "matmul", dtype)

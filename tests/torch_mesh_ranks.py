@@ -106,26 +106,28 @@ def mg_units(job):
     return out
 
 
-def spectral_problem(N, nl, periodic):
-    """(SpectralData with the matmul basis, q) of the spectral units."""
+def spectral_problem(N, nl, periodic, refine=False):
+    """(SpectralData with the matmul basis, q) of the spectral units; with
+    refine, the bf16 + refinement solve's data."""
     from msom_tpu_torch.solvers import spectral
     kw = dict(dh=np.array([0.06, 0.14, 0.8]),
               s_profile=np.array([8.96, 0.97])) if nl > 1 else {}
     sd = spectral.build_spectral(nl=nl, N=N, L0=80.0, periodic=periodic,
                                  dtype=torch.float64, transform="matmul",
-                                 device="cpu", **kw)
+                                 refine=refine, device="cpu", **kw)
     q = torch.as_tensor(np.random.default_rng(2).standard_normal(
         (nl, N, N)))
     return sd, q
 
 
 def spectral_units(job):
-    """{name: (forward transform, inverse transform, solve), gathered}."""
+    """{name: (forward transform, inverse transform, solve), gathered};
+    the solve is the refine solve where the job asks for it."""
     from msom_tpu_torch.parallel import halo, spectral_shard
     from msom_tpu_torch.parallel.mesh import make_mesh
     out = {}
-    for name, (shape, N, nl, periodic) in job.items():
-        sd, q = spectral_problem(N, nl, periodic)
+    for name, (shape, N, nl, periodic, refine) in job.items():
+        sd, q = spectral_problem(N, nl, periodic, refine)
         mesh = make_mesh(shape)
         rows, cols = mesh.tile(N, N)
         ql = q[:, rows, cols].contiguous()

@@ -228,8 +228,14 @@ def start(name: str, kernel="mg_sweep", patches=(), early=False, out=OUT,
     cpp = out / f"{name}.cpp"
     cpp.write_text(translate(src, list(LAUNCHES[kernel]) + list(patches)))
     target = out / f"{name}.so"
-    cmd = ["g++", "-std=c++20", opt, "-w", "-ffp-contract=off", "-shared",
-           "-fPIC", str(cpp), "-o", str(target)]
+    # -fno-gnu-unique: the prelude's inline globals (blockIdx, gridDim,
+    # emu_cur, ...) would otherwise be STB_GNU_UNIQUE symbols, which the
+    # dynamic linker binds process-wide, across RTLD_LOCAL libraries: a
+    # process that loaded tools/strip_emulation.py's library (its blockIdx
+    # is thread_local) crashed loading this one
+    cmd = ["g++", "-std=c++20", opt, "-w", "-ffp-contract=off",
+           "-fno-gnu-unique", "-shared", "-fPIC", str(cpp), "-o",
+           str(target)]
     if early:
         cmd.insert(1, "-DEMU_EARLY")
     if reverse:
