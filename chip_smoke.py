@@ -7,7 +7,7 @@ Needs one CUDA card, nvcc and the repository checkout; imports nothing of
 JAX or msom_tpu. With no argument every phase runs; with phase names
 (kernels, steps, paths, fused_mm, mg, node, periodic, stochastic, driver,
 driver_node, mspg, coupling, varro, newqg, sqg, rows, shard, vshard,
-pgshard, api, f32val, refine)
+pgshard, api, f32val, refine, dryrun)
 the build and those phases only (for work on one part: the kernels' record
 then lists what ran). Phases, in order; any failure exits non-zero:
 
@@ -224,8 +224,15 @@ then lists what ran). Phases, in order; any failure exits non-zero:
    matmul basis), mg, mode_pv_invert and varRo (no K1-K4; KV twice a
    step); from each unsharded run's final state one f64 step of each
    within STEP_LIMIT; K1 and K2 rows (coupled rows mg) and KV (gspmd
-   varRo) timed on their final states against their bounds. Multi-rank
-   runs are not measured here (one card).
+   varRo) timed on their final states against their bounds. The gspmd
+   spectral and mg steps also run with the overlapped forms' rings held
+   in flight until their wait, as on a mesh of several ranks (the
+   interior/rim split on tiles of halo.SPLIT_MIN_BYTES or more: here the
+   finest level), in turns with the shipped step: the final states bit
+   for bit equal, each form's median and range (on one card nothing is
+   in flight, so the split measures what the overlapped form costs, not
+   what it gains).
+   Multi-rank runs are not measured here (one card).
 18c. the vertex-sharded qg-node run (phase name vshard), world size 1
    under NCCL: run_node(sharded=True) on the card against the unsharded
    run_node on the CPU (128^2 x 3 f64, the coastline, solver="vmg", the
@@ -271,6 +278,16 @@ then lists what ran). Phases, in order; any failure exits non-zero:
    configuration at 2048^2 x 4 f32 with the refine constants in turns
    with the fold step (five rounds of 20 steps each, K1 twice a step,
    busy and idle share, finite states).
+22. the multi-device dry run (phase name dryrun; msom_tpu_torch.entry, the
+   counterpart of the JAX package's __graft_entry__.py): entry()'s
+   256^2 x 3 f32 forward step on the card against the same state and
+   step on the CPU (q, psi and KE within LIMITS[4]); then, at world size 1
+   under NCCL, dryrun_multichip's seven modes (gspmd_mg, gspmd_spectral,
+   shard_map_spectral, shard_map_mg, rows_kernel, vshard_node,
+   gspmd_mspg) in float32 and in float64, each against the unsharded
+   step from the same state on the card (float64 within STEP_LIMIT), the
+   launches of every kernel over each dry run (K1 rows and K2 rows in
+   rows_kernel), the seconds of each.
 
 TF32 is switched off for matmuls and convolutions before anything runs:
 1-pass reduced-precision transforms give O(1) solution error at N = 2048.
@@ -308,7 +325,7 @@ MG_MAX_K3_LAUNCHES = 50  # K3 launches a step on the mg path, at most
 PHASES = ("kernels", "steps", "paths", "fused_mm", "mg", "node", "periodic",
           "stochastic", "driver", "driver_node", "mspg", "coupling", "varro",
           "newqg", "sqg", "rows", "shard", "vshard", "pgshard", "api",
-          "f32val", "refine")
+          "f32val", "refine", "dryrun")
 K1_OPTIONS = ("pg", "pg_flsrv", "topo", "qforc", "energy_conserv", "slip",
               "all")
 # the periodic kernel's option sets (no slip: the domain has no wall), and
@@ -3955,9 +3972,10 @@ def rows_path(QGConfig, rows, rows_err):
     return True
 
 
-# the shard phases' protocol (two rounds keep the script well inside its
-# time limit)
-SHARD_ROUNDS, SHARD_STEPS = 2, 10
+# the shard phases' protocol: two rounds of five steps (with two rounds
+# of ten the whole script took 1176 s of its 1200 on one H100 whose host
+# ran every phase 1.3-1.6 times slower than usual)
+SHARD_ROUNDS, SHARD_STEPS = 2, 5
 SHARD_WARM = 3
 # the gspmd configurations of the shard phase: {label: bench_config kwargs}
 SHARD_GSPMD = {"spectral": {}, "mg": dict(solver="mg", tol=1e-3),
@@ -4058,11 +4076,13 @@ def _shard_report(label, res, want, extra="", final=_qg_final):
                  or "none")
               + f" (expected {want[k] or 'none'}){tail} "
               f"{'ok' if good else 'FAIL'}")
-    a, b = list(res)
-    print(f"shard {label}: {b} {res[b]['med']:.4f} ms/step against {a} "
-          f"{res[a]['med']:.4f} (ratio {res[b]['med'] / res[a]['med']:.4f},"
-          f" device busy ratio {res[b]['busy'] / res[a]['busy']:.4f}); a "
-          f"multi-rank run is not measured: one card{extra}")
+    a, *others = list(res)
+    for b in others:
+        print(f"shard {label}: {b} {res[b]['med']:.4f} ms/step against {a} "
+              f"{res[a]['med']:.4f} (ratio "
+              f"{res[b]['med'] / res[a]['med']:.4f}, device busy ratio "
+              f"{res[b]['busy'] / res[a]['busy']:.4f}); a multi-rank run is "
+              f"not measured: one card{extra}")
     return ok
 
 
@@ -4108,6 +4128,50 @@ def shard_routing_check(QGConfig):
     return ok
 
 
+def _halo_rim(step):
+    """`step` with every ring of halo.ghosted_issue held in flight until
+    its wait (on one card there is no transfer), so that the overlapped
+    stencils split as on a mesh of several ranks: from a tile of
+    halo.SPLIT_MIN_BYTES up."""
+    from msom_tpu_torch.parallel import halo
+    issue = halo.ghosted_issue
+
+    def held(a, bc, mesh):
+        return halo.PendingGhosted(a, [], issue(a, bc, mesh).wait)
+
+    def run(*args):
+        halo.ghosted_issue = held
+        try:
+            return step(*args)
+        finally:
+            halo.ghosted_issue = issue
+    return run
+
+
+def _overlap_report(label, res):
+    """The halo forms of one gspmd step: as shipped (at world size 1 the
+    ring is complete at once and summed whole) and with the rings held in
+    flight (the split from a tile of SPLIT_MIN_BYTES up): each one's
+    median, range and device busy time, and the final states bit for bit.
+    Returns whether they are."""
+    import torch
+    n = SHARD_ROUNDS * SHARD_STEPS
+    runs = {"shipped": res["gspmd"], "rings in flight": res["gspmd rim"]}
+    base = res["gspmd"]
+    same = all(torch.equal(getattr(r["state"], f), getattr(base["state"], f))
+               for r in runs.values() for f in ("q", "psi"))
+    print(f"shard {label} halo overlap: "
+          + "".join(f"{k} {r['med']:.4f} ms/step (range {min(r['ms']):.4f}-"
+                    f"{max(r['ms']):.4f}, ratio to shipped "
+                    f"{r['med'] / base['med']:.4f}, device busy "
+                    f"{r['busy']:.4f} ms/step); " for k, r in runs.items())
+          + f"the final q and psi bit for bit equal: {same}; on one card "
+          f"nothing is in flight, so a split's ratio is what the "
+          f"overlapped form costs, not what it gains "
+          f"({n} steps each) {'ok' if same else 'FAIL'}")
+    return same
+
+
 def shard_path(QGConfig, rows, rows_err, kv_err):
     """The sharded multigrid and the general-mesh step at world size 1
     under NCCL, at 2048^2 x 4 f32. (a) The rows step with solver="mg"
@@ -4148,6 +4212,10 @@ def shard_path(QGConfig, rows, rows_err, kv_err):
         mode = sharded["mode"]
         runs = {"unsharded": (qg.make_step(cfg), const, state),
                 mode: (rs.step, rs.shard(const), rs.shard(state))}
+        overlap = label in ("gspmd spectral", "gspmd mg")
+        if overlap:
+            runs["gspmd rim"] = (_halo_rim(rs.step), runs[mode][1],
+                                 runs[mode][2])
         torch.cuda.synchronize()
         print(f"shard {label} set-up {time.perf_counter() - t0:.1f} s")
         res = _shard_pair(label, runs)
@@ -4156,7 +4224,8 @@ def shard_path(QGConfig, rows, rows_err, kv_err):
             want = {"rows": dict(K1=n, K1rows=n,
                                  **(dict(K2=n, K2rows=n) if coupled else {}))}
         else:
-            want = {"gspmd": dict(KV=n) if label.endswith("varro") else {}}
+            want = {"gspmd": dict(KV=n) if label.endswith("varro") else {},
+                    "gspmd rim": {}}
         solver_mg = cfg.solver == "mg"
         u = dict(K1=n, **(dict(K2=n) if coupled else {}),
                  **(dict(KV=n) if label.endswith("varro") else {}))
@@ -4175,6 +4244,8 @@ def shard_path(QGConfig, rows, rows_err, kv_err):
             ok &= res["unsharded"]["counts"]["K3"] > 0 and all(
                 1 <= c <= MG_MAX_CYCLES for r in res.values()
                 for c in r["cycles"])
+        if overlap:
+            ok &= _overlap_report(label, res)
         if not (ok and err <= STEP_LIMIT):
             print(f"shard {label} FAIL")
             return False
@@ -5212,6 +5283,69 @@ def refine_path(QGConfig, card):
     return ok
 
 
+def entry_check():
+    """entry()'s 256^2 x 3 f32 forward step on the card against the same
+    state and step on the CPU: q, psi and the KE within LIMITS[4] of their
+    maxima; the card's step time (CUDA events, after one warm-up call)."""
+    import torch
+    from msom_tpu_torch import entry
+    fn, (state, const, tnext) = entry.entry("cuda")
+    fn(state, const, tnext)
+    ms = cuda_ms(lambda: fn(state, const, tnext), 20)
+    q, psi, ke = fn(state, const, tnext)
+    cfn, (_, cconst, ctnext) = entry.entry("cpu")
+    cstate = dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).cpu()
+        for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)})
+    cq, cpsi, cke = cfn(cstate, cconst, ctnext)
+    rels = dict(q=_rel(q, cq), psi=_rel(psi, cpsi),
+                ke=abs(ke.item() - cke.item()) / abs(cke.item()))
+    good = (bool(torch.isfinite(ke)) and tuple(q.shape) == (3, 256, 256)
+            and all(r <= LIMITS[4] for r in rels.values()))
+    print(f"dryrun entry(): the msqg forward step at 256^2 x 3 f32 on the "
+          f"card {ms:.4f} ms a call, ke {ke.item():.6e}; against the same "
+          f"state and step on the CPU "
+          + ", ".join(f"rel {k} = {v:.3e}" for k, v in rels.items())
+          + f" (limit {LIMITS[4]:g}) {'ok' if good else 'FAIL'}")
+    return good
+
+
+def dryrun_check():
+    """dryrun_multichip at world size 1 under NCCL (the group is the
+    caller's), float32 then float64: every mode's KE, deviation from the
+    unsharded step on the card (float64 within STEP_LIMIT), seconds, and
+    every kernel's launches over each dry run (rows_kernel's K1 rows and
+    K2 rows among them)."""
+    from msom_tpu_torch import entry
+    ok = True
+    for dtype in ("float32", "float64"):
+        t0 = time.perf_counter()
+        reset_counts()
+        res = entry.dryrun_multichip("cuda", dtype=dtype)
+        counts = {k: v for k, v in kernel_counts().items() if v}
+        k1r, k2r = (res["modes"]["rows_kernel"]["launches"][k]
+                    for k in ("K1rows", "K2rows"))
+        seconds = time.perf_counter() - t0
+        for name, r in res["modes"].items():
+            good = dtype == "float32" or r["rel"] <= STEP_LIMIT
+            ok &= good
+            print(f"dryrun {dtype} {name}: ke {r['ke']:.6e}, {r['taken']} "
+                  f"on {r['mesh'][0]}x{r['mesh'][1]}, against the unsharded "
+                  f"step on the card {r['rel']:.3e}"
+                  + (f" (limit {STEP_LIMIT:g})" if dtype == "float64"
+                     else "") + f", {r['seconds']:.2f} s "
+                  f"{'ok' if good else 'FAIL'}")
+        rows_ok = k1r > 0 and k2r > 0
+        ok &= rows_ok
+        print(f"dryrun {dtype}: {res['line']}; {seconds:.1f} s; launches "
+              f"over the dry run "
+              + (", ".join(f"{k} {v}" for k, v in counts.items()) or "none")
+              + f"; rows_kernel K1 rows {k1r}, K2 rows {k2r} "
+              f"{'ok' if rows_ok else 'FAIL'}")
+    return ok
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5670,6 +5804,25 @@ def main() -> int:
         if not (good and refine_path(QGConfig, card)):
             return 21
         print(f"refine done at {time.perf_counter() - t_start:.0f} s "
+              f"({time.perf_counter() - t0:.0f} s for the phase)")
+
+    # 22. the multi-device dry run: entry() on the card against the CPU,
+    # then dryrun_multichip's seven modes at world size 1 under NCCL
+    if wanted("dryrun"):
+        import shutil
+        from msom_tpu_torch.parallel import dist
+        t0 = time.perf_counter()
+        if not entry_check():
+            return 22
+        tmp = _rows_group()
+        try:
+            good = dryrun_check()
+        finally:
+            dist.shutdown()
+            shutil.rmtree(tmp, ignore_errors=True)
+        if not good:
+            return 22
+        print(f"dryrun done at {time.perf_counter() - t_start:.0f} s "
               f"({time.perf_counter() - t0:.0f} s for the phase)")
 
     print(f"total {time.perf_counter() - t_start:.0f} s")

@@ -4,9 +4,11 @@
 solvers/mg.py's solve_layered on a (my, mx) mesh (parallel/mesh.py):
 
 * the fine levels stay cut into tiles: the relaxation and the residual take
-  their ghosts from `halo.ghosted_sharded` (one halo exchange a red-black
-  colour: the sharded `boundary_level()`), the restriction is local, the
-  prolongation exchanges one coarse halo cell;
+  their ghosts from `halo.ghosted_issue` (one halo exchange a red-black
+  colour: the sharded `boundary_level()`), the interior of the neighbour
+  sum enqueued while the exchange is in flight (JAX's overlapped form);
+  the restriction is local, the prolongation exchanges one coarse halo
+  cell;
 * a level whose tile would fall below 2 x 2 cells (`level_is_sharded`) is
   whole on every rank: the residual is gathered once
   (`halo.gather_global`) at the first such level and the rest of the
@@ -78,20 +80,25 @@ def shard_levels(levels, mesh: Mesh) -> ShardedLevels:
 
 def _relax_sharded(da, res, lvl, nrelax: int, bc: BC, mesh: Mesh):
     """nrelax red-black line sweeps on a tile, the ghosts exchanged for
-    each colour (shard_mg.py:65-90)."""
-    d2 = lvl.delta * lvl.delta
+    each colour (shard_mg.py:65-90): a colour issues its exchange,
+    enqueues the interior of the neighbour sum and waits only for the rim
+    (halo.neighbor_sum_overlap; bit for bit fused_mg.relax_color)."""
+    rhs0 = -(lvl.delta * lvl.delta) * res
     for _ in range(nrelax):
         for mask in (lvl.red, ~lvl.red):
-            da = fused_mg.relax_color(halo.ghosted_sharded(da, bc, mesh),
-                                      res, lvl.t0, lvl.cp, lvl.im, mask, d2)
+            nb = halo.neighbor_sum_overlap(da, bc, mesh)
+            da = fused_mg.relax_color_sum(nb, da, rhs0, lvl.t0, lvl.cp,
+                                          lvl.im, mask)
     return da
 
 
 def _residual_sharded(a, b, lvl, bc: BC, idh0, idh1, mesh: Mesh):
     """(res, max|res| over the mesh), res = b - lap(a) - Gamma(a) - lam*a
-    on a tile (shard_mg.py:93-103)."""
-    res, m = fused_mg.residual_plain(halo.ghosted_sharded(a, bc, mesh), b,
-                                     lvl.s, lvl.lam, lvl.delta, idh0, idh1)
+    on a tile (shard_mg.py:93-103); the Laplacian overlapped with its
+    exchange (halo.laplacian_overlap)."""
+    res, m = fused_mg.residual_lap(
+        halo.laplacian_overlap(a, bc, lvl.delta, mesh), a, b, lvl.s,
+        lvl.lam, idh0, idh1)
     return res, halo.pmax(m)
 
 

@@ -31,7 +31,9 @@ state. Under GSPMD the JAX package strips the Pallas kernels
 (driver.py:92-118, sharded_cfg and _strip_kernels), so this step runs no
 K1 or K2: that is the mode's definition, not a fallback. The tendency is
 qg.rhs as torch ops with the sharded ghosts (halo.ghosted_sharded,
-ghosted_slip_sharded) and the tile's windows of the padded constants
+ghosted_slip_sharded; zeta overlapped with psi's exchange,
+halo.laplacian_overlap_g, as JAX's step.py:206-211) and the tile's
+windows of the padded constants
 (JAX's from_padded_local, step.py:124-135), the CFL maxima reduced by
 halo.pmax and the KE by halo.psum; tracers take qg.tracer_rhs. The
 inversion is, as qg.invert_q decides:
@@ -62,7 +64,6 @@ from typing import Callable, NamedTuple
 import torch
 
 from msom_tpu_torch.models import fused_rhs, fused_tracer, qg
-from msom_tpu_torch.ops.ghost import laplacian_g
 from msom_tpu_torch.parallel import dist, halo, shard_mg, spectral_shard
 from msom_tpu_torch.parallel.mesh import Mesh, make_mesh, mesh_shape
 from msom_tpu_torch.solvers import mg, vary
@@ -441,8 +442,10 @@ def _mesh_step(cfg, mesh: Mesh, generator) -> ShardedStep:
             raise ValueError(f"the general-mesh step takes a tile "
                              f"{(nl, ny, nx)}, got {tuple(q.shape)}")
         psi, st = invert(const, q, guess)
-        psi_g = ghost_fn(psi, bc)
-        zeta = laplacian_g(psi_g, delta)
+        # zeta's interior is enqueued while psi's ring is in flight
+        pending = halo.ghosted_issue(psi, bc, mesh)
+        zeta = halo.laplacian_overlap_g(pending, delta)
+        psi_g = pending.wait()
         dq, dtr = qg.rhs(cfg, const, q, psi_g, zeta,
                          ghost_deriv_fn(zeta, psi_g), tr, ghost_fn=ghost_fn,
                          ghost_deriv_fn=ghost_deriv_fn)

@@ -81,17 +81,33 @@ def relax_color(da_g: Ghosted, res: torch.Tensor, t0, cp, im, mask,
     solve of each column's vertical tridiagonal system with the horizontal
     neighbours frozen (poisson_layer.h:48-150, red-black instead of
     in-place Gauss-Seidel). t0/cp/im broadcast against (nl, n, n)."""
-    rhs = -d2 * res + neighbor_sum(da_g)
-    x = tridiag.solve_factored(cp, im, t0, rhs)
-    return torch.where(mask, x, da_g.a)
+    return relax_color_sum(neighbor_sum(da_g), da_g.a, -d2 * res, t0, cp,
+                           im, mask)
+
+
+def relax_color_sum(nb: torch.Tensor, da: torch.Tensor, rhs0: torch.Tensor,
+                    t0, cp, im, mask) -> torch.Tensor:
+    """`relax_color` from the neighbour sum `nb` of the tile `da` (its
+    ghosts' only use) and rhs0 = -d2 * res: the sharded multigrid's
+    overlapped colour, which forms the sum while the ghosts are in
+    flight."""
+    x = tridiag.solve_factored(cp, im, t0, rhs0 + nb)
+    return torch.where(mask, x, da)
 
 
 def residual_plain(a_g: Ghosted, b: torch.Tensor, s, lam, delta: float,
                    idh0, idh1):
     """(res, max|res|), res = b - lap(a) - Gamma(a) - lam*a
     (poisson_layer.h:157-258); s and lam broadcast against the field."""
-    a = a_g.a
-    res = b - laplacian_g(a_g, delta)
+    return residual_lap(laplacian_g(a_g, delta), a_g.a, b, s, lam, idh0,
+                        idh1)
+
+
+def residual_lap(lap: torch.Tensor, a: torch.Tensor, b: torch.Tensor, s,
+                 lam, idh0, idh1):
+    """`residual_plain` from lap(a) (the sharded multigrid's overlapped
+    residual forms it while the ghosts are in flight)."""
+    res = b - lap
     if s is not None:
         res = res - stretch(a, s, idh0, idh1)
     if lam is not None:
